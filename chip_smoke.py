@@ -8,17 +8,29 @@ Runs from the root of a checkout, with nothing prebuilt:
   1. prints the card (torch and nvidia-smi: name, power limit);
   2. builds the CUDA kernels from wasmsnark_tpu_torch/csrc (nvcc, one call
      per source, in parallel) and prints the seconds;
-  3. holds each kernel K1-K7 against its plain PyTorch version on the card,
-     on 2^16 lanes from a seeded numpy generator plus edge values (0, 1,
-     q-1, q-2; zero, equal and opposite points for the curve kernels),
-     requiring bit equality, and times both with CUDA events;
+  3. holds each kernel K1-K10 against its plain PyTorch version on the
+     card, on 2^16 lanes from a seeded numpy generator plus edge values (0,
+     1, q-1, q-2; zero, equal and opposite points for the curve kernels;
+     Z = 0 and x2 = X/Z lanes for the Miller steps), requiring bit
+     equality, and times both with CUDA events;
   4. runs the trusted setup of a 2^16-constraint circuit on the card;
   5. proves twice through build_bn128().groth16_gen_proof with a fixed rng,
      with every launch counter set to 0 just before the first prove and
      read just after it — each of K1-K7 must have launched;
   6. verifies the proof on the host (True) and a tampered copy (False), and
      proves a small circuit on the card and with the plain versions on the
-     CPU, requiring the same proof JSON.
+     CPU, requiring the same proof JSON;
+  7. verifies N = 1024 proofs of the 2^16 circuit in one
+     rt.groth16_verify_batch call (re-randomised copies of the proof and
+     bad lanes at fixed places), twice, requiring exactly the expected
+     list; the counters are set to 0 before the second (steady) call and
+     K8 and K9 must have launched as often as the static schedule says;
+  8. runs the unprepared device pairing pd.pairing_product on 1024 lanes of
+     e(7 G1, 9 G2) against e(G1, G2)^63, with the counters set to 0 before
+     it (K10 must have launched), and holds it against the prepared path on
+     the four pairs of one proof, bit for bit;
+  9. verifies 4 lanes on the card and with the plain versions on the CPU,
+     requiring the same booleans and bit-equal F12 values.
 
 Any failure prints its traceback and exits non-zero.  Without a CUDA
 device, or outside the repository, it exits non-zero and prints no
@@ -54,6 +66,15 @@ NW = 8                           # 32-bit words per BN128 element
 ELEM = 16 * 4                    # bytes of one element in int32 limb planes
 MM_OPS = 2 * (2 * NW * NW + NW) + NW   # one CIOS Montgomery product
 AS_OPS = 3 * NW                        # one modular add or sub
+N_VERIFY = 1024                  # proofs per verify batch: the JAX kernels'
+                                 # lane tile TOWER_TILE_B (tower_pallas.py)
+PROVE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+
+
+def sample_lanes(n):
+    """Two good lanes (the proof, a re-randomised copy) and two bad ones
+    (pi_a + 1, a wrong input) of verify_lanes(..., n)."""
+    return (0, 1, 7, n // 3)
 
 _T0 = time.perf_counter()
 
@@ -85,18 +106,60 @@ def time_cuda(fn, reps):
     return statistics.median(times)
 
 
+def kernel_name(mangled):
+    """The `*_kernel` name inside a mangled symbol (a length-prefixed
+    identifier, the length digits possibly glued to hex digits)."""
+    for i in range(len(mangled)):
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        if j > i and mangled[j - 1].isdigit():
+            n = int(mangled[i:j])
+            if mangled[j:j + n].endswith("_kernel"):
+                return mangled[j:j + n]
+    return None
+
+
+def ptxas_summary(build_dir):
+    """Registers, stack frame and spill bytes of every kernel entry
+    function, read from the `-Xptxas -v` build logs."""
+    import re
+    out = {}
+    for log in sorted(os.listdir(build_dir)):
+        if not log.endswith(".log"):
+            continue
+        with open(os.path.join(build_dir, log)) as fh:
+            text = fh.read()
+        for block in text.split("Compiling entry function")[1:]:
+            name = kernel_name(block.split("'")[1])
+            props = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", block)
+            regs = re.search(r"Used (\d+) registers", block)
+            if name and props and regs:
+                out[name] = {
+                    "registers": int(regs.group(1)),
+                    "stack": int(props.group(1)),
+                    "spill_stores": int(props.group(2)),
+                    "spill_loads": int(props.group(3))}
+    return out
+
+
 def bound(nbytes, ops):
     tb, to = nbytes / PEAK_BYTES, ops / PEAK_OPS
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
+def leaves(t):
+    """The tensors of a nested tuple, in order."""
+    return [x for c in t for x in leaves(c)] if isinstance(t, tuple) else [t]
+
+
 def mismatch(a, b):
-    """(lanes that differ, max |difference| of any limb)."""
-    a = a if isinstance(a, tuple) else (a,)
-    b = b if isinstance(b, tuple) else (b,)
+    """(lanes that differ, max |difference| of any limb) of two trees of
+    [L, lanes] planes."""
     lanes = None
     err = 0
-    for x, y in zip(a, b):
+    for x, y in zip(leaves(a), leaves(b), strict=True):
         d = (x.long() - y.long()).abs()
         bad = d.reshape(d.shape[0], -1).amax(0) != 0
         lanes = bad if lanes is None else lanes | bad
@@ -109,7 +172,7 @@ def check_kernels(dev):
     import numpy as np
     import torch
     from wasmsnark_tpu_torch.models.bn128 import bn128
-    from wasmsnark_tpu_torch.ops import fp, towers, ntt, curve
+    from wasmsnark_tpu_torch.ops import cuda_lib, fp, towers, ntt, curve
 
     m = bn128()
     rng = np.random.default_rng(SEED)
@@ -127,7 +190,8 @@ def check_kernels(dev):
 
     out = []
 
-    def record(kid, name, source, line, fn_k, fn_p, nbytes, ops, reps=50):
+    def record(kid, name, source, line, fn_k, fn_p, nbytes, ops, reps=50,
+               fns=None):
         a, b = fn_k(), fn_p()
         torch.cuda.synchronize()
         bad, err = mismatch(a, b)
@@ -140,7 +204,8 @@ def check_kernels(dev):
             "replaces": line, "launches": None, "max_abs_err": err,
             "mismatched_lanes": bad, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "bytes": nbytes, "lanes": n})
+            "bytes": nbytes, "lanes": n,
+            "fns": fns or cuda_lib.KERNELS[kid][1]})
         say(f"{kid} {name}: {bad} mismatched lanes, {ms:.4f} ms "
             f"(plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
 
@@ -203,7 +268,59 @@ def check_kernels(dev):
            lambda: curve.jac_double(Fq, P),
            lambda: curve.jac_double_plain(Fq, P),
            6 * ELEM * n, (7 * MM_OPS + 11 * AS_OPS) * n)
+    check_tower_kernels(m, dev, rand, record, n)
     return out
+
+
+def check_tower_kernels(m, dev, rand, record, n):
+    """K8-K10 against their plain versions on the card.  The operation
+    counts of the bounds are those of csrc/tower_kernels.cu's formulas
+    (Montgomery products, modular adds and subs with xi = 9 + u and the
+    small multiples as double-and-add chains); bytes are the operand and
+    output planes, 64 B each per lane."""
+    from wasmsnark_tpu_torch.ops import fp, tower_kernels as tk
+    from wasmsnark_tpu_torch.utils.serialize import (ints_to_limbs_fast,
+                                                     limbs_to_ints)
+    Fq = m.fp_spec
+    src, pl = "tower_kernels.cu", "wasmsnark_tpu/ops/tower_pallas.py"
+    a = tk.unflatten12([rand(Fq) for _ in range(12)])
+    b = tk.unflatten12([rand(Fq) for _ in range(12)])
+    record("K8", "f12_mul", src, f"{pl}:75", lambda: tk.f12_mul(Fq, a, b),
+           lambda: tk.f12_mul_plain(Fq, a, b), 36 * ELEM * n,
+           (54 * MM_OPS + 280 * AS_OPS) * n, fns=("k8_f12_mul",))
+    record("K8", "f12_sqr", src, f"{pl}:75", lambda: tk.f12_sqr(Fq, a),
+           lambda: tk.f12_sqr_plain(Fq, a), 24 * ELEM * n,
+           (36 * MM_OPS + 210 * AS_OPS) * n, fns=("k8_f12_sqr",))
+    record("K9", "f12_cyc_sqr", src, f"{pl}:90",
+           lambda: tk.f12_cyc_sqr(Fq, a), lambda: tk.f12_cyc_sqr_plain(Fq, a),
+           24 * ELEM * n, (18 * MM_OPS + 139 * AS_OPS) * n)
+    X, Y, Z, x2, y2 = [(rand(Fq), rand(Fq)) for _ in range(5)]
+    xP, yP = rand(Fq), rand(Fq)
+    for c in Z:                               # lanes 64..95: Z = 0
+        c[:, 64:96] = 0
+    # lanes 96..127: x2 = X/Z, where the add step's lambda = x2 Z - X = 0
+    sl = slice(96, 128)
+
+    def vals(p):
+        return [Fq.from_mont(v) for v in limbs_to_ints(fp.to_numpy(p[:, sl]))]
+
+    xz = [m.F2.mul((u0, u1), m.F2.inv((z0, z1)))
+          for u0, u1, z0, z1 in zip(*(vals(p) for p in (*X, *Z)))]
+    for k in range(2):
+        x2[k][:, sl] = fp.planes(ints_to_limbs_fast(
+            [Fq.to_mont(v[k]) for v in xz], Fq.n_limbs), dev)
+    record("K10", "miller_dbl", src, f"{pl}:100",
+           lambda: tk.miller_dbl(Fq, X, Y, Z, xP, yP),
+           lambda: tk.miller_dbl_plain(Fq, X, Y, Z, xP, yP), 20 * ELEM * n,
+           (50 * MM_OPS + 151 * AS_OPS) * n, fns=("k10_miller_dbl",))
+    record("K10", "miller_add", src, f"{pl}:134",
+           lambda: tk.miller_add(Fq, X, Y, Z, x2, y2, xP, yP),
+           lambda: tk.miller_add_plain(Fq, X, Y, Z, x2, y2, xP, yP),
+           24 * ELEM * n, (41 * MM_OPS + 79 * AS_OPS) * n,
+           fns=("k10_miller_add",))
+    a0 = tk.miller_add(Fq, X, Y, Z, x2, y2, xP, yP)[0][0]
+    if any(int(p[:, sl].abs().sum()) for p in a0):
+        raise AssertionError("the x2 = X/Z lanes are not degenerate")
 
 
 def curve_inputs(m, rng, dev, n):
@@ -257,6 +374,209 @@ def curve_inputs(m, rng, dev, n):
     return P, Q, Qa
 
 
+def f12_schedule(pd, n_pairs, prepared):
+    """Launches of each tower entry point that one pairing product over
+    n_pairs pairs makes, from the static schedules: a line multiply per
+    Miller step and a square per dbl step; log2(n_pairs) multiplies for the
+    pairs; 2 multiplies in the easy part; in the hard part three z-powers
+    of (bits(z) - 1) cyclotomic squarings and (popcount(z) - 1) multiplies
+    each, then the chain's 13 multiplies and 4 cyclotomic squarings."""
+    flags = pd._prep_flags
+    steps, dbls = len(flags), int((flags == 0).sum())
+    zbits, zpop = len(pd.z_bits), int(pd.z_bits.sum())
+    return {
+        "k8_f12_mul": steps + (n_pairs.bit_length() - 1) + 2
+        + 3 * (zpop - 1) + 13,
+        "k8_f12_sqr": dbls,
+        "k9_f12_cyc_sqr": 3 * (zbits - 1) + 4,
+        "k10_miller_dbl": 0 if prepared else dbls,
+        "k10_miller_add": 0 if prepared else steps - dbls,
+    }
+
+
+def tower_counts(counts):
+    return {fn: c for fn, c in counts.items() if fn[:3] in ("k8_", "k9_")
+            or fn.startswith("k10")}
+
+
+def rerandomised(m, proof, r):
+    """The proof with A' = r^-1 A and B' = r B: valid for the same input,
+    since e(A', B') = e(A, B)."""
+    from wasmsnark_tpu_torch.groth16 import verifier
+    R = m.Fr.q
+    a = m.G1.affine(m.G1.times_scalar(
+        verifier._g1_from_json(m, proof["pi_a"]), pow(r, -1, R)))
+    b = m.G2.affine(m.G2.times_scalar(
+        verifier._g2_from_json(m, proof["pi_b"]), r))
+    return dict(proof, pi_a=[str(v) for v in a],
+                pi_b=[[str(c) for c in v] for v in b])
+
+
+def verify_lanes(m, pub, proof, n):
+    """n lanes: the proof and 64 re-randomised copies, with bad lanes at
+    fixed places.  Returns (inputs, proofs, expected)."""
+    import random
+    rng = random.Random(SEED)
+    good = [proof] + [rerandomised(m, proof, rng.randrange(1, m.Fr.q))
+                      for _ in range(64)]
+    tampered = json.loads(json.dumps(proof))
+    tampered["pi_a"][0] = str(int(tampered["pi_a"][0]) + 1)
+    bad = {7: (pub, tampered),                          # pi_a + 1
+           n // 3: ([str(int(pub[0]) + 1)], proof),     # wrong input
+           n // 2: ([str(int(pub[0]) + m.Fr.q)], proof),  # input >= r
+           2 * n // 3: (pub + ["1"], proof),            # wrong count
+           n - 1: (pub, dict(proof, pi_a=["0", "1", "0"]))}  # pi_a = 0
+    ins, prs, want = [], [], []
+    for i in range(n):
+        inp, prf = bad.get(i, (pub, good[i % len(good)]))
+        ins.append(inp)
+        prs.append(prf)
+        want.append(i not in bad)
+    return ins, prs, want
+
+
+def verify_batch(rt, vk, lanes, phases):
+    """N_VERIFY proofs through rt.groth16_verify_batch, twice; returns the
+    launches per entry point of the steady call."""
+    import torch
+    from wasmsnark_tpu_torch.groth16 import verifier
+    from wasmsnark_tpu_torch.ops import cuda_lib
+    from wasmsnark_tpu_torch.ops.pairing import bn128_pairing_device
+
+    m = rt.module
+    pd = bn128_pairing_device()
+    ins, prs, want = lanes
+    say(f"verify batch: {N_VERIFY} proofs, {want.count(False)} bad lanes")
+    pd.vk_prep_cache.clear()
+    for name in ("first", "steady"):
+        if name == "steady":
+            cuda_lib.reset_launches()
+        t = time.perf_counter()
+        got = rt.groth16_verify_batch(vk, ins, prs)
+        torch.cuda.synchronize()
+        phases[f"verify_{name}_s"] = time.perf_counter() - t
+        if got != want:
+            bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+            raise AssertionError(f"verify batch ({name}) wrong at lanes "
+                                 f"{bad[:20]}")
+    counts = dict(cuda_lib.fn_launches)
+    phases["verify_proofs_per_s"] = N_VERIFY / phases["verify_steady_s"]
+    phases["verify_launches"] = {k: v for k, v in counts.items() if v}
+    say(f"verify batch: first {phases['verify_first_s']:.2f} s, steady "
+        f"{phases['verify_steady_s']:.2f} s "
+        f"({phases['verify_proofs_per_s']:.1f} proofs/s); launches "
+        f"{phases['verify_launches']}")
+    sched = f12_schedule(pd, 4, prepared=True)
+    if tower_counts(counts) != sched:
+        raise AssertionError(f"verify batch launches {tower_counts(counts)} "
+                             f"are not the static schedule's {sched}")
+
+    # where the steady time goes: host marshalling, then the device half
+    t = time.perf_counter()
+    g1, g2_b, fixed, ok_host = verifier._batch_inputs(pd, m, vk, ins, prs)
+    torch.cuda.synchronize()
+    phases["verify_host_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ok = pd.is_one(verifier._pairing_batch(pd, g1, g2_b, fixed)).tolist()
+    phases["verify_device_s"] = time.perf_counter() - t
+    if [bool(a) and b for a, b in zip(ok, ok_host)] != want:
+        raise AssertionError("the split verify batch disagrees")
+    say(f"verify batch split: host marshalling {phases['verify_host_s']:.2f}"
+        f" s, device pass {phases['verify_device_s']:.2f} s")
+
+    t = time.perf_counter()
+    for i in sample_lanes(N_VERIFY):          # two good, two bad lanes
+        if rt.groth16_verify(vk, ins[i], prs[i]) is not want[i]:
+            raise AssertionError(f"lane {i} disagrees with host verify")
+    phases["verify_host_lanes_s"] = time.perf_counter() - t
+    return counts
+
+
+def pairing_batch(rt, vk, pub, proof, phases):
+    """The unprepared pairing on N_VERIFY lanes of e(7 G1, 9 G2) against
+    e(G1, G2)^63, and against the prepared path on one proof's four
+    pairs.  Returns the launches per entry point of the pairing batch."""
+    import torch
+    from wasmsnark_tpu_torch.groth16 import verifier
+    from wasmsnark_tpu_torch.ops import cuda_lib
+    from wasmsnark_tpu_torch.ops.curve import map_leaf
+    from wasmsnark_tpu_torch.ops.pairing import bn128_pairing_device
+
+    pd = bn128_pairing_device()
+    m = pd.m
+    p1 = m.G1.affine(m.G1.times_scalar(m.g1_gen, 7))[:2]
+    q1 = m.G2.affine(m.G2.times_scalar(m.g2_gen, 9))[:2]
+    g1 = map_leaf(pd.pack_g1([p1] * N_VERIFY), lambda a: a[:, None])
+    g2 = map_leaf(pd.pack_g2([q1] * N_VERIFY), lambda a: a[:, None])
+    for name in ("first", "steady"):
+        cuda_lib.reset_launches()
+        t = time.perf_counter()
+        e = pd.pairing_product(g1, g2, 1)
+        torch.cuda.synchronize()
+        phases[f"pairing_{name}_s"] = time.perf_counter() - t
+    counts = dict(cuda_lib.fn_launches)
+    phases["pairing_launches"] = {k: v for k, v in counts.items() if v}
+    say(f"pairing batch ({N_VERIFY} lanes): first "
+        f"{phases['pairing_first_s']:.2f} s, steady "
+        f"{phases['pairing_steady_s']:.2f} s; launches "
+        f"{phases['pairing_launches']}")
+    sched = f12_schedule(pd, 1, prepared=False)
+    if tower_counts(counts) != sched:
+        raise AssertionError(f"pairing launches {tower_counts(counts)} are "
+                             f"not the static schedule's {sched}")
+    want = m.F12.exp(m.final_exponentiation(m.miller_loop(
+        m.G1.affine(m.g1_gen)[:2], m.G2.affine(m.g2_gen)[:2])), 63)
+    if any(v != want for v in pd.unpack_f12(e)):
+        raise AssertionError("e(7 G1, 9 G2) != e(G1, G2)^63 on some lane")
+
+    g1p, g2_b, fixed, ok_host = verifier._batch_inputs(pd, m, vk, [pub],
+                                                       [proof])
+    e_prep = verifier._pairing_batch(pd, g1p, g2_b, fixed)
+    pts = [verifier._g2_from_json(m, proof["pi_b"])] + [
+        verifier._g2_from_json(m, vk[k])
+        for k in ("vk_gamma_2", "vk_delta_2", "vk_beta_2")]
+    g2_4 = map_leaf(pd.pack_g2([m.G2.affine(p)[:2] for p in pts]),
+                    lambda a: a.reshape(a.shape[0], 4, 1))
+    e_full = pd.pairing_product(g1p, g2_4, 4)
+    torch.cuda.synchronize()
+    if mismatch(e_prep, e_full)[0] or not bool(pd.is_one(e_full).all()):
+        raise AssertionError("pairing_product and pairing_product_prepared "
+                             "disagree on a good proof's four pairs")
+    say("pairing: all lanes equal e(G1, G2)^63; unprepared = prepared on a "
+        "proof's four pairs, bit for bit")
+    return counts
+
+
+def card_against_cpu(rt, vk, lanes, phases):
+    """4 lanes (2 good, 2 bad) on the card and with the plain versions on
+    the CPU: the same booleans and bit-equal F12 values."""
+    import wasmsnark_tpu_torch
+    from wasmsnark_tpu_torch.groth16 import verifier
+    from wasmsnark_tpu_torch.ops.pairing import bn128_pairing_device
+
+    t = time.perf_counter()
+    m = rt.module
+    ins, prs, _ = lanes
+    pick = sample_lanes(N_VERIFY)
+    ins, prs = [ins[i] for i in pick], [prs[i] for i in pick]
+    cpu = wasmsnark_tpu_torch.build_bn128(device="cpu")
+    got = {"card": rt.groth16_verify_batch(vk, ins, prs),
+           "cpu": cpu.groth16_verify_batch(vk, ins, prs)}
+    if not got["card"] == got["cpu"] == [True, True, False, False]:
+        raise AssertionError(f"card and CPU verify differ: {got}")
+    e = {}
+    for where in ("card", "cpu"):
+        pd = bn128_pairing_device("cpu" if where == "cpu" else None)
+        g1, g2_b, fixed, _ = verifier._batch_inputs(pd, m, vk, ins, prs)
+        e[where] = tuple(x.cpu() for x in leaves(
+            verifier._pairing_batch(pd, g1, g2_b, fixed)))
+    if mismatch(e["card"], e["cpu"])[0]:
+        raise AssertionError("card and CPU F12 values differ")
+    phases["card_vs_cpu_s"] = time.perf_counter() - t
+    say(f"card against CPU: same booleans, bit-equal F12 values "
+        f"({phases['card_vs_cpu_s']:.1f} s)")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     import torch
@@ -286,6 +606,8 @@ def main() -> int:
     cuda_lib.build()
     phases["build_s"] = time.perf_counter() - t
     say(f"build: {phases['build_s']:.1f} s ({cuda_lib.build_dir()})")
+    phases["ptxas"] = ptxas_summary(cuda_lib.build_dir())
+    say(f"ptxas: {json.dumps(phases['ptxas'])}")
 
     say("kernels against their plain versions")
     t = time.perf_counter()
@@ -322,13 +644,12 @@ def main() -> int:
     torch.cuda.synchronize()
     phases["prove_first_s"] = time.perf_counter() - t
     launches = dict(cuda_lib.launches)
+    by_path = {"prove": dict(cuda_lib.fn_launches)}
     say(f"prove: {phases['prove_first_s']:.2f} s, launches {launches}")
-    missing = [kid for kid, c in launches.items() if c == 0]
+    missing = [kid for kid in PROVE_KERNELS if launches[kid] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the prove: "
                              f"{missing}")
-    for kr in kernels:
-        kr["launches"] = launches[kr["name"].split()[0]]
 
     t = time.perf_counter()
     proof2 = rt.groth16_gen_proof(wbytes, pkey, rng=7)
@@ -366,13 +687,30 @@ def main() -> int:
     phases["small_parity_s"] = time.perf_counter() - t
     say(f"small circuit: identical proofs ({phases['small_parity_s']:.1f} s)")
 
+    t = time.perf_counter()
+    lanes = verify_lanes(m, pub, proof, N_VERIFY)
+    phases["verify_lanes_s"] = time.perf_counter() - t
+    by_path["verify_batch"] = verify_batch(rt, vk, lanes, phases)
+    by_path["pairing_batch"] = pairing_batch(rt, vk, pub, proof, phases)
+    card_against_cpu(rt, vk, lanes, phases)
+
+    # each kernel's launches on the path it serves: the prove for K1-K7,
+    # the steady verify batch for K8 and K9, the pairing batch for K10
+    for kr in kernels:
+        counts = {path: sum(c[fn] for fn in kr["fns"])
+                  for path, c in by_path.items()}
+        kr["launches_by_path"] = counts
+        kr["launches"] = next((v for v in counts.values() if v), 0)
+        if not kr["launches"]:
+            raise AssertionError(f"{kr['name']} never launched")
+
     phases["wall_s"] = time.perf_counter() - _T0
     say("phases " + json.dumps(phases))
     say(f"done in {phases['wall_s']:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "mismatched_lanes", "bytes")
+            "mismatched_lanes", "bytes", "launches_by_path")
     print(json.dumps({"kernels": [{k_: kr[k_] for k_ in keys}
                                   for kr in kernels]}))
     print(smi)

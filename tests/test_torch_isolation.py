@@ -71,7 +71,8 @@ def _cpu_operands():
 
 
 def test_wrappers_on_cpu_tensors_launch_nothing():
-    from wasmsnark_tpu_torch.ops import cuda_lib, curve, fp, ntt, towers
+    from wasmsnark_tpu_torch.ops import (cuda_lib, curve, fp, ntt, towers,
+                                         tower_kernels as tk)
     m, x, y = _cpu_operands()
     Fq, Fr = m.fp_spec, m.fr_spec
     cuda_lib.reset_launches()
@@ -83,8 +84,16 @@ def test_wrappers_on_cpu_tensors_launch_nothing():
     curve.jac_madd(Fq, (x, y, x), (x, y))
     curve.jac_add(Fq, (x, y, x), (y, x, y))
     curve.jac_double(Fq, (x, y, x))
+    f = tk.unflatten12([x, y] * 6)
+    tk.f12_mul(Fq, f, f)
+    tk.f12_sqr(Fq, f)
+    tk.f12_cyc_sqr(Fq, f)
+    tk.miller_dbl(Fq, (x, y), (y, x), (x, x), x, y)
+    tk.miller_add(Fq, (x, y), (y, x), (x, x), (y, y), (x, y), x, y)
     assert all(v == 0 for v in cuda_lib.launches.values()), cuda_lib.launches
-    assert sorted(cuda_lib.launches) == [f"K{i}" for i in range(1, 8)]
+    assert all(v == 0 for v in cuda_lib.fn_launches.values())
+    assert sorted(cuda_lib.launches, key=lambda k: int(k[1:])) == \
+        [f"K{i}" for i in range(1, 11)]
 
 
 def test_entry_points_need_a_card_unless_told_cpu():
@@ -103,11 +112,17 @@ def test_entry_points_need_a_card_unless_told_cpu():
     assert wasmsnark_tpu_torch.build_bn128(device="cpu").device.type == "cpu"
 
 
-def test_loader_builds_only_on_demand_and_matches_sources():
+def test_loader_builds_only_on_demand_and_matches_sources(tmp_path,
+                                                         monkeypatch):
     """nvcc is looked for only inside build(); every C entry point's
-    parameters match the ctypes argtypes the loader declares."""
+    parameters match the ctypes argtypes the loader declares; the build
+    directory's hash covers every source."""
     from wasmsnark_tpu_torch.ops import cuda_lib
     from wasmsnark_tpu_torch.models.bn128 import bn128
+    assert set(cuda_lib.SOURCES) == {"fp_kernels", "curve_kernels",
+                                     "tower_kernels"}
+    assert {cuda_lib._ENTRY[fn][1] for fn in cuda_lib._SIGNATURES} == \
+        set(cuda_lib.KERNELS)
     assert len(cuda_lib.source_hash()) == 16
     assert cuda_lib.build_dir().startswith(cuda_lib.BUILD_ROOT)
     if cuda_lib.shutil.which("nvcc") is None and not os.path.exists(
@@ -135,6 +150,17 @@ def test_loader_builds_only_on_demand_and_matches_sources():
         one = sum(int(v) << (32 * k) for k, v in enumerate(w[8:16]))
         assert q == spec.q and one == spec.one_mont
         assert (q * int(w[16]) + 1) % (1 << 32) == 0
+    before = cuda_lib.source_hash()
+    for name in cuda_lib.HEADERS + tuple(cuda_lib.SOURCES.values()):
+        (tmp_path / name).write_bytes(
+            (pathlib.Path(cuda_lib.CSRC) / name).read_bytes())
+    monkeypatch.setattr(cuda_lib, "CSRC", str(tmp_path))
+    assert cuda_lib.source_hash() == before
+    for name in cuda_lib.HEADERS + tuple(cuda_lib.SOURCES.values()):
+        text = (tmp_path / name).read_bytes()
+        (tmp_path / name).write_bytes(text + b"\n")
+        assert cuda_lib.source_hash() != before, name
+        (tmp_path / name).write_bytes(text)
 
 
 def test_chip_smoke_without_a_card_fails_and_prints_no_result(tmp_path):

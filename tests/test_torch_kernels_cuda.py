@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K7 against their plain versions on the card.
+"""The CUDA kernels K1-K10 against their plain versions on the card.
 
 Marked `cuda`: they need an NVIDIA card and nvcc, and skip elsewhere.  On
 the card, where jax is not installed and tests/conftest.py would import
@@ -11,6 +11,7 @@ import torch
 
 from wasmsnark_tpu_torch.models.bn128 import bn128
 from wasmsnark_tpu_torch.ops import cuda_lib, curve, fp, ntt, towers
+from wasmsnark_tpu_torch.ops import tower_kernels as tk
 
 pytestmark = pytest.mark.cuda
 
@@ -62,3 +63,32 @@ def test_curve_kernels_match_plain(dev):
         assert torch.equal(a, b)
     for a, b in zip(curve.jac_double(spec, P), curve.jac_double_plain(spec, P)):
         assert torch.equal(a, b)
+
+
+def _flat(t):
+    return [t] if isinstance(t, torch.Tensor) else [p for c in t
+                                                    for p in _flat(c)]
+
+
+def _assert_equal(a, b):
+    for x, y in zip(_flat(a), _flat(b), strict=True):
+        assert torch.equal(x, y)
+
+
+def test_tower_kernels_match_plain(dev):
+    spec = bn128().fp_spec
+    n = 777
+    a = tk.unflatten12([_rand(spec, n, s, dev) for s in range(10, 22)])
+    b = tk.unflatten12([_rand(spec, n, s, dev) for s in range(22, 34)])
+    _assert_equal(tk.f12_mul(spec, a, b), tk.f12_mul_plain(spec, a, b))
+    _assert_equal(tk.f12_sqr(spec, a), tk.f12_sqr_plain(spec, a))
+    _assert_equal(tk.f12_cyc_sqr(spec, a), tk.f12_cyc_sqr_plain(spec, a))
+    X, Y, Z, q2 = [(_rand(spec, n, s, dev), _rand(spec, n, s + 1, dev))
+                   for s in (40, 42, 44, 46)]
+    xP, yP = _rand(spec, n, 48, dev), _rand(spec, n, 49, dev)
+    Z[0][:, 5:9] = 0
+    Z[1][:, 5:9] = 0
+    _assert_equal(tk.miller_dbl(spec, X, Y, Z, xP, yP),
+                  tk.miller_dbl_plain(spec, X, Y, Z, xP, yP))
+    _assert_equal(tk.miller_add(spec, X, Y, Z, q2, X, xP, yP),
+                  tk.miller_add_plain(spec, X, Y, Z, q2, X, xP, yP))

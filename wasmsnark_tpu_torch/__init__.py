@@ -1,12 +1,14 @@
 """wasmsnark_tpu_torch — the PyTorch/CUDA port of wasmsnark_tpu.
 
-The same Groth16 framework (BN128 setup, prove and verify in this slice)
-with every TPU kernel of the prove path rewritten by hand in CUDA C++ for
-Hopper (csrc/).  It imports torch and numpy, never jax and never the JAX
-package; data crosses the package boundary in the JAX package's layout
-(16-bit limb planes [L, *B], Montgomery form, affine zero (0, 0)).
+The same Groth16 framework (BN128 setup, prove, host verify and batched
+device verification so far) with every TPU kernel of those paths
+rewritten by hand in CUDA C++ for Hopper (csrc/).  It imports torch and
+numpy, never jax and never the JAX package; data crosses the package
+boundary in the JAX package's layout (16-bit limb planes [L, *B],
+Montgomery form, affine zero (0, 0)).
 
-    build_bn128(device=None) -> Bn128Runtime   (groth16_gen_proof / groth16_verify)
+    build_bn128(device=None) -> Bn128Runtime
+        (groth16_gen_proof / groth16_verify / groth16_verify_batch)
 
 Entry points run on the CUDA card unless the caller passes device="cpu",
 where every kernel wrapper runs its plain PyTorch version.

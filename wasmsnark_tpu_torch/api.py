@@ -6,6 +6,8 @@
                                       build_bn128(device="cpu")
     bn128.groth16GenProof(w, pk)      rt.groth16_gen_proof(witness, pkey)
     bn128.groth16Verify(vk, in, prf)  rt.groth16_verify(vk, inputs, proof)
+                                      rt.groth16_verify_batch(vk, inputs_list,
+                                                              proofs)
 """
 
 from __future__ import annotations

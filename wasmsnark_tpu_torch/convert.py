@@ -1,9 +1,12 @@
-"""Hand a proving key parsed by the JAX package to the port.
+"""Hand state of the JAX package to the port and back.
 
 `proving_key_from_numpy` takes the JAX package's parsed `ProvingKey` (its
 numpy limb planes and sparse LC tables) by duck typing — this module
 imports nothing of that package — and returns the port's ProvingKey, so
-both packages prove from the same state.
+both packages prove from the same state.  `tower_from_numpy` and
+`tower_to_numpy` carry tower state (F2 and F12 elements, prepared-
+coefficient trees with a step axis) between the JAX package's uint32
+planes and the port's int32 tensors.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from .groth16.pkey import ProvingKey
+from .ops.fp import planes, to_numpy
 from .ops.pol import SparseLC
 
 
@@ -39,3 +43,18 @@ def proving_key_from_numpy(pk) -> ProvingKey:
         points_a=_planes(pk.points_a), points_b1=_planes(pk.points_b1),
         points_b2=_planes(pk.points_b2), points_c=_planes(pk.points_c),
         h_exps=_planes(pk.h_exps))
+
+
+def tower_from_numpy(tree, device):
+    """Nested tuples of uint32 limb planes (numpy or anything numpy reads,
+    such as JAX arrays) -> the same tree of int32 tensors on `device`."""
+    if isinstance(tree, tuple):
+        return tuple(tower_from_numpy(t, device) for t in tree)
+    return planes(np.asarray(tree), device)
+
+
+def tower_to_numpy(tree):
+    """Inverse of tower_from_numpy: int32 tensors -> uint32 numpy planes."""
+    if isinstance(tree, tuple):
+        return tuple(tower_to_numpy(t) for t in tree)
+    return to_numpy(tree)

@@ -1,0 +1,419 @@
+// K8-K10: the BN128 extension-tower and Miller-step kernels, for Hopper
+// (sm_90a).
+//
+// K8  k8_f12_mul / k8_f12_sqr replace wasmsnark_tpu/ops/tower_pallas.py
+//     _f12_mul_kernel (square=False / True): F12 = F6[w]/(w^2 - v)
+//     Karatsuba product (3 F6 products of 6 F2 products each, 54 base
+//     products) and square (2 F6 products).
+// K9  k9_f12_cyc_sqr replaces tower_pallas.py _f12_cyc_sqr_kernel: the
+//     Granger-Scott cyclotomic square (9 F2 squarings), the polynomial map
+//     of wasmsnark_tpu/ops/towers.py gs_cyclotomic_square.
+// K10 k10_miller_dbl / k10_miller_add replace tower_pallas.py
+//     _miller_dbl_kernel / _miller_add_kernel: the D-twist Miller steps on
+//     homogeneous F2 coordinates, writing the sparse line (a0, b0, b1) at P
+//     and the new point, with exactly the products of the Pallas kernels
+//     (the representative of the new point is not unique, so the formulas
+//     are not free here).
+//
+// Towers: F2 = Fp[u]/(u^2 + 1), F6 = F2[v]/(v^3 - xi), F12 = F6[w]/(w^2 - v),
+// templated on the word count N (BN128: N = 8, L = 16 limbs; BLS12-381's
+// L = 24 is another instantiation), with xi = xi0 + xi1 u a kernel argument
+// (BN128: 9 + u).  Every value is canonical (< q), so the results are
+// bit-identical to the 16-bit-limb plain versions and the JAX package.
+//
+// Layout: an operand is one [k, L, n] tensor, component c of lane i at limb
+// k sitting at p[(c * L + k) * n + i]: the JAX limb-plane layout, coalesced
+// across threads, repacked to N 32-bit words in registers (fp.cuh).
+//
+// What bounds them on the H100: counted against the card's peaks, a K8
+// product (54 Montgomery products of ~2N^2 IMADs, 36 planes of 64 bytes
+// per lane) needs more time for its bytes than for its operations, but one
+// thread per lane at up to 255 registers leaves ~8 warps per SM, so the
+// kernels are expected to wait on each thread's chain of dependent
+// multiplies rather than on memory (they reach 11-17 % of the byte
+// bound).  Design now: one thread per lane, as K1-K7.  One F12 operand is
+// 96 words, so K8 reads operand halves from device memory where a Karatsuba
+// term needs them instead of keeping both operands in registers, and the F2
+// and F6 products are __noinline__ functions, which keeps the build in
+// seconds; their call boundaries cost spills that -Xptxas -v reports (the
+// build log).  Splitting one product over several threads is later work.
+
+#include "fp.cuh"
+
+namespace {
+
+constexpr int kN = 8;
+constexpr int kTowerThreads = 64;
+
+struct Xi {
+  int c0, c1;
+};
+
+template <int N>
+struct F2 {
+  Fe<N> c0, c1;
+};
+
+template <int N>
+struct F6 {
+  F2<N> c0, c1, c2;
+};
+
+// -- base field helpers -------------------------------------------------------
+
+// a * k for a small k >= 0 by double-and-add.
+template <int N>
+__device__ __forceinline__ Fe<N> mul_small(const Field<N>& f, Fe<N> a, int k) {
+  Fe<N> r = fe_zero<N>();
+  for (; k; k >>= 1) {
+    if (k & 1) r = add(f, r, a);
+    if (k > 1) a = add(f, a, a);
+  }
+  return r;
+}
+
+// -- F2 -------------------------------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ F2<N> f2_add(const Field<N>& f, const F2<N>& a,
+                                        const F2<N>& b) {
+  return {add(f, a.c0, b.c0), add(f, a.c1, b.c1)};
+}
+
+template <int N>
+__device__ __forceinline__ F2<N> f2_sub(const Field<N>& f, const F2<N>& a,
+                                        const F2<N>& b) {
+  return {sub(f, a.c0, b.c0), sub(f, a.c1, b.c1)};
+}
+
+template <int N>
+__device__ __forceinline__ F2<N> f2_neg(const Field<N>& f, const F2<N>& a) {
+  return {sub(f, fe_zero<N>(), a.c0), sub(f, fe_zero<N>(), a.c1)};
+}
+
+template <int N>
+__device__ __forceinline__ F2<N> f2_small(const Field<N>& f, const F2<N>& a,
+                                          int k) {
+  return {mul_small(f, a.c0, k), mul_small(f, a.c1, k)};
+}
+
+// (c0 a0 - c1 a1) + (c1 a0 + c0 a1) u
+template <int N>
+__device__ __forceinline__ F2<N> f2_mul_xi(const Field<N>& f, Xi xi,
+                                           const F2<N>& a) {
+  return {sub(f, mul_small(f, a.c0, xi.c0), mul_small(f, a.c1, xi.c1)),
+          add(f, mul_small(f, a.c0, xi.c1), mul_small(f, a.c1, xi.c0))};
+}
+
+template <int N>
+__device__ __forceinline__ F2<N> f2_mul_base(const Field<N>& f, const F2<N>& a,
+                                             const Fe<N>& b) {
+  return {mont_mul(f, a.c0, b), mont_mul(f, a.c1, b)};
+}
+
+// Karatsuba: 3 base products.
+template <int N>
+__device__ __noinline__ F2<N> f2_mul(const Field<N>& f, const F2<N>& a,
+                                     const F2<N>& b) {
+  Fe<N> m0 = mont_mul(f, a.c0, b.c0);
+  Fe<N> m1 = mont_mul(f, a.c1, b.c1);
+  Fe<N> t = mont_mul(f, add(f, a.c0, a.c1), add(f, b.c0, b.c1));
+  return {sub(f, m0, m1), sub(f, sub(f, t, m0), m1)};
+}
+
+// Complex squaring: (a0 + a1)(a0 - a1) + 2 a0 a1 u, 2 base products.
+template <int N>
+__device__ __noinline__ F2<N> f2_sqr(const Field<N>& f, const F2<N>& a) {
+  Fe<N> ab = mont_mul(f, a.c0, a.c1);
+  return {mont_mul(f, add(f, a.c0, a.c1), sub(f, a.c0, a.c1)), add(f, ab, ab)};
+}
+
+// -- F6 -------------------------------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ F6<N> f6_add(const Field<N>& f, const F6<N>& a,
+                                        const F6<N>& b) {
+  return {f2_add(f, a.c0, b.c0), f2_add(f, a.c1, b.c1), f2_add(f, a.c2, b.c2)};
+}
+
+template <int N>
+__device__ __forceinline__ F6<N> f6_sub(const Field<N>& f, const F6<N>& a,
+                                        const F6<N>& b) {
+  return {f2_sub(f, a.c0, b.c0), f2_sub(f, a.c1, b.c1), f2_sub(f, a.c2, b.c2)};
+}
+
+// v * a = (xi a2, a0, a1)
+template <int N>
+__device__ __forceinline__ F6<N> f6_mul_v(const Field<N>& f, Xi xi,
+                                          const F6<N>& a) {
+  return {f2_mul_xi(f, xi, a.c2), a.c0, a.c1};
+}
+
+// Karatsuba over the cubic extension: 6 F2 products (build_f3m.js).
+template <int N>
+__device__ __noinline__ F6<N> f6_mul(const Field<N>& f, Xi xi, const F6<N>& a,
+                                     const F6<N>& b) {
+  F2<N> v0 = f2_mul(f, a.c0, b.c0);
+  F2<N> v1 = f2_mul(f, a.c1, b.c1);
+  F2<N> v2 = f2_mul(f, a.c2, b.c2);
+  F2<N> t12 = f2_mul(f, f2_add(f, a.c1, a.c2), f2_add(f, b.c1, b.c2));
+  F2<N> c0 = f2_add(f, v0, f2_mul_xi(f, xi, f2_sub(f, f2_sub(f, t12, v1), v2)));
+  F2<N> t01 = f2_mul(f, f2_add(f, a.c0, a.c1), f2_add(f, b.c0, b.c1));
+  F2<N> c1 = f2_add(f, f2_sub(f, f2_sub(f, t01, v0), v1), f2_mul_xi(f, xi, v2));
+  F2<N> t02 = f2_mul(f, f2_add(f, a.c0, a.c2), f2_add(f, b.c0, b.c2));
+  F2<N> c2 = f2_add(f, f2_sub(f, f2_sub(f, t02, v0), v2), v1);
+  return {c0, c1, c2};
+}
+
+// -- device memory ---------------------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ Fe<N> ld(const uint32_t* __restrict__ p, int c,
+                                    int64_t n, int64_t i) {
+  return load_fe<N>(p + (int64_t)c * 2 * N * n, n, i);
+}
+
+template <int N>
+__device__ __forceinline__ void st(uint32_t* __restrict__ p, int c, int64_t n,
+                                   int64_t i, const Fe<N>& a) {
+  store_fe<N>(p + (int64_t)c * 2 * N * n, n, i, a);
+}
+
+template <int N>
+__device__ __forceinline__ F2<N> ld2(const uint32_t* __restrict__ p, int c,
+                                     int64_t n, int64_t i) {
+  return {ld<N>(p, c, n, i), ld<N>(p, c + 1, n, i)};
+}
+
+template <int N>
+__device__ __forceinline__ void st2(uint32_t* __restrict__ p, int c, int64_t n,
+                                    int64_t i, const F2<N>& a) {
+  st<N>(p, c, n, i, a.c0);
+  st<N>(p, c + 1, n, i, a.c1);
+}
+
+// F6 half h (0 or 1) of an F12 operand: components 6h .. 6h + 5
+template <int N>
+__device__ __forceinline__ F6<N> ld6(const uint32_t* __restrict__ p, int h,
+                                     int64_t n, int64_t i) {
+  return {ld2<N>(p, 6 * h, n, i), ld2<N>(p, 6 * h + 2, n, i),
+          ld2<N>(p, 6 * h + 4, n, i)};
+}
+
+template <int N>
+__device__ __forceinline__ void st6(uint32_t* __restrict__ p, int h, int64_t n,
+                                    int64_t i, const F6<N>& a) {
+  st2<N>(p, 6 * h, n, i, a.c0);
+  st2<N>(p, 6 * h + 2, n, i, a.c1);
+  st2<N>(p, 6 * h + 4, n, i, a.c2);
+}
+
+// -- K8 --------------------------------------------------------------------------
+
+// (a0 + a1 w)(b0 + b1 w) = (t0 + v t1) + ((a0 + a1)(b0 + b1) - t0 - t1) w
+template <int N>
+__global__ void __launch_bounds__(kTowerThreads)
+    f12_mul_kernel(Field<N> f, Xi xi, const uint32_t* __restrict__ a,
+                   const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
+                   int64_t n) {
+  LANE_LOOP(i, n) {
+    F6<N> t0 = f6_mul(f, xi, ld6<N>(a, 0, n, i), ld6<N>(b, 0, n, i));
+    F6<N> t1 = f6_mul(f, xi, ld6<N>(a, 1, n, i), ld6<N>(b, 1, n, i));
+    st6<N>(out, 0, n, i, f6_add(f, t0, f6_mul_v(f, xi, t1)));
+    F6<N> s = f6_add(f, t0, t1);
+    F6<N> t2 = f6_mul(f, xi, f6_add(f, ld6<N>(a, 0, n, i), ld6<N>(a, 1, n, i)),
+                      f6_add(f, ld6<N>(b, 0, n, i), ld6<N>(b, 1, n, i)));
+    st6<N>(out, 1, n, i, f6_sub(f, t2, s));
+  }
+}
+
+// (a0 + a1 w)^2: ab = a0 a1, t = (a0 + a1)(a0 + v a1);
+// c0 = t - ab - v ab, c1 = 2 ab
+template <int N>
+__global__ void __launch_bounds__(kTowerThreads)
+    f12_sqr_kernel(Field<N> f, Xi xi, const uint32_t* __restrict__ a,
+                   uint32_t* __restrict__ out, int64_t n) {
+  LANE_LOOP(i, n) {
+    F6<N> ab = f6_mul(f, xi, ld6<N>(a, 0, n, i), ld6<N>(a, 1, n, i));
+    st6<N>(out, 1, n, i, f6_add(f, ab, ab));
+    F6<N> a1 = ld6<N>(a, 1, n, i);
+    F6<N> t = f6_mul(f, xi, f6_add(f, ld6<N>(a, 0, n, i), a1),
+                     f6_add(f, ld6<N>(a, 0, n, i), f6_mul_v(f, xi, a1)));
+    st6<N>(out, 0, n, i, f6_sub(f, f6_sub(f, t, ab), f6_mul_v(f, xi, ab)));
+  }
+}
+
+// -- K9 --------------------------------------------------------------------------
+
+// Components of f = ((a0, a1, a2), (b0, b1, b2)) at F2 slots 0, 2, 4 (a) and
+// 6, 8, 10 (b).  sq2(x, y) = (x^2, y^2, 2xy) with the cross term from one
+// squaring; t0 = xi b1^2 + a0^2, t2 = xi a2^2 + b0^2, t4 = xi b2^2 + a1^2,
+// t8 = xi 2 a1 b2; a_k' = 3 t - 2 a_k, b_k' = 3 t + 2 b_k.
+template <int N>
+__global__ void __launch_bounds__(kTowerThreads)
+    f12_cyc_sqr_kernel(Field<N> f, Xi xi, const uint32_t* __restrict__ a,
+                       uint32_t* __restrict__ out, int64_t n) {
+  LANE_LOOP(i, n) {
+    // (x, y, slot of the new x-side component, slot of the y side):
+    // (b1, a0) -> a0', b1'; (a2, b0) -> a1', b2'; (b2, a1) -> a2', b0'
+    const int xs[3] = {8, 4, 10}, ys[3] = {0, 6, 2};
+    const int as[3] = {0, 2, 4}, bs[3] = {8, 10, 6};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      F2<N> x = ld2<N>(a, xs[k], n, i), y = ld2<N>(a, ys[k], n, i);
+      F2<N> sx = f2_sqr(f, x), sy = f2_sqr(f, y);
+      F2<N> cross = f2_sub(f, f2_sub(f, f2_sqr(f, f2_add(f, x, y)), sx), sy);
+      F2<N> t = f2_add(f, f2_mul_xi(f, xi, sx), sy);
+      F2<N> ak = ld2<N>(a, as[k], n, i);
+      st2<N>(out, as[k], n, i,
+             f2_sub(f, f2_add(f, f2_add(f, t, t), t), f2_add(f, ak, ak)));
+      // the b side takes the cross term, times xi for (b2, a1) -> b0'
+      F2<N> c = k == 2 ? f2_mul_xi(f, xi, cross) : cross;
+      F2<N> bk = ld2<N>(a, bs[k], n, i);
+      st2<N>(out, bs[k], n, i,
+             f2_add(f, f2_add(f, f2_add(f, c, c), c), f2_add(f, bk, bk)));
+    }
+  }
+}
+
+// -- K10 -------------------------------------------------------------------------
+
+// In: xyz = (X, Y, Z) [6, L, n], p = (xP, yP) [2, L, n].
+// Out [12, L, n]: a0 = 2YZ^2 yP, b0 = -3X^2Z xP, b1 = 3X^3 - 2Y^2Z, then
+// X' = 2YZ (9X^4 - 8XY^2Z), Y' = 36X^3Y^2Z - 27X^4X^2 - 8(Y^2Z)^2,
+// Z' = 8 Y^3 Z^3.
+template <int N>
+__global__ void __launch_bounds__(kTowerThreads)
+    miller_dbl_kernel(Field<N> f, const uint32_t* __restrict__ xyz,
+                      const uint32_t* __restrict__ p,
+                      uint32_t* __restrict__ out, int64_t n) {
+  LANE_LOOP(i, n) {
+    F2<N> X = ld2<N>(xyz, 0, n, i), Y = ld2<N>(xyz, 2, n, i),
+          Z = ld2<N>(xyz, 4, n, i);
+    F2<N> X2 = f2_sqr(f, X), Y2 = f2_sqr(f, Y), Z2 = f2_sqr(f, Z);
+    F2<N> Y2Z = f2_mul(f, Y2, Z);
+    F2<N> YZ2 = f2_mul(f, Y, Z2);
+    st2<N>(out, 0, n, i, f2_mul_base(f, f2_add(f, YZ2, YZ2), ld<N>(p, 1, n, i)));
+    st2<N>(out, 2, n, i,
+           f2_mul_base(f, f2_neg(f, f2_small(f, f2_mul(f, X2, Z), 3)),
+                       ld<N>(p, 0, n, i)));
+    F2<N> X3c = f2_mul(f, X2, X);
+    st2<N>(out, 4, n, i,
+           f2_sub(f, f2_small(f, X3c, 3), f2_small(f, Y2Z, 2)));
+    F2<N> X4 = f2_sqr(f, X2);
+    F2<N> t1 = f2_sub(f, f2_small(f, X4, 9), f2_small(f, f2_mul(f, X, Y2Z), 8));
+    st2<N>(out, 6, n, i, f2_mul(f, f2_small(f, f2_mul(f, Y, Z), 2), t1));
+    F2<N> Yn = f2_sub(f,
+                      f2_sub(f, f2_small(f, f2_mul(f, X3c, Y2Z), 36),
+                             f2_small(f, f2_mul(f, X4, X2), 27)),
+                      f2_small(f, f2_sqr(f, Y2Z), 8));
+    st2<N>(out, 8, n, i, Yn);
+    st2<N>(out, 10, n, i,
+           f2_small(f, f2_mul(f, f2_mul(f, Y2, Y), f2_mul(f, Z2, Z)), 8));
+  }
+}
+
+// In: xyz = (X, Y, Z) [6, L, n], q = (x2, y2) [4, L, n], p = (xP, yP).
+// th = y2 Z - Y, lm = x2 Z - X; a0 = lm yP, b0 = -th xP,
+// b1 = th x2 - lm y2; C = th^2, D = lm^2, E = lm D, F = Z C, G = X D,
+// H = F - 2G - E; X' = lm H, Y' = th (G - H) - E Y, Z' = Z E.
+template <int N>
+__global__ void __launch_bounds__(kTowerThreads)
+    miller_add_kernel(Field<N> f, const uint32_t* __restrict__ xyz,
+                      const uint32_t* __restrict__ q,
+                      const uint32_t* __restrict__ p,
+                      uint32_t* __restrict__ out, int64_t n) {
+  LANE_LOOP(i, n) {
+    F2<N> X = ld2<N>(xyz, 0, n, i), Y = ld2<N>(xyz, 2, n, i),
+          Z = ld2<N>(xyz, 4, n, i);
+    F2<N> x2 = ld2<N>(q, 0, n, i), y2 = ld2<N>(q, 2, n, i);
+    F2<N> th = f2_sub(f, f2_mul(f, y2, Z), Y);
+    F2<N> lm = f2_sub(f, f2_mul(f, x2, Z), X);
+    st2<N>(out, 0, n, i, f2_mul_base(f, lm, ld<N>(p, 1, n, i)));
+    st2<N>(out, 2, n, i, f2_mul_base(f, f2_neg(f, th), ld<N>(p, 0, n, i)));
+    st2<N>(out, 4, n, i, f2_sub(f, f2_mul(f, th, x2), f2_mul(f, lm, y2)));
+    F2<N> C = f2_sqr(f, th), D = f2_sqr(f, lm);
+    F2<N> E = f2_mul(f, lm, D);
+    F2<N> Fv = f2_mul(f, Z, C), G = f2_mul(f, X, D);
+    F2<N> H = f2_sub(f, f2_sub(f, Fv, f2_add(f, G, G)), E);
+    st2<N>(out, 6, n, i, f2_mul(f, lm, H));
+    st2<N>(out, 8, n, i,
+           f2_sub(f, f2_mul(f, th, f2_sub(f, G, H)), f2_mul(f, E, Y)));
+    st2<N>(out, 10, n, i, f2_mul(f, Z, E));
+  }
+}
+
+inline bool bad_args(int n_limbs, long long n) {
+  return n_limbs != 2 * kN || n < 0;
+}
+
+inline unsigned tower_grid(long long n) {
+  long long blocks = (n + kTowerThreads - 1) / kTowerThreads;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 65535LL * 8) blocks = 65535LL * 8;
+  return (unsigned)blocks;
+}
+
+}  // namespace
+
+extern "C" {
+
+int k8_f12_mul(const void* a, const void* b, void* out, long long n,
+               long long xi0, long long xi1, int n_limbs, const void* consts,
+               void* stream) {
+  if (bad_args(n_limbs, n)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
+  f12_mul_kernel<kN><<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
+      f, Xi{(int)xi0, (int)xi1}, (const uint32_t*)a, (const uint32_t*)b,
+      (uint32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+int k8_f12_sqr(const void* a, void* out, long long n, long long xi0,
+               long long xi1, int n_limbs, const void* consts, void* stream) {
+  if (bad_args(n_limbs, n)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
+  f12_sqr_kernel<kN><<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
+      f, Xi{(int)xi0, (int)xi1}, (const uint32_t*)a, (uint32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+int k9_f12_cyc_sqr(const void* a, void* out, long long n, long long xi0,
+                   long long xi1, int n_limbs, const void* consts,
+                   void* stream) {
+  if (bad_args(n_limbs, n)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
+  f12_cyc_sqr_kernel<kN>
+      <<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
+          f, Xi{(int)xi0, (int)xi1}, (const uint32_t*)a, (uint32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+int k10_miller_dbl(const void* xyz, const void* p, void* out, long long n,
+                   int n_limbs, const void* consts, void* stream) {
+  if (bad_args(n_limbs, n)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
+  miller_dbl_kernel<kN>
+      <<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
+          f, (const uint32_t*)xyz, (const uint32_t*)p, (uint32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+int k10_miller_add(const void* xyz, const void* q, const void* p, void* out,
+                   long long n, int n_limbs, const void* consts,
+                   void* stream) {
+  if (bad_args(n_limbs, n)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
+  miller_add_kernel<kN>
+      <<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
+          f, (const uint32_t*)xyz, (const uint32_t*)q, (const uint32_t*)p,
+          (uint32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

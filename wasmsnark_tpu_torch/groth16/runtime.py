@@ -4,12 +4,14 @@ the analogue of the reference's `Bn128` class (src/bn128.js).
     rt = wasmsnark_tpu_torch.build_bn128()          # on the CUDA card
     proof = rt.groth16_gen_proof(witness_bytes, pkey_bytes)
     ok    = rt.groth16_verify(vk_json, public_inputs, proof_json)
+    oks   = rt.groth16_verify_batch(vk_json, inputs_list, proofs)
 """
 
 from __future__ import annotations
 
 from ..models.bn128 import bn128
 from .verifier import groth16_verify as _verify
+from .verifier import groth16_verify_batch as _verify_batch
 
 
 class Bn128Runtime:
@@ -30,3 +32,11 @@ class Bn128Runtime:
     # -- verifier (src/bn128.js:722-791) --------------------------------------
     def groth16_verify(self, verification_key, inputs, proof) -> bool:
         return _verify(verification_key, inputs, proof)
+
+    def groth16_verify_batch(self, verification_key, inputs_list,
+                             proofs) -> list:
+        """Verify N proofs in one pass through the device pairing, on the
+        runtime's device (lanes = proofs); see
+        groth16.verifier.groth16_verify_batch."""
+        return _verify_batch(verification_key, inputs_list, proofs,
+                             device=self.device)

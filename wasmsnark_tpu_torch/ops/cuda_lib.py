@@ -30,8 +30,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_HERE), "_build")
 
-# library name -> source file; fp.cuh is shared by both
-SOURCES = {"fp_kernels": "fp_kernels.cu", "curve_kernels": "curve_kernels.cu"}
+# library name -> source file; fp.cuh is shared by all
+SOURCES = {"fp_kernels": "fp_kernels.cu", "curve_kernels": "curve_kernels.cu",
+           "tower_kernels": "tower_kernels.cu"}
 HEADERS = ("fp.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -45,6 +46,9 @@ KERNELS = {
     "K5": ("curve_kernels", ("k5_jac_madd",)),
     "K6": ("curve_kernels", ("k6_jac_add",)),
     "K7": ("curve_kernels", ("k7_jac_dbl",)),
+    "K8": ("tower_kernels", ("k8_f12_mul", "k8_f12_sqr")),
+    "K9": ("tower_kernels", ("k9_f12_cyc_sqr",)),
+    "K10": ("tower_kernels", ("k10_miller_dbl", "k10_miller_add")),
 }
 _ENTRY = {fn: (lib, kid) for kid, (lib, fns) in KERNELS.items() for fn in fns}
 
@@ -54,10 +58,14 @@ _SIGNATURES = {
     "k1_mont_mul": (3, 1), "k2_mod_add": (3, 1), "k2_mod_sub": (3, 1),
     "k3_butterfly": (3, 2), "k4_cneg": (3, 1),
     "k5_jac_madd": (8, 1), "k6_jac_add": (9, 1), "k7_jac_dbl": (6, 1),
+    "k8_f12_mul": (3, 3), "k8_f12_sqr": (2, 3), "k9_f12_cyc_sqr": (2, 3),
+    "k10_miller_dbl": (3, 1), "k10_miller_add": (4, 1),
 }
 
-# launches per kernel id since the last reset_launches()
+# launches per kernel id, and per C entry point, since the last
+# reset_launches()
 launches = dict.fromkeys(KERNELS, 0)
+fn_launches = dict.fromkeys(_ENTRY, 0)
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -66,6 +74,8 @@ _lock = threading.Lock()
 def reset_launches():
     for k in launches:
         launches[k] = 0
+    for k in fn_launches:
+        fn_launches[k] = 0
 
 
 def _nvcc() -> str:
@@ -172,3 +182,4 @@ def launch(fn: str, spec, tensors, ints):
     if rc != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {rc}")
     launches[kid] += 1
+    fn_launches[fn] += 1

@@ -1,0 +1,236 @@
+"""Fused extension-tower and Miller-step kernels for BN128, PyTorch port of
+the BN128 part of wasmsnark_tpu/ops/tower_pallas.py.
+
+    K8  f12_mul / f12_sqr   F12 = F6[w] Karatsuba product / square
+    K9  f12_cyc_sqr         Granger-Scott cyclotomic square
+    K10 miller_dbl / miller_add
+                            D-twist Miller doubling / mixed-add step: the
+                            new homogeneous F2 point and the sparse line
+                            (a0, b0, b1) evaluated at P
+
+Each wrapper launches its CUDA kernel (csrc/tower_kernels.cu) on CUDA
+tensors and runs its plain version on CPU tensors.  The plain versions are
+the composed towers of ops/towers.py over `PlainFp`, so chip_smoke.py can
+hold the kernels against pure PyTorch on the card.
+
+Operands go to a kernel stacked as one contiguous [k, L, n] tensor each:
+an F12 element as its 12 component planes in `flatten12` order (the JAX
+package's `_flatten12`), a Miller point as [6, L, n] (X, Y, Z), an affine
+G2 point as [4, L, n], the G1 point as [2, L, n]; every kernel writes
+[12, L, n].  Inputs with a batch shape ([L, 4, N] pairing lanes, [L, 1]
+constants) are broadcast and flattened to lanes first.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..fields.spec import FieldSpec
+from . import cuda_lib
+from .fp import DTYPE, PlainFp, check_cuda, lanes
+from .towers import FpAdapter, f12_towers, gs_cyclotomic_square, stack, unstack
+
+XI = (9, 1)          # BN128's sextic non-residue 9 + u
+N12 = 12
+
+
+def flatten12(el) -> list:
+    """F12 element -> its 12 planes, ((c00, c01), (c10, c11), (c20, c21))
+    of each F6 half in turn."""
+    return [p for half in el for c in half for p in c]
+
+
+def unflatten12(flat):
+    i = iter(flat)
+    return tuple(tuple((next(i), next(i)) for _ in range(3)) for _ in range(2))
+
+
+# ---------------------------------------------------------------------------
+# Miller-step formulas (shared by the plain versions of K10 and by the
+# prepared-coefficient ladder of ops/pairing.py)
+# ---------------------------------------------------------------------------
+
+def g2_dbl_coefs(F2, X, Y, Z):
+    """Doubling step on homogeneous twist coordinates: the line
+    coefficients (c_y, c_x, c_0) before P is applied, and the doubled
+    point.  The line is scaled by 2YZ^2 (killed by the final
+    exponentiation); the formulas of tower_pallas.py _miller_dbl_kernel,
+    with the independent products stacked."""
+    X2, Y2, Z2 = unstack(F2.square(stack(X, Y, Z)), 3)
+    Y2Z, YZ2, X2Z, X3c, YZ, X4, Y3, Z3 = unstack(F2.mul(
+        stack(Y2, Y, X2, X2, Y, X2, Y2, Z2),
+        stack(Z, Z2, Z, X, Z, X2, Y, Z)), 8)
+    XY2Z, X3cY2Z, X4X2, Y2Zsq, Y3Z3 = unstack(F2.mul(
+        stack(X, X3c, X4, Y2Z, Y3), stack(Y2Z, Y2Z, X2, Y2Z, Z3)), 5)
+    c_y, Y2Z_2, YZ_2 = unstack(F2.mul_small(stack(YZ2, Y2Z, YZ), 2), 3)
+    X2Z_3, X3c_3 = unstack(F2.mul_small(stack(X2Z, X3c), 3), 2)
+    XY2Z_8, Y2Zsq_8, Zn = unstack(F2.mul_small(stack(XY2Z, Y2Zsq, Y3Z3), 8), 3)
+    c_0, t1, Yd = unstack(F2.sub(
+        stack(X3c_3, F2.mul_small(X4, 9), F2.mul_small(X3cY2Z, 36)),
+        stack(Y2Z_2, XY2Z_8, F2.mul_small(X4X2, 27))), 3)
+    c_x = F2.neg(X2Z_3)
+    Xn = F2.mul(YZ_2, t1)
+    Yn = F2.sub(Yd, Y2Zsq_8)
+    return (c_y, c_x, c_0), Xn, Yn, Zn
+
+
+def g2_add_coefs(F2, X, Y, Z, x2, y2):
+    """Mixed-add step (homogeneous + affine (x2, y2)): line coefficients
+    and the sum, the formulas of tower_pallas.py _miller_add_kernel."""
+    y2Z, x2Z = unstack(F2.mul(stack(y2, x2), stack(Z, Z)), 2)
+    th, lm = unstack(F2.sub(stack(y2Z, x2Z), stack(Y, X)), 2)
+    thx2, lmy2, C, D = unstack(F2.mul(stack(th, lm, th, lm),
+                                      stack(x2, y2, th, lm)), 4)
+    E, Fv, G = unstack(F2.mul(stack(lm, Z, X), stack(D, C, D)), 3)
+    c_0 = F2.sub(thx2, lmy2)
+    H = F2.sub(F2.sub(Fv, F2.add(G, G)), E)
+    Xn, thGH, EY, Zn = unstack(F2.mul(stack(lm, th, E, Z),
+                                      stack(H, F2.sub(G, H), Y, E)), 4)
+    return (lm, F2.neg(th), c_0), Xn, F2.sub(thGH, EY), Zn
+
+
+def line_at(F2, c_y, c_x, xP, yP):
+    """(c_y, c_x) -> line slots a0 = c_y * yP, b0 = c_x * xP."""
+    F = F2.base
+    p = F.mul(stack(c_y[0], c_y[1], c_x[0], c_x[1]), stack(yP, yP, xP, xP))
+    a00, a01, b00, b01 = unstack(p, 4)
+    return (a00, a01), (b00, b01)
+
+
+# ---------------------------------------------------------------------------
+# plain versions: composed towers over PlainFp (any device)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def plain_towers(spec: FieldSpec, device: str, xi=XI):
+    """(F2, F6, F12, mul_xi) over PlainFp on `device`."""
+    return f12_towers(FpAdapter(PlainFp(spec, device)), xi)
+
+
+def _towers_for(spec, plane, xi):
+    return plain_towers(spec, str(plane.device), tuple(xi))
+
+
+def f12_mul_plain(spec: FieldSpec, a, b, xi=XI):
+    return _towers_for(spec, a[0][0][0], xi)[2].mul(a, b)
+
+
+def f12_sqr_plain(spec: FieldSpec, a, xi=XI):
+    return _towers_for(spec, a[0][0][0], xi)[2].square(a)
+
+
+def f12_cyc_sqr_plain(spec: FieldSpec, a, xi=XI):
+    F2, _, _, mul_xi = _towers_for(spec, a[0][0][0], xi)
+    return gs_cyclotomic_square(F2, mul_xi, a)
+
+
+def miller_dbl_plain(spec: FieldSpec, X, Y, Z, xP, yP):
+    F2 = _towers_for(spec, xP, XI)[0]
+    (c_y, c_x, c_0), Xn, Yn, Zn = g2_dbl_coefs(F2, X, Y, Z)
+    a0, b0 = line_at(F2, c_y, c_x, xP, yP)
+    return (a0, b0, c_0), Xn, Yn, Zn
+
+
+def miller_add_plain(spec: FieldSpec, X, Y, Z, x2, y2, xP, yP):
+    F2 = _towers_for(spec, xP, XI)[0]
+    (c_y, c_x, c_0), Xn, Yn, Zn = g2_add_coefs(F2, X, Y, Z, x2, y2)
+    a0, b0 = line_at(F2, c_y, c_x, xP, yP)
+    return (a0, b0, c_0), Xn, Yn, Zn
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers K8-K10
+# ---------------------------------------------------------------------------
+
+def _launch(fn: str, spec: FieldSpec, groups, ints=()):
+    """Stack each group of [L, n] planes into one [k, L, n] operand, launch
+    `fn` and return the 12 output planes [L, n]."""
+    ops = [torch.stack(g) for g in groups]
+    check_cuda(*ops)
+    n = ops[0].shape[2]
+    out = torch.empty((N12, spec.n_limbs, n), dtype=DTYPE,
+                      device=ops[0].device)
+    cuda_lib.launch(fn, spec, (*ops, out), (n, *ints))
+    return list(out.unbind(0))
+
+
+def _reshape(planes, L, bshape):
+    return [p.reshape((L,) + bshape) for p in planes]
+
+
+def f12_mul(spec: FieldSpec, a, b, xi=XI):
+    """K8: F12 product (replaces tower_pallas.py f12_mul_pallas)."""
+    L = spec.n_limbs
+    flat, bshape = lanes(L, *flatten12(a), *flatten12(b))
+    if not flat[0].is_cuda:
+        out = flatten12(f12_mul_plain(spec, unflatten12(flat[:N12]),
+                                      unflatten12(flat[N12:]), xi))
+    else:
+        out = _launch("k8_f12_mul", spec, [flat[:N12], flat[N12:]], xi)
+    return unflatten12(_reshape(out, L, bshape))
+
+
+def f12_sqr(spec: FieldSpec, a, xi=XI):
+    """K8: F12 square (replaces tower_pallas.py f12_sqr_pallas)."""
+    L = spec.n_limbs
+    flat, bshape = lanes(L, *flatten12(a))
+    if not flat[0].is_cuda:
+        out = flatten12(f12_sqr_plain(spec, unflatten12(flat), xi))
+    else:
+        out = _launch("k8_f12_sqr", spec, [flat], xi)
+    return unflatten12(_reshape(out, L, bshape))
+
+
+def f12_cyc_sqr(spec: FieldSpec, a, xi=XI):
+    """K9: Granger-Scott cyclotomic square (replaces tower_pallas.py
+    f12_cyc_sqr_pallas)."""
+    L = spec.n_limbs
+    flat, bshape = lanes(L, *flatten12(a))
+    if not flat[0].is_cuda:
+        out = flatten12(f12_cyc_sqr_plain(spec, unflatten12(flat), xi))
+    else:
+        out = _launch("k9_f12_cyc_sqr", spec, [flat], xi)
+    return unflatten12(_reshape(out, L, bshape))
+
+
+def _step_out(out, L, bshape):
+    o = _reshape(out, L, bshape)
+    pairs = [(o[k], o[k + 1]) for k in range(0, N12, 2)]
+    return tuple(pairs[:3]), pairs[3], pairs[4], pairs[5]
+
+
+def _step_flat(step):
+    (a0, b0, b1), Xn, Yn, Zn = step
+    return [*a0, *b0, *b1, *Xn, *Yn, *Zn]
+
+
+def miller_dbl(spec: FieldSpec, X, Y, Z, xP, yP):
+    """K10: Miller doubling step (replaces tower_pallas.py
+    miller_dbl_pallas, D-twist).  Returns ((a0, b0, b1), Xn, Yn, Zn)."""
+    L = spec.n_limbs
+    flat, bshape = lanes(L, *X, *Y, *Z, xP, yP)
+    if not flat[0].is_cuda:
+        f = flat
+        out = _step_flat(miller_dbl_plain(
+            spec, (f[0], f[1]), (f[2], f[3]), (f[4], f[5]), f[6], f[7]))
+    else:
+        out = _launch("k10_miller_dbl", spec, [flat[:6], flat[6:]])
+    return _step_out(out, L, bshape)
+
+
+def miller_add(spec: FieldSpec, X, Y, Z, x2, y2, xP, yP):
+    """K10: Miller mixed-add step (replaces tower_pallas.py
+    miller_add_pallas, D-twist).  Returns ((a0, b0, b1), Xn, Yn, Zn)."""
+    L = spec.n_limbs
+    flat, bshape = lanes(L, *X, *Y, *Z, *x2, *y2, xP, yP)
+    if not flat[0].is_cuda:
+        f = flat
+        out = _step_flat(miller_add_plain(
+            spec, (f[0], f[1]), (f[2], f[3]), (f[4], f[5]), (f[6], f[7]),
+            (f[8], f[9]), f[10], f[11]))
+    else:
+        out = _launch("k10_miller_add", spec,
+                      [flat[:6], flat[6:10], flat[10:]])
+    return _step_out(out, L, bshape)
