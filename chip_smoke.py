@@ -7,16 +7,20 @@ Runs from the root of a checkout, with nothing prebuilt:
 
   1. prints the card (torch and nvidia-smi: name, power limit);
   2. builds the CUDA kernels from wasmsnark_tpu_torch/csrc (nvcc, one call
-     per source, in parallel) and prints the seconds;
-  3. holds each kernel K1-K10 against its plain PyTorch version on the
-     card, on 2^16 lanes from a seeded numpy generator plus edge values (0,
+     per source and word count, in parallel) and prints the seconds;
+  3. holds each kernel against its plain PyTorch version on the card —
+     K1-K10 at BN128's 8 words, and K1, K2, K4-K9 and K11 at BLS12-381's
+     12 — on 2^16 lanes from a seeded numpy generator plus edge values (0,
      1, q-1, q-2; zero, equal and opposite points for the curve kernels;
      Z = 0 and x2 = X/Z lanes for the Miller steps), requiring bit
      equality, and times both with CUDA events;
+
+then, for BN128 and then for BLS12-381, at each curve's full widths:
+
   4. runs the trusted setup of a 2^16-constraint circuit on the card;
-  5. proves twice through build_bn128().groth16_gen_proof with a fixed rng,
-     with every launch counter set to 0 just before the first prove and
-     read just after it — each of K1-K7 must have launched;
+  5. proves twice through build_<curve>().groth16_gen_proof with a fixed
+     rng, with every launch counter set to 0 just before the first prove
+     and read just after it — each of K1-K7 must have launched;
   6. verifies the proof on the host (True) and a tampered copy (False), and
      proves a small circuit on the card and with the plain versions on the
      CPU, requiring the same proof JSON;
@@ -27,8 +31,9 @@ Runs from the root of a checkout, with nothing prebuilt:
      K8 and K9 must have launched as often as the static schedule says;
   8. runs the unprepared device pairing pd.pairing_product on 1024 lanes of
      e(7 G1, 9 G2) against e(G1, G2)^63, with the counters set to 0 before
-     it (K10 must have launched), and holds it against the prepared path on
-     the four pairs of one proof, bit for bit;
+     it (the curve's Miller-step kernel, K10 or K11, must have launched),
+     and holds it against the prepared path on the four pairs of one
+     proof, bit for bit;
   9. verifies 4 lanes on the card and with the plain versions on the CPU,
      requiring the same booleans and bit-equal F12 values.
 
@@ -54,6 +59,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BUDGET_S = 840                   # under the 900 s outer timeout: a hang
                                  # prints its stack before it is killed
 LOG_2N = 16                      # circuit domain 2^16
+N_LANES = 1 << 16                # lanes of each kernel check
 SEED = 20261017
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
@@ -62,13 +68,55 @@ SEED = 20261017
 # same way)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
-NW = 8                           # 32-bit words per BN128 element
-ELEM = 16 * 4                    # bytes of one element in int32 limb planes
-MM_OPS = 2 * (2 * NW * NW + NW) + NW   # one CIOS Montgomery product
-AS_OPS = 3 * NW                        # one modular add or sub
 N_VERIFY = 1024                  # proofs per verify batch: the JAX kernels'
                                  # lane tile TOWER_TILE_B (tower_pallas.py)
 PROVE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+CURVES = ("bn128", "bls12381")
+
+# the kernel function behind each C entry point (ptxas reports by kernel)
+ENTRY_KERNEL = {
+    "k1_mont_mul": "mont_mul_kernel", "k2_mod_add": "addsub_kernel",
+    "k2_mod_sub": "addsub_kernel", "k3_butterfly": "butterfly_kernel",
+    "k4_cneg": "cneg_kernel", "k5_jac_madd": "jac_madd_kernel",
+    "k6_jac_add": "jac_add_kernel", "k7_jac_dbl": "jac_dbl_kernel",
+    "k8_f12_mul": "f12_mul_kernel", "k8_f12_sqr": "f12_sqr_kernel",
+    "k9_f12_cyc_sqr": "f12_cyc_sqr_kernel",
+    "k10_miller_dbl": "miller_dbl_kernel",
+    "k10_miller_add": "miller_add_kernel",
+    "k11_miller_dbl_mtwist": "miller_dbl_kernel",
+    "k11_miller_add_mtwist": "miller_add_kernel",
+}
+
+
+def words(spec):
+    """32-bit words of one element of the field."""
+    return spec.n_limbs // 2
+
+
+def elem_bytes(spec):
+    """Bytes of one element in int32 limb planes (64 B at 8 words, 96 B
+    at 12)."""
+    return spec.n_limbs * 4
+
+
+def mm_ops(spec):
+    """Operations of one CIOS Montgomery product."""
+    nw = words(spec)
+    return 2 * (2 * nw * nw + nw) + nw
+
+
+def as_ops(spec):
+    """Operations of one modular add or sub."""
+    return 3 * words(spec)
+
+
+def xi_ops(xi):
+    """Modular adds and subs of one multiplication by xi = c0 + c1 u in
+    csrc/tower_kernels.cu (f2_mul_xi: four mul_small double-and-add chains,
+    then a sub and an add)."""
+    def chain(k):
+        return bin(k).count("1") + k.bit_length() - 1
+    return 2 * (chain(xi[0]) + chain(xi[1])) + 2
 
 
 def sample_lanes(n):
@@ -122,16 +170,19 @@ def kernel_name(mangled):
 
 def ptxas_summary(build_dir):
     """Registers, stack frame and spill bytes of every kernel entry
-    function, read from the `-Xptxas -v` build logs."""
+    function, "<kernel>@N<words>", read from the `-Xptxas -v` build logs
+    (<source>_w<words>.log)."""
     import re
     out = {}
     for log in sorted(os.listdir(build_dir)):
         if not log.endswith(".log"):
             continue
+        nw = log[:-4].rsplit("_w", 1)[1]
         with open(os.path.join(build_dir, log)) as fh:
             text = fh.read()
         for block in text.split("Compiling entry function")[1:]:
             name = kernel_name(block.split("'")[1])
+            name = name and f"{name}@N{nw}"
             props = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                               r"stores, (\d+) bytes spill loads", block)
             regs = re.search(r"Used (\d+) registers", block)
@@ -168,15 +219,17 @@ def mismatch(a, b):
 
 
 def check_kernels(dev):
-    """K1-K7 against their plain versions on the card."""
+    """Every kernel against its plain version on the card: K1-K10 over
+    BN128's fields (8 words), then K1, K2, K4-K9 and K11 over BLS12-381's
+    Fq (12 words), with K1-K3 over its Fr (8 words) checked untimed."""
     import numpy as np
     import torch
+    from wasmsnark_tpu_torch.models.bls12381 import bls12381
     from wasmsnark_tpu_torch.models.bn128 import bn128
-    from wasmsnark_tpu_torch.ops import cuda_lib, fp, towers, ntt, curve
+    from wasmsnark_tpu_torch.ops import cuda_lib, fp
 
-    m = bn128()
     rng = np.random.default_rng(SEED)
-    n = 1 << 16
+    n = N_LANES
 
     def rand(spec, k=n):
         """k canonical values: random limbs under q's top limb, then the
@@ -190,110 +243,150 @@ def check_kernels(dev):
 
     out = []
 
-    def record(kid, name, source, line, fn_k, fn_p, nbytes, ops, reps=50,
-               fns=None):
+    def record(curve, spec, kid, name, source, line, fn_k, fn_p, nbytes, ops,
+               reps=50, fns=None):
         a, b = fn_k(), fn_p()
         torch.cuda.synchronize()
         bad, err = mismatch(a, b)
         ms = time_cuda(fn_k, reps)
         plain_ms = time_cuda(fn_p, 3)
         b_ms, b_by = bound(nbytes, ops)
+        nw = words(spec)
+        label = f"{kid} {name}" + ("" if nw == 8 else f" @N{nw}")
         out.append({
-            "name": f"{kid} {name}", "route": "cuda",
+            "name": label, "route": "cuda",
             "source": f"wasmsnark_tpu_torch/csrc/{source}",
             "replaces": line, "launches": None, "max_abs_err": err,
             "mismatched_lanes": bad, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "bytes": nbytes, "lanes": n,
+            "bytes": nbytes, "lanes": n, "n_words": nw, "curve": curve,
             "fns": fns or cuda_lib.KERNELS[kid][1]})
-        say(f"{kid} {name}: {bad} mismatched lanes, {ms:.4f} ms "
+        say(f"{label}: {bad} mismatched lanes, {ms:.4f} ms "
             f"(plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
 
+    check_curve_kernels("bn128", bn128(), dev, rng, rand, record, n)
+    check_curve_kernels("bls12381", bls12381(), dev, rng, rand, record, n)
+    return out
+
+
+def check_curve_kernels(curve, m, dev, rng, rand, record, n):
+    """One curve's field, NTT and G1 kernels, then its tower kernels.  The
+    rows are at Fq's word count: K1, K2 and K4-K7 timed over Fq, K3 (over
+    Fr) timed only where Fr has Fq's word count (BN128); K1-K3 over Fr are
+    checked, untimed, for both curves."""
+    import functools
+    import torch
+    from wasmsnark_tpu_torch.ops import fp, towers, ntt, curve as cv
+
     Fq, Fr = m.fp_spec, m.fr_spec
+    E, MM, AS = elem_bytes(Fq), mm_ops(Fq), as_ops(Fq)
+    rec = functools.partial(record, curve, Fq)
     x, y = rand(Fq), rand(Fq).flip(1).contiguous()
     xr, yr = rand(Fr), rand(Fr).flip(1).contiguous()
     # both fields go through K1 and K2 on the prove path; Fr is checked
-    # here, Fp below (timed)
+    # here, Fq below (timed)
     for k, p in ((fp.mont_mul, fp.mont_mul_plain), (fp.mod_add, fp.mod_add_plain),
                  (fp.mod_sub, fp.mod_sub_plain)):
         a, b = k(Fr, xr, yr), p(Fr, xr, yr)
         torch.cuda.synchronize()
         if mismatch(a, b)[0]:
             raise AssertionError(f"{k.__name__} disagrees with its plain "
-                                 "version over Fr")
-    record("K1", "mont_mul", "fp_kernels.cu",
-           "wasmsnark_tpu/ops/fp_pallas.py:214",
-           lambda: fp.mont_mul(Fq, x, y), lambda: fp.mont_mul_plain(Fq, x, y),
-           3 * ELEM * n, MM_OPS * n)
-    record("K2", "mod_add/mod_sub", "fp_kernels.cu",
-           "wasmsnark_tpu/ops/fp_pallas.py:299",
-           lambda: (fp.mod_add(Fq, x, y), fp.mod_sub(Fq, x, y)),
-           lambda: (fp.mod_add_plain(Fq, x, y), fp.mod_sub_plain(Fq, x, y)),
-           2 * 3 * ELEM * n, 2 * AS_OPS * n)
+                                 f"version over {curve} Fr")
+    rec("K1", "mont_mul", "fp_kernels.cu",
+        "wasmsnark_tpu/ops/fp_pallas.py:214",
+        lambda: fp.mont_mul(Fq, x, y), lambda: fp.mont_mul_plain(Fq, x, y),
+        3 * E * n, MM * n)
+    rec("K2", "mod_add/mod_sub", "fp_kernels.cu",
+        "wasmsnark_tpu/ops/fp_pallas.py:299",
+        lambda: (fp.mod_add(Fq, x, y), fp.mod_sub(Fq, x, y)),
+        lambda: (fp.mod_add_plain(Fq, x, y), fp.mod_sub_plain(Fq, x, y)),
+        2 * 3 * E * n, 2 * AS * n)
     # K3 at the first stage (h = 1), a middle one (h = 2^7) and the last
     # (h = n/2, timed): below the last, lanes pair across groups g > 0
-    for h in (1, 1 << 7):
+    for h in (1, 1 << 7, n // 2):
         tw = rand(Fr, h)
         a, b = ntt.butterfly(Fr, xr, tw), ntt.butterfly_plain(Fr, xr, tw)
         torch.cuda.synchronize()
         if mismatch(a, b)[0]:
             raise AssertionError(f"butterfly disagrees with its plain "
-                                 f"version at h = {h}")
-    tw = rand(Fr, n // 2)                       # last stage of a 2^16 NTT
-    record("K3", "butterfly", "fp_kernels.cu",
-           "wasmsnark_tpu/ops/fp_pallas.py:500",
-           lambda: ntt.butterfly(Fr, xr, tw),
-           lambda: ntt.butterfly_plain(Fr, xr, tw),
-           (2 * n + n // 2) * ELEM, (n // 2) * (MM_OPS + 2 * AS_OPS))
+                                 f"version at h = {h} over {curve} Fr")
+    if words(Fq) == words(Fr):
+        Er = elem_bytes(Fr)
+        record(curve, Fr, "K3", "butterfly", "fp_kernels.cu",
+               "wasmsnark_tpu/ops/fp_pallas.py:500",
+               lambda: ntt.butterfly(Fr, xr, tw),
+               lambda: ntt.butterfly_plain(Fr, xr, tw),
+               (2 * n + n // 2) * Er,
+               (n // 2) * (mm_ops(Fr) + 2 * as_ops(Fr)))
     flag = torch.from_numpy(rng.integers(0, 2, size=n).astype(bool)).to(dev)
-    record("K4", "cneg", "fp_kernels.cu",
-           "wasmsnark_tpu/ops/fp_pallas.py:374",
-           lambda: towers.mod_cneg(Fq, flag, y),
-           lambda: towers.mod_cneg_plain(Fq, flag, y),
-           (2 * ELEM + 1) * n, 2 * NW * n)
+    rec("K4", "cneg", "fp_kernels.cu",
+        "wasmsnark_tpu/ops/fp_pallas.py:374",
+        lambda: towers.mod_cneg(Fq, flag, y),
+        lambda: towers.mod_cneg_plain(Fq, flag, y),
+        (2 * E + 1) * n, 2 * words(Fq) * n)
 
     P, Q, Qa = curve_inputs(m, rng, dev, n)
-    record("K5", "jac_madd", "curve_kernels.cu",
-           "wasmsnark_tpu/ops/curve_pallas.py:114",
-           lambda: curve.jac_madd(Fq, P, Qa),
-           lambda: curve.jac_madd_plain(Fq, P, Qa),
-           8 * ELEM * n, (18 * MM_OPS + 25 * AS_OPS) * n)
-    record("K6", "jac_add", "curve_kernels.cu",
-           "wasmsnark_tpu/ops/curve_pallas.py:53",
-           lambda: curve.jac_add(Fq, P, Q),
-           lambda: curve.jac_add_plain(Fq, P, Q),
-           9 * ELEM * n, (23 * MM_OPS + 26 * AS_OPS) * n)
-    record("K7", "jac_dbl", "curve_kernels.cu",
-           "wasmsnark_tpu/ops/curve_pallas.py:175",
-           lambda: curve.jac_double(Fq, P),
-           lambda: curve.jac_double_plain(Fq, P),
-           6 * ELEM * n, (7 * MM_OPS + 11 * AS_OPS) * n)
-    check_tower_kernels(m, dev, rand, record, n)
-    return out
+    rec("K5", "jac_madd", "curve_kernels.cu",
+        "wasmsnark_tpu/ops/curve_pallas.py:114",
+        lambda: cv.jac_madd(Fq, P, Qa),
+        lambda: cv.jac_madd_plain(Fq, P, Qa),
+        8 * E * n, (18 * MM + 25 * AS) * n)
+    rec("K6", "jac_add", "curve_kernels.cu",
+        "wasmsnark_tpu/ops/curve_pallas.py:53",
+        lambda: cv.jac_add(Fq, P, Q),
+        lambda: cv.jac_add_plain(Fq, P, Q),
+        9 * E * n, (23 * MM + 26 * AS) * n)
+    rec("K7", "jac_dbl", "curve_kernels.cu",
+        "wasmsnark_tpu/ops/curve_pallas.py:175",
+        lambda: cv.jac_double(Fq, P),
+        lambda: cv.jac_double_plain(Fq, P),
+        6 * E * n, (7 * MM + 11 * AS) * n)
+    check_tower_kernels(curve, m, rand, rec, n)
 
 
-def check_tower_kernels(m, dev, rand, record, n):
-    """K8-K10 against their plain versions on the card.  The operation
-    counts of the bounds are those of csrc/tower_kernels.cu's formulas
-    (Montgomery products, modular adds and subs with xi = 9 + u and the
-    small multiples as double-and-add chains); bytes are the operand and
-    output planes, 64 B each per lane."""
-    from wasmsnark_tpu_torch.ops import fp, tower_kernels as tk
+# per C entry point of the tower kernels: (Montgomery products, modular
+# adds and subs besides those of xi, multiplications by xi), counted from
+# csrc/tower_kernels.cu's formulas (small multiples as double-and-add
+# chains)
+TOWER_OPS = {
+    "k8_f12_mul": (54, 182, 7), "k8_f12_sqr": (36, 126, 6),
+    "k9_f12_cyc_sqr": (18, 83, 4),
+    "k10_miller_dbl": (50, 151, 0), "k10_miller_add": (41, 79, 0),
+    "k11_miller_dbl_mtwist": (50, 151, 1),
+    "k11_miller_add_mtwist": (41, 79, 1),
+}
+
+
+def check_tower_kernels(curve, m, rand, rec, n):
+    """K8, K9 and the curve's Miller steps (K10 for BN128, K11 for
+    BLS12-381) against their plain versions on the card, at the curve's xi.
+    Bytes are the operand and output planes, one element each per lane."""
+    from wasmsnark_tpu_torch.ops import cuda_lib, fp, tower_kernels as tk
+    from wasmsnark_tpu_torch.ops.pairing import pairing_device
     from wasmsnark_tpu_torch.utils.serialize import (ints_to_limbs_fast,
                                                      limbs_to_ints)
     Fq = m.fp_spec
+    E = elem_bytes(Fq)
+    xi = pairing_device(curve).XI
+
+    def ops(fn):
+        prods, adds, n_xi = TOWER_OPS[fn]
+        return (prods * mm_ops(Fq) + (adds + n_xi * xi_ops(xi))
+                * as_ops(Fq)) * n
+
     src, pl = "tower_kernels.cu", "wasmsnark_tpu/ops/tower_pallas.py"
     a = tk.unflatten12([rand(Fq) for _ in range(12)])
     b = tk.unflatten12([rand(Fq) for _ in range(12)])
-    record("K8", "f12_mul", src, f"{pl}:75", lambda: tk.f12_mul(Fq, a, b),
-           lambda: tk.f12_mul_plain(Fq, a, b), 36 * ELEM * n,
-           (54 * MM_OPS + 280 * AS_OPS) * n, fns=("k8_f12_mul",))
-    record("K8", "f12_sqr", src, f"{pl}:75", lambda: tk.f12_sqr(Fq, a),
-           lambda: tk.f12_sqr_plain(Fq, a), 24 * ELEM * n,
-           (36 * MM_OPS + 210 * AS_OPS) * n, fns=("k8_f12_sqr",))
-    record("K9", "f12_cyc_sqr", src, f"{pl}:90",
-           lambda: tk.f12_cyc_sqr(Fq, a), lambda: tk.f12_cyc_sqr_plain(Fq, a),
-           24 * ELEM * n, (18 * MM_OPS + 139 * AS_OPS) * n)
+    rec("K8", "f12_mul", src, f"{pl}:75", lambda: tk.f12_mul(Fq, a, b, xi),
+        lambda: tk.f12_mul_plain(Fq, a, b, xi), 36 * E * n,
+        ops("k8_f12_mul"), fns=("k8_f12_mul",))
+    rec("K8", "f12_sqr", src, f"{pl}:75", lambda: tk.f12_sqr(Fq, a, xi),
+        lambda: tk.f12_sqr_plain(Fq, a, xi), 24 * E * n,
+        ops("k8_f12_sqr"), fns=("k8_f12_sqr",))
+    rec("K9", "f12_cyc_sqr", src, f"{pl}:90",
+        lambda: tk.f12_cyc_sqr(Fq, a, xi),
+        lambda: tk.f12_cyc_sqr_plain(Fq, a, xi), 24 * E * n,
+        ops("k9_f12_cyc_sqr"))
     X, Y, Z, x2, y2 = [(rand(Fq), rand(Fq)) for _ in range(5)]
     xP, yP = rand(Fq), rand(Fq)
     for c in Z:                               # lanes 64..95: Z = 0
@@ -308,17 +401,27 @@ def check_tower_kernels(m, dev, rand, record, n):
           for u0, u1, z0, z1 in zip(*(vals(p) for p in (*X, *Z)))]
     for k in range(2):
         x2[k][:, sl] = fp.planes(ints_to_limbs_fast(
-            [Fq.to_mont(v[k]) for v in xz], Fq.n_limbs), dev)
-    record("K10", "miller_dbl", src, f"{pl}:100",
-           lambda: tk.miller_dbl(Fq, X, Y, Z, xP, yP),
-           lambda: tk.miller_dbl_plain(Fq, X, Y, Z, xP, yP), 20 * ELEM * n,
-           (50 * MM_OPS + 151 * AS_OPS) * n, fns=("k10_miller_dbl",))
-    record("K10", "miller_add", src, f"{pl}:134",
-           lambda: tk.miller_add(Fq, X, Y, Z, x2, y2, xP, yP),
-           lambda: tk.miller_add_plain(Fq, X, Y, Z, x2, y2, xP, yP),
-           24 * ELEM * n, (41 * MM_OPS + 79 * AS_OPS) * n,
-           fns=("k10_miller_add",))
-    a0 = tk.miller_add(Fq, X, Y, Z, x2, y2, xP, yP)[0][0]
+            [Fq.to_mont(v[k]) for v in xz], Fq.n_limbs), X[0].device)
+    if curve == "bn128":
+        kid, dbl, add = "K10", "miller_dbl", "miller_add"
+        k_dbl, p_dbl = tk.miller_dbl, tk.miller_dbl_plain
+        k_add, p_add = tk.miller_add, tk.miller_add_plain
+        lines, extra = (f"{pl}:100", f"{pl}:134"), ()
+    else:
+        kid, dbl, add = "K11", "miller_dbl_mtwist", "miller_add_mtwist"
+        k_dbl, p_dbl = tk.miller_dbl_mtwist, tk.miller_dbl_mtwist_plain
+        k_add, p_add = tk.miller_add_mtwist, tk.miller_add_mtwist_plain
+        lines, extra = (f"{pl}:164", f"{pl}:205"), (xi,)
+    fn_dbl, fn_add = cuda_lib.KERNELS[kid][1]
+    rec(kid, dbl, src, lines[0],
+        lambda: k_dbl(Fq, X, Y, Z, xP, yP, *extra),
+        lambda: p_dbl(Fq, X, Y, Z, xP, yP, *extra), 20 * E * n,
+        ops(fn_dbl), fns=(fn_dbl,))
+    rec(kid, add, src, lines[1],
+        lambda: k_add(Fq, X, Y, Z, x2, y2, xP, yP, *extra),
+        lambda: p_add(Fq, X, Y, Z, x2, y2, xP, yP, *extra), 24 * E * n,
+        ops(fn_add), fns=(fn_add,))
+    a0 = k_add(Fq, X, Y, Z, x2, y2, xP, yP, *extra)[0][0]
     if any(int(p[:, sl].abs().sum()) for p in a0):
         raise AssertionError("the x2 = X/Z lanes are not degenerate")
 
@@ -378,25 +481,41 @@ def f12_schedule(pd, n_pairs, prepared):
     """Launches of each tower entry point that one pairing product over
     n_pairs pairs makes, from the static schedules: a line multiply per
     Miller step and a square per dbl step; log2(n_pairs) multiplies for the
-    pairs; 2 multiplies in the easy part; in the hard part three z-powers
-    of (bits(z) - 1) cyclotomic squarings and (popcount(z) - 1) multiplies
-    each, then the chain's 13 multiplies and 4 cyclotomic squarings."""
+    pairs; 2 multiplies in the easy part; then the hard part: for BN128
+    three z-powers of (bits(z) - 1) cyclotomic squarings and (popcount(z) -
+    1) multiplies each, then the chain's 13 multiplies and 4 cyclotomic
+    squarings; for BLS12-381 the 4-bit window ladder's 14 table multiplies,
+    4 cyclotomic squarings per window after the first and a multiply per
+    nonzero one."""
+    from wasmsnark_tpu_torch.ops.pairing import window_digits
     flags = pd._prep_flags
     steps, dbls = len(flags), int((flags == 0).sum())
-    zbits, zpop = len(pd.z_bits), int(pd.z_bits.sum())
-    return {
-        "k8_f12_mul": steps + (n_pairs.bit_length() - 1) + 2
-        + 3 * (zpop - 1) + 13,
+    if hasattr(pd, "z_bits"):
+        zbits, zpop = len(pd.z_bits), int(pd.z_bits.sum())
+        hard_mul, hard_sqr = 3 * (zpop - 1) + 13, 3 * (zbits - 1) + 4
+        dbl_fn, add_fn = "k10_miller_dbl", "k10_miller_add"
+    else:
+        digits = window_digits(pd._hard_exp, 4)
+        hard_mul = 14 + sum(1 for d in digits[1:] if d)
+        hard_sqr = 4 * (len(digits) - 1)
+        dbl_fn, add_fn = "k11_miller_dbl_mtwist", "k11_miller_add_mtwist"
+    sched = dict.fromkeys(TOWER_FNS, 0)
+    sched.update({
+        "k8_f12_mul": steps + (n_pairs.bit_length() - 1) + 2 + hard_mul,
         "k8_f12_sqr": dbls,
-        "k9_f12_cyc_sqr": 3 * (zbits - 1) + 4,
-        "k10_miller_dbl": 0 if prepared else dbls,
-        "k10_miller_add": 0 if prepared else steps - dbls,
-    }
+        "k9_f12_cyc_sqr": hard_sqr,
+        dbl_fn: 0 if prepared else dbls,
+        add_fn: 0 if prepared else steps - dbls,
+    })
+    return sched
+
+
+TOWER_FNS = ("k8_f12_mul", "k8_f12_sqr", "k9_f12_cyc_sqr", "k10_miller_dbl",
+             "k10_miller_add", "k11_miller_dbl_mtwist", "k11_miller_add_mtwist")
 
 
 def tower_counts(counts):
-    return {fn: c for fn, c in counts.items() if fn[:3] in ("k8_", "k9_")
-            or fn.startswith("k10")}
+    return {fn: counts[fn] for fn in TOWER_FNS}
 
 
 def rerandomised(m, proof, r):
@@ -437,16 +556,17 @@ def verify_lanes(m, pub, proof, n):
 
 def verify_batch(rt, vk, lanes, phases):
     """N_VERIFY proofs through rt.groth16_verify_batch, twice; returns the
-    launches per entry point of the steady call."""
+    launches per (entry point, word count) of the steady call."""
     import torch
     from wasmsnark_tpu_torch.groth16 import verifier
     from wasmsnark_tpu_torch.ops import cuda_lib
-    from wasmsnark_tpu_torch.ops.pairing import bn128_pairing_device
+    from wasmsnark_tpu_torch.ops.pairing import pairing_device
 
     m = rt.module
-    pd = bn128_pairing_device()
+    pd = pairing_device(rt.CURVE)
     ins, prs, want = lanes
-    say(f"verify batch: {N_VERIFY} proofs, {want.count(False)} bad lanes")
+    say(f"{rt.CURVE} verify batch: {N_VERIFY} proofs, {want.count(False)} "
+        "bad lanes")
     pd.vk_prep_cache.clear()
     for name in ("first", "steady"):
         if name == "steady":
@@ -460,10 +580,11 @@ def verify_batch(rt, vk, lanes, phases):
             raise AssertionError(f"verify batch ({name}) wrong at lanes "
                                  f"{bad[:20]}")
     counts = dict(cuda_lib.fn_launches)
+    by_words = dict(cuda_lib.word_launches)
     phases["verify_proofs_per_s"] = N_VERIFY / phases["verify_steady_s"]
     phases["verify_launches"] = {k: v for k, v in counts.items() if v}
-    say(f"verify batch: first {phases['verify_first_s']:.2f} s, steady "
-        f"{phases['verify_steady_s']:.2f} s "
+    say(f"{rt.CURVE} verify batch: first {phases['verify_first_s']:.2f} s, "
+        f"steady {phases['verify_steady_s']:.2f} s "
         f"({phases['verify_proofs_per_s']:.1f} proofs/s); launches "
         f"{phases['verify_launches']}")
     sched = f12_schedule(pd, 4, prepared=True)
@@ -481,28 +602,30 @@ def verify_batch(rt, vk, lanes, phases):
     phases["verify_device_s"] = time.perf_counter() - t
     if [bool(a) and b for a, b in zip(ok, ok_host)] != want:
         raise AssertionError("the split verify batch disagrees")
-    say(f"verify batch split: host marshalling {phases['verify_host_s']:.2f}"
-        f" s, device pass {phases['verify_device_s']:.2f} s")
+    say(f"{rt.CURVE} verify batch split: host marshalling "
+        f"{phases['verify_host_s']:.2f} s, device pass "
+        f"{phases['verify_device_s']:.2f} s")
 
     t = time.perf_counter()
     for i in sample_lanes(N_VERIFY):          # two good, two bad lanes
         if rt.groth16_verify(vk, ins[i], prs[i]) is not want[i]:
             raise AssertionError(f"lane {i} disagrees with host verify")
     phases["verify_host_lanes_s"] = time.perf_counter() - t
-    return counts
+    return by_words
 
 
 def pairing_batch(rt, vk, pub, proof, phases):
     """The unprepared pairing on N_VERIFY lanes of e(7 G1, 9 G2) against
     e(G1, G2)^63, and against the prepared path on one proof's four
-    pairs.  Returns the launches per entry point of the pairing batch."""
+    pairs.  Returns the launches per (entry point, word count) of the
+    pairing batch."""
     import torch
     from wasmsnark_tpu_torch.groth16 import verifier
     from wasmsnark_tpu_torch.ops import cuda_lib
     from wasmsnark_tpu_torch.ops.curve import map_leaf
-    from wasmsnark_tpu_torch.ops.pairing import bn128_pairing_device
+    from wasmsnark_tpu_torch.ops.pairing import pairing_device
 
-    pd = bn128_pairing_device()
+    pd = pairing_device(rt.CURVE)
     m = pd.m
     p1 = m.G1.affine(m.G1.times_scalar(m.g1_gen, 7))[:2]
     q1 = m.G2.affine(m.G2.times_scalar(m.g2_gen, 9))[:2]
@@ -515,8 +638,9 @@ def pairing_batch(rt, vk, pub, proof, phases):
         torch.cuda.synchronize()
         phases[f"pairing_{name}_s"] = time.perf_counter() - t
     counts = dict(cuda_lib.fn_launches)
+    by_words = dict(cuda_lib.word_launches)
     phases["pairing_launches"] = {k: v for k, v in counts.items() if v}
-    say(f"pairing batch ({N_VERIFY} lanes): first "
+    say(f"{rt.CURVE} pairing batch ({N_VERIFY} lanes): first "
         f"{phases['pairing_first_s']:.2f} s, steady "
         f"{phases['pairing_steady_s']:.2f} s; launches "
         f"{phases['pairing_launches']}")
@@ -542,39 +666,134 @@ def pairing_batch(rt, vk, pub, proof, phases):
     if mismatch(e_prep, e_full)[0] or not bool(pd.is_one(e_full).all()):
         raise AssertionError("pairing_product and pairing_product_prepared "
                              "disagree on a good proof's four pairs")
-    say("pairing: all lanes equal e(G1, G2)^63; unprepared = prepared on a "
-        "proof's four pairs, bit for bit")
-    return counts
+    say(f"{rt.CURVE} pairing: all lanes equal e(G1, G2)^63; unprepared = "
+        "prepared on a proof's four pairs, bit for bit")
+    return by_words
 
 
 def card_against_cpu(rt, vk, lanes, phases):
     """4 lanes (2 good, 2 bad) on the card and with the plain versions on
     the CPU: the same booleans and bit-equal F12 values."""
-    import wasmsnark_tpu_torch
     from wasmsnark_tpu_torch.groth16 import verifier
-    from wasmsnark_tpu_torch.ops.pairing import bn128_pairing_device
+    from wasmsnark_tpu_torch.ops.pairing import pairing_device
 
     t = time.perf_counter()
     m = rt.module
     ins, prs, _ = lanes
     pick = sample_lanes(N_VERIFY)
     ins, prs = [ins[i] for i in pick], [prs[i] for i in pick]
-    cpu = wasmsnark_tpu_torch.build_bn128(device="cpu")
+    cpu = type(rt)(device="cpu")
     got = {"card": rt.groth16_verify_batch(vk, ins, prs),
            "cpu": cpu.groth16_verify_batch(vk, ins, prs)}
     if not got["card"] == got["cpu"] == [True, True, False, False]:
         raise AssertionError(f"card and CPU verify differ: {got}")
     e = {}
     for where in ("card", "cpu"):
-        pd = bn128_pairing_device("cpu" if where == "cpu" else None)
+        pd = pairing_device(rt.CURVE, "cpu" if where == "cpu" else None)
         g1, g2_b, fixed, _ = verifier._batch_inputs(pd, m, vk, ins, prs)
         e[where] = tuple(x.cpu() for x in leaves(
             verifier._pairing_batch(pd, g1, g2_b, fixed)))
     if mismatch(e["card"], e["cpu"])[0]:
         raise AssertionError("card and CPU F12 values differ")
     phases["card_vs_cpu_s"] = time.perf_counter() - t
-    say(f"card against CPU: same booleans, bit-equal F12 values "
+    say(f"{rt.CURVE} card against CPU: same booleans, bit-equal F12 values "
         f"({phases['card_vs_cpu_s']:.1f} s)")
+
+
+def run_curve(curve, phases):
+    """Steps 4-9 for one curve; returns the launches per (entry point,
+    word count) on each of its paths: prove, steady verify batch,
+    pairing batch."""
+    import torch
+    import wasmsnark_tpu_torch
+    from wasmsnark_tpu_torch.groth16.setup import (
+        setup, square_chain_circuit, square_chain_witness)
+    from wasmsnark_tpu_torch.groth16.pkey import write_witness
+    from wasmsnark_tpu_torch.models import curve_module
+    from wasmsnark_tpu_torch.ops import cuda_lib
+
+    m = curve_module(curve)
+    R = m.Fr.q
+    build = {"bn128": wasmsnark_tpu_torch.build_bn128,
+             "bls12381": wasmsnark_tpu_torch.build_bls12381}[curve]
+    k = (1 << LOG_2N) - 2
+    say(f"{curve} setup: square_chain_circuit(2^{LOG_2N} - 2) on the card")
+    timings = {}
+    t = time.perf_counter()
+    pkey, vk, _ = setup(square_chain_circuit(k), seed=SEED % 1000, module=m,
+                        timings=timings)
+    torch.cuda.synchronize()
+    phases["setup_s"] = time.perf_counter() - t
+    phases["setup_sections_s"] = timings
+    phases["pkey_bytes"] = len(pkey)
+    say(f"{curve} setup: {phases['setup_s']:.1f} s, sections "
+        + ", ".join(f"{n} {v:.1f} s" for n, v in timings.items()))
+
+    wit = square_chain_witness(k, 3, r=R)
+    wbytes = write_witness(wit, m.fr_spec)
+    pub = [str(wit[1])]
+    rt = build()
+
+    say(f"{curve} prove (first call; launch counters from 0)")
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    proof = rt.groth16_gen_proof(wbytes, pkey, rng=7)
+    torch.cuda.synchronize()
+    phases["prove_first_s"] = time.perf_counter() - t
+    launches = dict(cuda_lib.launches)
+    by_path = {"prove": dict(cuda_lib.word_launches)}
+    phases["prove_launches"] = {kid: v for kid, v in launches.items() if v}
+    say(f"{curve} prove: {phases['prove_first_s']:.2f} s, launches "
+        f"{launches}")
+    missing = [kid for kid in PROVE_KERNELS if launches[kid] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {curve} "
+                             f"prove: {missing}")
+
+    t = time.perf_counter()
+    proof2 = rt.groth16_gen_proof(wbytes, pkey, rng=7)
+    torch.cuda.synchronize()
+    phases["prove_steady_s"] = time.perf_counter() - t
+    say(f"{curve} prove (steady): {phases['prove_steady_s']:.2f} s")
+    if proof2 != proof:
+        raise AssertionError("two proves with the same rng differ")
+    breakdown = {}
+    if rt.prover.prove(wbytes, pkey, rng=7, timings=breakdown) != proof:
+        raise AssertionError("the timed prove differs")
+    phases["prove_breakdown_s"] = breakdown
+    say(f"{curve} prove breakdown (steady, synchronized): " + ", ".join(
+        f"{n} {v:.3f} s" for n, v in breakdown.items()))
+
+    t = time.perf_counter()
+    if rt.groth16_verify(vk, pub, proof) is not True:
+        raise AssertionError("the proof does not verify")
+    bad_proof = json.loads(json.dumps(proof))
+    bad_proof["pi_a"][0] = str(int(bad_proof["pi_a"][0]) + 1)
+    if rt.groth16_verify(vk, pub, bad_proof) is not False:
+        raise AssertionError("a tampered proof verifies")
+    phases["verify_s"] = time.perf_counter() - t
+    say(f"{curve} verify: good True, tampered False "
+        f"({phases['verify_s']:.1f} s)")
+
+    say(f"{curve} small circuit: card against the plain versions on the CPU")
+    t = time.perf_counter()
+    small_pk, _, _ = setup(square_chain_circuit(3), seed=1, module=m)
+    small_w = write_witness(square_chain_witness(3, 5, r=R), m.fr_spec)
+    on_card = rt.groth16_gen_proof(small_w, small_pk, rng=7)
+    on_cpu = build(device="cpu").groth16_gen_proof(small_w, small_pk, rng=7)
+    if on_card != on_cpu:
+        raise AssertionError("the card's proof differs from the plain one")
+    phases["small_parity_s"] = time.perf_counter() - t
+    say(f"{curve} small circuit: identical proofs "
+        f"({phases['small_parity_s']:.1f} s)")
+
+    t = time.perf_counter()
+    lanes = verify_lanes(m, pub, proof, N_VERIFY)
+    phases["verify_lanes_s"] = time.perf_counter() - t
+    by_path["verify_batch"] = verify_batch(rt, vk, lanes, phases)
+    by_path["pairing_batch"] = pairing_batch(rt, vk, pub, proof, phases)
+    card_against_cpu(rt, vk, lanes, phases)
+    return by_path
 
 
 def main() -> int:
@@ -584,12 +803,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    import wasmsnark_tpu_torch
     from wasmsnark_tpu_torch.ops import cuda_lib
-    from wasmsnark_tpu_torch.groth16.setup import (
-        setup, square_chain_circuit, square_chain_witness)
-    from wasmsnark_tpu_torch.groth16.pkey import write_witness
-    from wasmsnark_tpu_torch.models.bn128 import bn128
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -605,9 +819,11 @@ def main() -> int:
     t = time.perf_counter()
     cuda_lib.build()
     phases["build_s"] = time.perf_counter() - t
-    say(f"build: {phases['build_s']:.1f} s ({cuda_lib.build_dir()})")
-    phases["ptxas"] = ptxas_summary(cuda_lib.build_dir())
-    say(f"ptxas: {json.dumps(phases['ptxas'])}")
+    phases["build_library_s"] = dict(cuda_lib.build_seconds)
+    say(f"build: {phases['build_s']:.1f} s ({cuda_lib.build_dir()}), per "
+        f"library {json.dumps(phases['build_library_s'])}")
+    ptxas = phases["ptxas"] = ptxas_summary(cuda_lib.build_dir())
+    say(f"ptxas: {json.dumps(ptxas)}")
 
     say("kernels against their plain versions")
     t = time.perf_counter()
@@ -618,91 +834,23 @@ def main() -> int:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
 
-    m = bn128()
-    k = (1 << LOG_2N) - 2
-    say(f"setup: square_chain_circuit(2^{LOG_2N} - 2) on the card")
-    timings = {}
-    t = time.perf_counter()
-    pkey, vk, _ = setup(square_chain_circuit(k), seed=SEED % 1000,
-                        timings=timings)
-    torch.cuda.synchronize()
-    phases["setup_s"] = time.perf_counter() - t
-    phases["setup_sections_s"] = timings
-    phases["pkey_bytes"] = len(pkey)
-    say(f"setup: {phases['setup_s']:.1f} s, sections "
-        + ", ".join(f"{n} {v:.1f} s" for n, v in timings.items()))
+    by_path = {}
+    for curve in CURVES:
+        phases[curve] = {}
+        by_path[curve] = run_curve(curve, phases[curve])
 
-    wit = square_chain_witness(k, 3)
-    wbytes = write_witness(wit, m.fr_spec)
-    pub = [str(wit[1])]
-    rt = wasmsnark_tpu_torch.build_bn128()
-
-    say("prove (first call; launch counters from 0)")
-    cuda_lib.reset_launches()
-    t = time.perf_counter()
-    proof = rt.groth16_gen_proof(wbytes, pkey, rng=7)
-    torch.cuda.synchronize()
-    phases["prove_first_s"] = time.perf_counter() - t
-    launches = dict(cuda_lib.launches)
-    by_path = {"prove": dict(cuda_lib.fn_launches)}
-    say(f"prove: {phases['prove_first_s']:.2f} s, launches {launches}")
-    missing = [kid for kid in PROVE_KERNELS if launches[kid] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the prove: "
-                             f"{missing}")
-
-    t = time.perf_counter()
-    proof2 = rt.groth16_gen_proof(wbytes, pkey, rng=7)
-    torch.cuda.synchronize()
-    phases["prove_steady_s"] = time.perf_counter() - t
-    say(f"prove (steady): {phases['prove_steady_s']:.2f} s")
-    if proof2 != proof:
-        raise AssertionError("two proves with the same rng differ")
-    breakdown = {}
-    if rt.prover.prove(wbytes, pkey, rng=7, timings=breakdown) != proof:
-        raise AssertionError("the timed prove differs")
-    phases["prove_breakdown_s"] = breakdown
-    say("prove breakdown (steady, synchronized): " + ", ".join(
-        f"{n} {v:.3f} s" for n, v in breakdown.items()))
-
-    t = time.perf_counter()
-    if rt.groth16_verify(vk, pub, proof) is not True:
-        raise AssertionError("the proof does not verify")
-    bad_proof = json.loads(json.dumps(proof))
-    bad_proof["pi_a"][0] = str(int(bad_proof["pi_a"][0]) + 1)
-    if rt.groth16_verify(vk, pub, bad_proof) is not False:
-        raise AssertionError("a tampered proof verifies")
-    phases["verify_s"] = time.perf_counter() - t
-    say(f"verify: good True, tampered False ({phases['verify_s']:.1f} s)")
-
-    say("small circuit: card against the plain versions on the CPU")
-    t = time.perf_counter()
-    small_pk, _, _ = setup(square_chain_circuit(3), seed=1)
-    small_w = write_witness(square_chain_witness(3, 5), m.fr_spec)
-    on_card = rt.groth16_gen_proof(small_w, small_pk, rng=7)
-    on_cpu = wasmsnark_tpu_torch.build_bn128(device="cpu").groth16_gen_proof(
-        small_w, small_pk, rng=7)
-    if on_card != on_cpu:
-        raise AssertionError("the card's proof differs from the plain one")
-    phases["small_parity_s"] = time.perf_counter() - t
-    say(f"small circuit: identical proofs ({phases['small_parity_s']:.1f} s)")
-
-    t = time.perf_counter()
-    lanes = verify_lanes(m, pub, proof, N_VERIFY)
-    phases["verify_lanes_s"] = time.perf_counter() - t
-    by_path["verify_batch"] = verify_batch(rt, vk, lanes, phases)
-    by_path["pairing_batch"] = pairing_batch(rt, vk, pub, proof, phases)
-    card_against_cpu(rt, vk, lanes, phases)
-
-    # each kernel's launches on the path it serves: the prove for K1-K7,
-    # the steady verify batch for K8 and K9, the pairing batch for K10
+    # each kernel's launches on the path that serves it, at its word count:
+    # the prove for K1-K7, the steady verify batch for K8 and K9, the
+    # pairing batch for K10 and K11
     for kr in kernels:
-        counts = {path: sum(c[fn] for fn in kr["fns"])
-                  for path, c in by_path.items()}
+        counts = {path: sum(c[(fn, kr["n_words"])] for fn in kr["fns"])
+                  for path, c in by_path[kr["curve"]].items()}
         kr["launches_by_path"] = counts
         kr["launches"] = next((v for v in counts.values() if v), 0)
         if not kr["launches"]:
             raise AssertionError(f"{kr['name']} never launched")
+        kr["ptxas"] = {fn: ptxas.get(f"{ENTRY_KERNEL[fn]}@N{kr['n_words']}")
+                       for fn in kr["fns"]}
 
     phases["wall_s"] = time.perf_counter() - _T0
     say("phases " + json.dumps(phases))
@@ -710,7 +858,8 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "mismatched_lanes", "bytes", "launches_by_path")
+            "n_words", "mismatched_lanes", "bytes", "launches_by_path",
+            "ptxas")
     print(json.dumps({"kernels": [{k_: kr[k_] for k_ in keys}
                                   for kr in kernels]}))
     print(smi)

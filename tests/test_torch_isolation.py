@@ -90,10 +90,13 @@ def test_wrappers_on_cpu_tensors_launch_nothing():
     tk.f12_cyc_sqr(Fq, f)
     tk.miller_dbl(Fq, (x, y), (y, x), (x, x), x, y)
     tk.miller_add(Fq, (x, y), (y, x), (x, x), (y, y), (x, y), x, y)
+    tk.miller_dbl_mtwist(Fq, (x, y), (y, x), (x, x), x, y)
+    tk.miller_add_mtwist(Fq, (x, y), (y, x), (x, x), (y, y), (x, y), x, y)
     assert all(v == 0 for v in cuda_lib.launches.values()), cuda_lib.launches
     assert all(v == 0 for v in cuda_lib.fn_launches.values())
+    assert all(v == 0 for v in cuda_lib.word_launches.values())
     assert sorted(cuda_lib.launches, key=lambda k: int(k[1:])) == \
-        [f"K{i}" for i in range(1, 11)]
+        [f"K{i}" for i in range(1, 12)]
 
 
 def test_entry_points_need_a_card_unless_told_cpu():
@@ -110,6 +113,63 @@ def test_entry_points_need_a_card_unless_told_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         FpDevice(bn128().fp_spec)
     assert wasmsnark_tpu_torch.build_bn128(device="cpu").device.type == "cpu"
+
+
+def test_bls_entry_points_need_a_card_unless_told_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    import wasmsnark_tpu_torch
+    from wasmsnark_tpu_torch.ops.pairing import bls12381_pairing_device
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wasmsnark_tpu_torch.build_bls12381()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bls12381_pairing_device()
+    rt = wasmsnark_tpu_torch.build_bls12381(device="cpu")
+    assert rt.device.type == "cpu" and rt.prover.Fp.L == 24
+    assert rt.F1.q == rt.module.F1.q            # passthrough to the module
+
+
+@pytest.mark.parametrize("rel", [
+    "models/bls12381.py", "models/bls12381_constants.py",
+    "models/__init__.py", "ops/pairing.py", "ops/tower_kernels.py",
+    "groth16/runtime.py"])
+def test_bls_modules_import_no_jax(rel):
+    """The slice's new and extended modules exist and import neither jax
+    nor the JAX package (the subprocess test above imports them with jax
+    blocked)."""
+    path = PORT / rel
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            tops = [(node.module or "").split(".")[0]]
+        else:
+            continue
+        assert not set(tops) & {"jax", "jaxlib", "wasmsnark_tpu"}, rel
+
+
+def test_k11_entry_points_and_per_word_libraries():
+    """K11 is registered beside K1-K10; every source builds once per word
+    count, and a field of another width is refused before any build."""
+    from wasmsnark_tpu_torch.ops import cuda_lib
+    from wasmsnark_tpu_torch.fields.spec import FieldSpec
+    assert cuda_lib.KERNELS["K11"] == (
+        "tower_kernels", ("k11_miller_dbl_mtwist", "k11_miller_add_mtwist"))
+    assert cuda_lib._SIGNATURES["k11_miller_dbl_mtwist"] == (3, 3)
+    assert cuda_lib._SIGNATURES["k11_miller_add_mtwist"] == (4, 3)
+    assert cuda_lib.WORDS == (8, 12)
+    assert sorted(cuda_lib.libraries()) == sorted(
+        f"{name}_w{w}" for name in cuda_lib.SOURCES for w in (8, 12))
+    text = (pathlib.Path(cuda_lib.CSRC) / "tower_kernels.cu").read_text()
+    for fn in ("k11_miller_dbl_mtwist", "k11_miller_add_mtwist"):
+        body = text[text.index(f"int {fn}("):]
+        assert body.index("#if WORDS == 12") < body.index("}")
+    wide = FieldSpec((1 << 752) + 1155, "wide")    # 48 limbs: no build
+    x = torch.zeros((wide.n_limbs, 1), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no kernel build for 48 limbs"):
+        cuda_lib.launch("k1_mont_mul", wide, (x, x, x), (1,))
+    assert not cuda_lib._libs
 
 
 def test_loader_builds_only_on_demand_and_matches_sources(tmp_path,

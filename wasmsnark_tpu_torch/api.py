@@ -1,9 +1,11 @@
-"""Top-level runtime constructor (reference API parity: index.js:20-22).
+"""Top-level runtime constructors (reference API parity: index.js:20-22).
 
     reference                         wasmsnark_tpu_torch
     ---------                         -------------------
     await buildBn128()                build_bn128()          (CUDA card)
                                       build_bn128(device="cpu")
+    await buildBls12381()             build_bls12381()       (CUDA card)
+                                      build_bls12381(device="cpu")
     bn128.groth16GenProof(w, pk)      rt.groth16_gen_proof(witness, pkey)
     bn128.groth16Verify(vk, in, prf)  rt.groth16_verify(vk, inputs, proof)
                                       rt.groth16_verify_batch(vk, inputs_list,
@@ -18,3 +20,11 @@ def build_bn128(device=None):
     where there is none)."""
     from .groth16.runtime import Bn128Runtime
     return Bn128Runtime(device)
+
+
+def build_bls12381(device=None):
+    """BLS12-381 Groth16 runtime on `device` (default: the CUDA card;
+    raises where there is none), with attribute passthrough to the curve
+    module."""
+    from .groth16.runtime import Bls12381Runtime
+    return Bls12381Runtime(device)

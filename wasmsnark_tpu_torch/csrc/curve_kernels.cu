@@ -21,12 +21,13 @@
 // fallback is computed for every lane, as the TPU kernels do, so no warp
 // diverges.  Register pressure (~40 live elements of 8 words) is the known
 // cost of this simple form.
+//
+// Built per word count (fp.cuh, WORDS): N = 8 for BN128's G1, N = 12 for
+// BLS12-381's (half as many words again in every live element).
 
 #include "fp.cuh"
 
 namespace {
-
-constexpr int kN = 8;
 
 template <int N>
 struct Jac {
@@ -174,10 +175,6 @@ __global__ void jac_dbl_kernel(Field<N> f, const uint32_t* __restrict__ x,
     store_fe(oy, n, i, o.y);
     store_fe(oz, n, i, o.z);
   }
-}
-
-inline bool bad_args(int n_limbs, long long n) {
-  return n_limbs != 2 * kN || n < 0;
 }
 
 }  // namespace

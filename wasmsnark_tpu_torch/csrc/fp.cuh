@@ -17,6 +17,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// Every library is built once per word count N, given as -DWORDS=N: 8 for
+// the 16-limb fields (BN128 Fp and Fr, BLS12-381 Fr), 12 for BLS12-381's
+// 24-limb Fq.  An entry point refuses any other limb count.
+#ifndef WORDS
+#error "build with -DWORDS=<32-bit words per field element>"
+#endif
+constexpr int kN = WORDS;
+
+inline bool bad_args(int n_limbs, long long n) {
+  return n_limbs != 2 * kN || n < 0;
+}
+
 template <int N>
 struct Field {
   uint32_t q[N];     // modulus, 32-bit words, little-endian

@@ -22,12 +22,15 @@
 // Every entry point has a plain C interface for ctypes: device pointers
 // and the CUDA stream as void*, the field constants as a host array of
 // 2N+1 words (q, one, np), and it returns cudaGetLastError().
+//
+// The library is built per word count (fp.cuh, WORDS): N = 8 serves BN128
+// Fp and Fr and BLS12-381 Fr, N = 12 BLS12-381 Fq.  K3 runs over Fr only,
+// whose curves so far all have N = 8, so the N = 12 build has no K3: its
+// entry point there returns cudaErrorInvalidValue.
 
 #include "fp.cuh"
 
 namespace {
-
-constexpr int kN = 8;  // BN128 Fp and Fr: 16 limbs of 16 bits = 8 words.
 
 template <int N>
 __global__ void mont_mul_kernel(Field<N> f, const uint32_t* __restrict__ x,
@@ -49,6 +52,7 @@ __global__ void addsub_kernel(Field<N> f, const uint32_t* __restrict__ x,
   }
 }
 
+#if WORDS == 8
 // One NTT stage over the whole domain.  x and out are [L, n] planes; the
 // stage pairs lane u = g*2h + j with v = u + h (h = half the group size)
 // and multiplies v by twiddle j of the [L, h] table tw.
@@ -66,6 +70,7 @@ __global__ void butterfly_kernel(Field<N> f, const uint32_t* __restrict__ x,
     store_fe(out, n, iv, sub(f, u, v));
   }
 }
+#endif
 
 template <int N>
 __global__ void cneg_kernel(Field<N> f, const uint8_t* __restrict__ flag,
@@ -74,10 +79,6 @@ __global__ void cneg_kernel(Field<N> f, const uint8_t* __restrict__ flag,
   LANE_LOOP(i, n) {
     store_fe(out, n, i, cneg(f, flag[i] != 0, load_fe<N>(y, n, i)));
   }
-}
-
-inline bool bad_args(int n_limbs, long long n) {
-  return n_limbs != 2 * kN || n < 0;
 }
 
 }  // namespace
@@ -116,6 +117,7 @@ int k2_mod_sub(const void* x, const void* y, void* out, long long n,
 
 int k3_butterfly(const void* x, const void* tw, void* out, long long n,
                  long long h, int n_limbs, const void* consts, void* stream) {
+#if WORDS == 8
   if (bad_args(n_limbs, n) || h < 1 || n % (2 * h) != 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
@@ -123,6 +125,9 @@ int k3_butterfly(const void* x, const void* tw, void* out, long long n,
   butterfly_kernel<kN><<<grid_for(n / 2), kThreads, 0, (cudaStream_t)stream>>>(
       f, (const uint32_t*)x, (const uint32_t*)tw, (uint32_t*)out, n, h);
   return (int)cudaGetLastError();
+#else
+  return (int)cudaErrorInvalidValue;
+#endif
 }
 
 int k4_cneg(const void* flag, const void* y, void* out, long long n,

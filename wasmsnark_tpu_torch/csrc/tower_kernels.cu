@@ -1,5 +1,5 @@
-// K8-K10: the BN128 extension-tower and Miller-step kernels, for Hopper
-// (sm_90a).
+// K8-K11: the extension-tower and Miller-step kernels of the BN128 and
+// BLS12-381 pairings, for Hopper (sm_90a).
 //
 // K8  k8_f12_mul / k8_f12_sqr replace wasmsnark_tpu/ops/tower_pallas.py
 //     _f12_mul_kernel (square=False / True): F12 = F6[w]/(w^2 - v)
@@ -9,40 +9,47 @@
 //     Granger-Scott cyclotomic square (9 F2 squarings), the polynomial map
 //     of wasmsnark_tpu/ops/towers.py gs_cyclotomic_square.
 // K10 k10_miller_dbl / k10_miller_add replace tower_pallas.py
-//     _miller_dbl_kernel / _miller_add_kernel: the D-twist Miller steps on
-//     homogeneous F2 coordinates, writing the sparse line (a0, b0, b1) at P
-//     and the new point, with exactly the products of the Pallas kernels
-//     (the representative of the new point is not unique, so the formulas
-//     are not free here).
+//     _miller_dbl_kernel / _miller_add_kernel: BN128's D-twist Miller steps
+//     on homogeneous F2 coordinates, writing the sparse line (a0, b0, b1)
+//     at P and the new point.
+// K11 k11_miller_dbl_mtwist / k11_miller_add_mtwist replace tower_pallas.py
+//     _miller_dbl_mtwist_kernel / _miller_add_mtwist_kernel: BLS12-381's
+//     M-twist steps, the same point update with the line's w^0 term times
+//     xi and its other two terms in the (v w, v^2 w) slots (b1, b2).
+// Both Miller kernels compute exactly the products of the Pallas kernels:
+// the representative of the new point is not unique, so the formulas are
+// not free here.
 //
 // Towers: F2 = Fp[u]/(u^2 + 1), F6 = F2[v]/(v^3 - xi), F12 = F6[w]/(w^2 - v),
-// templated on the word count N (BN128: N = 8, L = 16 limbs; BLS12-381's
-// L = 24 is another instantiation), with xi = xi0 + xi1 u a kernel argument
-// (BN128: 9 + u).  Every value is canonical (< q), so the results are
-// bit-identical to the 16-bit-limb plain versions and the JAX package.
+// with xi = xi0 + xi1 u a kernel argument (BN128: 9 + u; BLS12-381: 1 + u).
+// The library is built per word count (fp.cuh, WORDS): N = 8 holds K8-K10
+// for BN128, N = 12 holds K8, K9 and K11 for BLS12-381 (K10 and K11 return
+// cudaErrorInvalidValue in the build that lacks them).  Every value is
+// canonical (< q), so the results are bit-identical to the 16-bit-limb
+// plain versions and the JAX package.
 //
 // Layout: an operand is one [k, L, n] tensor, component c of lane i at limb
 // k sitting at p[(c * L + k) * n + i]: the JAX limb-plane layout, coalesced
 // across threads, repacked to N 32-bit words in registers (fp.cuh).
 //
 // What bounds them on the H100: counted against the card's peaks, a K8
-// product (54 Montgomery products of ~2N^2 IMADs, 36 planes of 64 bytes
-// per lane) needs more time for its bytes than for its operations, but one
-// thread per lane at up to 255 registers leaves ~8 warps per SM, so the
-// kernels are expected to wait on each thread's chain of dependent
-// multiplies rather than on memory (they reach 11-17 % of the byte
-// bound).  Design now: one thread per lane, as K1-K7.  One F12 operand is
-// 96 words, so K8 reads operand halves from device memory where a Karatsuba
-// term needs them instead of keeping both operands in registers, and the F2
-// and F6 products are __noinline__ functions, which keeps the build in
-// seconds; their call boundaries cost spills that -Xptxas -v reports (the
-// build log).  Splitting one product over several threads is later work.
+// product (54 Montgomery products of ~2N^2 IMADs, 36 planes of 2N 32-bit
+// words per lane) needs more time for its bytes than for its operations,
+// but one thread per lane at up to 255 registers leaves ~8 warps per SM, so
+// the kernels are expected to wait on each thread's chain of dependent
+// multiplies rather than on memory (at N = 8 they reach 11-17 % of the
+// byte bound).  Design now: one thread per lane, as K1-K7.  One F12 operand
+// is 12N words, so K8 reads operand halves from device memory where a
+// Karatsuba term needs them instead of keeping both operands in registers,
+// and the F2 and F6 products are __noinline__ functions, which keeps the
+// build in seconds; their call boundaries cost spills that -Xptxas -v
+// reports (the build log).  Splitting one product over several threads is
+// later work.
 
 #include "fp.cuh"
 
 namespace {
 
-constexpr int kN = 8;
 constexpr int kTowerThreads = 64;
 
 struct Xi {
@@ -278,27 +285,39 @@ __global__ void __launch_bounds__(kTowerThreads)
 
 // -- K10 -------------------------------------------------------------------------
 
+// Line slots of the two twists: the D twist (BN128, K10) writes the line
+// (a0, b0, b1) = (c_y yP, c_x xP, c_0); the M twist (BLS12-381, K11) writes
+// (a0, b1, b2) = (xi c_y yP, c_0, c_x xP).
+template <bool kMTwist>
+struct Slots {
+  static constexpr int kX = kMTwist ? 4 : 2;   // c_x xP
+  static constexpr int k0 = kMTwist ? 2 : 4;   // c_0
+};
+
 // In: xyz = (X, Y, Z) [6, L, n], p = (xP, yP) [2, L, n].
-// Out [12, L, n]: a0 = 2YZ^2 yP, b0 = -3X^2Z xP, b1 = 3X^3 - 2Y^2Z, then
+// Line: c_y = 2YZ^2, c_x = -3X^2Z, c_0 = 3X^3 - 2Y^2Z; then
 // X' = 2YZ (9X^4 - 8XY^2Z), Y' = 36X^3Y^2Z - 27X^4X^2 - 8(Y^2Z)^2,
-// Z' = 8 Y^3 Z^3.
-template <int N>
+// Z' = 8 Y^3 Z^3 at planes 6..11 of out [12, L, n].
+template <int N, bool kMTwist>
 __global__ void __launch_bounds__(kTowerThreads)
-    miller_dbl_kernel(Field<N> f, const uint32_t* __restrict__ xyz,
+    miller_dbl_kernel(Field<N> f, Xi xi, const uint32_t* __restrict__ xyz,
                       const uint32_t* __restrict__ p,
                       uint32_t* __restrict__ out, int64_t n) {
+  using S = Slots<kMTwist>;
   LANE_LOOP(i, n) {
     F2<N> X = ld2<N>(xyz, 0, n, i), Y = ld2<N>(xyz, 2, n, i),
           Z = ld2<N>(xyz, 4, n, i);
     F2<N> X2 = f2_sqr(f, X), Y2 = f2_sqr(f, Y), Z2 = f2_sqr(f, Z);
     F2<N> Y2Z = f2_mul(f, Y2, Z);
     F2<N> YZ2 = f2_mul(f, Y, Z2);
-    st2<N>(out, 0, n, i, f2_mul_base(f, f2_add(f, YZ2, YZ2), ld<N>(p, 1, n, i)));
-    st2<N>(out, 2, n, i,
+    F2<N> c_y = f2_add(f, YZ2, YZ2);
+    if (kMTwist) c_y = f2_mul_xi(f, xi, c_y);
+    st2<N>(out, 0, n, i, f2_mul_base(f, c_y, ld<N>(p, 1, n, i)));
+    st2<N>(out, S::kX, n, i,
            f2_mul_base(f, f2_neg(f, f2_small(f, f2_mul(f, X2, Z), 3)),
                        ld<N>(p, 0, n, i)));
     F2<N> X3c = f2_mul(f, X2, X);
-    st2<N>(out, 4, n, i,
+    st2<N>(out, S::k0, n, i,
            f2_sub(f, f2_small(f, X3c, 3), f2_small(f, Y2Z, 2)));
     F2<N> X4 = f2_sqr(f, X2);
     F2<N> t1 = f2_sub(f, f2_small(f, X4, 9), f2_small(f, f2_mul(f, X, Y2Z), 8));
@@ -314,24 +333,27 @@ __global__ void __launch_bounds__(kTowerThreads)
 }
 
 // In: xyz = (X, Y, Z) [6, L, n], q = (x2, y2) [4, L, n], p = (xP, yP).
-// th = y2 Z - Y, lm = x2 Z - X; a0 = lm yP, b0 = -th xP,
-// b1 = th x2 - lm y2; C = th^2, D = lm^2, E = lm D, F = Z C, G = X D,
+// th = y2 Z - Y, lm = x2 Z - X; line c_y = lm, c_x = -th,
+// c_0 = th x2 - lm y2; C = th^2, D = lm^2, E = lm D, F = Z C, G = X D,
 // H = F - 2G - E; X' = lm H, Y' = th (G - H) - E Y, Z' = Z E.
-template <int N>
+template <int N, bool kMTwist>
 __global__ void __launch_bounds__(kTowerThreads)
-    miller_add_kernel(Field<N> f, const uint32_t* __restrict__ xyz,
+    miller_add_kernel(Field<N> f, Xi xi, const uint32_t* __restrict__ xyz,
                       const uint32_t* __restrict__ q,
                       const uint32_t* __restrict__ p,
                       uint32_t* __restrict__ out, int64_t n) {
+  using S = Slots<kMTwist>;
   LANE_LOOP(i, n) {
     F2<N> X = ld2<N>(xyz, 0, n, i), Y = ld2<N>(xyz, 2, n, i),
           Z = ld2<N>(xyz, 4, n, i);
     F2<N> x2 = ld2<N>(q, 0, n, i), y2 = ld2<N>(q, 2, n, i);
     F2<N> th = f2_sub(f, f2_mul(f, y2, Z), Y);
     F2<N> lm = f2_sub(f, f2_mul(f, x2, Z), X);
-    st2<N>(out, 0, n, i, f2_mul_base(f, lm, ld<N>(p, 1, n, i)));
-    st2<N>(out, 2, n, i, f2_mul_base(f, f2_neg(f, th), ld<N>(p, 0, n, i)));
-    st2<N>(out, 4, n, i, f2_sub(f, f2_mul(f, th, x2), f2_mul(f, lm, y2)));
+    st2<N>(out, 0, n, i,
+           f2_mul_base(f, kMTwist ? f2_mul_xi(f, xi, lm) : lm,
+                       ld<N>(p, 1, n, i)));
+    st2<N>(out, S::kX, n, i, f2_mul_base(f, f2_neg(f, th), ld<N>(p, 0, n, i)));
+    st2<N>(out, S::k0, n, i, f2_sub(f, f2_mul(f, th, x2), f2_mul(f, lm, y2)));
     F2<N> C = f2_sqr(f, th), D = f2_sqr(f, lm);
     F2<N> E = f2_mul(f, lm, D);
     F2<N> Fv = f2_mul(f, Z, C), G = f2_mul(f, X, D);
@@ -343,15 +365,40 @@ __global__ void __launch_bounds__(kTowerThreads)
   }
 }
 
-inline bool bad_args(int n_limbs, long long n) {
-  return n_limbs != 2 * kN || n < 0;
-}
-
 inline unsigned tower_grid(long long n) {
   long long blocks = (n + kTowerThreads - 1) / kTowerThreads;
   if (blocks < 1) blocks = 1;
   if (blocks > 65535LL * 8) blocks = 65535LL * 8;
   return (unsigned)blocks;
+}
+
+// Host launchers of the Miller kernels: K10 (D twist) exists in the N = 8
+// build (BN128), K11 (M twist) in the N = 12 build (BLS12-381); each entry
+// point returns cudaErrorInvalidValue in the other.
+template <bool kMTwist>
+int miller_dbl(const void* xyz, const void* p, void* out, long long n,
+               Xi xi, int n_limbs, const void* consts, void* stream) {
+  if (bad_args(n_limbs, n)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
+  miller_dbl_kernel<kN, kMTwist>
+      <<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
+          f, xi, (const uint32_t*)xyz, (const uint32_t*)p, (uint32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+template <bool kMTwist>
+int miller_add(const void* xyz, const void* q, const void* p, void* out,
+               long long n, Xi xi, int n_limbs, const void* consts,
+               void* stream) {
+  if (bad_args(n_limbs, n)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
+  miller_add_kernel<kN, kMTwist>
+      <<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
+          f, xi, (const uint32_t*)xyz, (const uint32_t*)q, (const uint32_t*)p,
+          (uint32_t*)out, n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -394,26 +441,45 @@ int k9_f12_cyc_sqr(const void* a, void* out, long long n, long long xi0,
 
 int k10_miller_dbl(const void* xyz, const void* p, void* out, long long n,
                    int n_limbs, const void* consts, void* stream) {
-  if (bad_args(n_limbs, n)) return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
-  miller_dbl_kernel<kN>
-      <<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
-          f, (const uint32_t*)xyz, (const uint32_t*)p, (uint32_t*)out, n);
-  return (int)cudaGetLastError();
+#if WORDS == 8
+  return miller_dbl<false>(xyz, p, out, n, Xi{0, 0}, n_limbs, consts, stream);
+#else
+  return (int)cudaErrorInvalidValue;
+#endif
 }
 
 int k10_miller_add(const void* xyz, const void* q, const void* p, void* out,
                    long long n, int n_limbs, const void* consts,
                    void* stream) {
-  if (bad_args(n_limbs, n)) return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
-  miller_add_kernel<kN>
-      <<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
-          f, (const uint32_t*)xyz, (const uint32_t*)q, (const uint32_t*)p,
-          (uint32_t*)out, n);
-  return (int)cudaGetLastError();
+#if WORDS == 8
+  return miller_add<false>(xyz, q, p, out, n, Xi{0, 0}, n_limbs, consts,
+                           stream);
+#else
+  return (int)cudaErrorInvalidValue;
+#endif
+}
+
+int k11_miller_dbl_mtwist(const void* xyz, const void* p, void* out,
+                          long long n, long long xi0, long long xi1,
+                          int n_limbs, const void* consts, void* stream) {
+#if WORDS == 12
+  return miller_dbl<true>(xyz, p, out, n, Xi{(int)xi0, (int)xi1}, n_limbs,
+                          consts, stream);
+#else
+  return (int)cudaErrorInvalidValue;
+#endif
+}
+
+int k11_miller_add_mtwist(const void* xyz, const void* q, const void* p,
+                          void* out, long long n, long long xi0,
+                          long long xi1, int n_limbs, const void* consts,
+                          void* stream) {
+#if WORDS == 12
+  return miller_add<true>(xyz, q, p, out, n, Xi{(int)xi0, (int)xi1}, n_limbs,
+                          consts, stream);
+#else
+  return (int)cudaErrorInvalidValue;
+#endif
 }
 
 }  // extern "C"

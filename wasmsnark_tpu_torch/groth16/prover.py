@@ -1,5 +1,6 @@
-"""Groth16 prover for BN128, PyTorch port of wasmsnark_tpu/groth16/prover.py
-— the pipeline of the reference's src/bn128.js:580-720.
+"""Groth16 prover for BN128 and BLS12-381, PyTorch port of
+wasmsnark_tpu/groth16/prover.py — the pipeline of the reference's
+src/bn128.js:580-720, curve-generic as the JAX package's.
 
   CALC_H   to_mont, two constructLC, two iNTT, two odd-coset NTT,
            pointwise mont_mul, one 2N-point iNTT, from_mont (on the device)
@@ -8,7 +9,8 @@
 
 Randomization parity: r and s are 32 unreduced random bytes and the r*s
 term uses their full product, as in the reference, so for the same key,
-witness and rng the proof JSON equals the JAX package's byte for byte.
+witness and rng the proof JSON equals the JAX package's byte for byte, on
+either curve.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import time
 
 import torch
 
-from ..models.bn128 import bn128
+from ..models import curve_module
 from ..ops.curve import JacobianDevice, map_leaf
 from ..ops.fp import FpDevice, planes, resolve_device, to_numpy
 from ..ops.msm import MSMDevice
@@ -33,11 +35,12 @@ _G1_SECTIONS = ("points_a", "points_b1", "points_c", "h_exps")
 
 
 class Groth16Prover:
-    """Device kernel objects and per-key device state for BN128."""
+    """Device kernel objects and per-key device state for one curve,
+    "bn128" or "bls12381" (every kernel takes the field's spec)."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, curve: str = "bn128"):
         self.device = resolve_device(device)
-        self.m = bn128()
+        self.m = curve_module(curve)
         self.Fp = FpDevice(self.m.fp_spec, self.device)
         self.Fr = FpDevice(self.m.fr_spec, self.device)
         self.ntt = NTTDevice(self.m.ntt_spec, self.Fr)

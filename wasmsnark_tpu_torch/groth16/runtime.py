@@ -1,7 +1,9 @@
-"""Bn128 runtime, PyTorch port of wasmsnark_tpu/groth16/runtime.py —
-the analogue of the reference's `Bn128` class (src/bn128.js).
+"""Bn128 and Bls12381 runtimes, PyTorch port of
+wasmsnark_tpu/groth16/runtime.py — the analogue of the reference's `Bn128`
+class (src/bn128.js), and the same surface over BLS12-381.
 
     rt = wasmsnark_tpu_torch.build_bn128()          # on the CUDA card
+    rt = wasmsnark_tpu_torch.build_bls12381()       # on the CUDA card
     proof = rt.groth16_gen_proof(witness_bytes, pkey_bytes)
     ok    = rt.groth16_verify(vk_json, public_inputs, proof_json)
     oks   = rt.groth16_verify_batch(vk_json, inputs_list, proofs)
@@ -9,21 +11,25 @@ the analogue of the reference's `Bn128` class (src/bn128.js).
 
 from __future__ import annotations
 
-from ..models.bn128 import bn128
+from ..models import curve_module
 from .verifier import groth16_verify as _verify
 from .verifier import groth16_verify_batch as _verify_batch
 
 
-class Bn128Runtime:
+class Groth16Runtime:
+    """Prover and verifiers of one curve (CURVE) on one torch device."""
+
+    CURVE = ""
+
     def __init__(self, device=None):
         from .prover import Groth16Prover
-        self.module = bn128()
-        self.prover = Groth16Prover(device)
+        self.module = curve_module(self.CURVE)
+        self.prover = Groth16Prover(device, curve=self.CURVE)
         self.device = self.prover.device
 
     # -- prover (src/bn128.js:580-720) ---------------------------------------
     def groth16_gen_proof(self, witness, pkey, *, rng=None):
-        """witness: bytes (flat LE 32B Fr values, tools/buildwitness.js
+        """witness: bytes (flat LE n8-byte Fr values, tools/buildwitness.js
         format) or list[int]; pkey: bytes in tools/buildpkey.js layout, or
         a parsed ProvingKey.  Returns {pi_a, pi_b, pi_c} with decimal-string
         coordinates."""
@@ -31,7 +37,7 @@ class Bn128Runtime:
 
     # -- verifier (src/bn128.js:722-791) --------------------------------------
     def groth16_verify(self, verification_key, inputs, proof) -> bool:
-        return _verify(verification_key, inputs, proof)
+        return _verify(verification_key, inputs, proof, curve=self.CURVE)
 
     def groth16_verify_batch(self, verification_key, inputs_list,
                              proofs) -> list:
@@ -39,4 +45,22 @@ class Bn128Runtime:
         runtime's device (lanes = proofs); see
         groth16.verifier.groth16_verify_batch."""
         return _verify_batch(verification_key, inputs_list, proofs,
-                             device=self.device)
+                             curve=self.CURVE, device=self.device)
+
+
+class Bn128Runtime(Groth16Runtime):
+    CURVE = "bn128"
+
+
+class Bls12381Runtime(Groth16Runtime):
+    """The same Groth16 surface over BLS12-381 (the reference builds the
+    bls12381 module but wires no prover for it).  Attribute access falls
+    through to the curve module, so this object also serves as
+    `bls12381()` (fields, curves, pairing oracle)."""
+
+    CURVE = "bls12381"
+
+    def __getattr__(self, name):
+        if name == "module":            # not set yet: no recursion
+            raise AttributeError(name)
+        return getattr(self.module, name)

@@ -1,5 +1,5 @@
-"""Groth16 verifier for BN128, port of the host `groth16_verify` of
-wasmsnark_tpu/groth16/verifier.py — semantics of src/bn128.js:722-791.
+"""Groth16 verifier for BN128 and BLS12-381, port of wasmsnark_tpu/groth16/
+verifier.py — semantics of src/bn128.js:722-791.
 
 The verification equation, exactly as the reference evaluates it:
 
@@ -8,24 +8,19 @@ The verification equation, exactly as the reference evaluates it:
 with vk_x = IC[0] + sum_i input[i] * IC[i+1], and every public input checked
 to be < r (bn128.js:776: `if int_gte(input, r) return false`).
 
-`groth16_verify` runs the pairing on the host oracle (models/bn128.py);
-`groth16_verify_batch` runs N proofs at once through the device pairing
-(ops/pairing.py), port of the JAX package's `groth16_verify_batch`.
+`groth16_verify` runs the pairing on the host oracle (models/);
+`groth16_verify_batch` runs N proofs at once through the curve's device
+pairing engine (ops/pairing.py), port of the JAX package's
+`groth16_verify_batch`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..models.bn128 import bn128
+from ..models import curve_module
 from ..ops.curve import map_leaf, map_leaf2
 from ..utils.serialize import parse_bigint
-
-
-def _module(curve: str):
-    if curve == "bn128":
-        return bn128()
-    raise ValueError(f"unknown curve {curve!r}")
 
 
 def _g1_from_json(m, pt):
@@ -58,7 +53,7 @@ def groth16_verify(vk: dict, inputs, proof: dict,
     OCaml-num value is wrapped, mirroring bn128.js:724-728.
     `proof`: dict with pi_a (G1), pi_b (G2), pi_c (G1).
     """
-    m = _module(curve)
+    m = curve_module(curve)
     R = m.Fr.q
 
     if inputs is None:
@@ -106,18 +101,20 @@ def groth16_verify_batch(vk: dict, inputs_list, proofs, curve: str = "bn128",
     share the lanes: leaves are [L, 4, N] limb planes, the pairs axis
     reduces with two F12 multiplies, and one final exponentiation closes
     every equation.  `device` is the torch device (default: the CUDA
-    card).  A lane with a zero point, a wrong input count, an input >= r
-    or an unparsable proof is filled with generators and answers False.
+    card); `curve` picks the pairing engine of that device, whose
+    vk_prep_cache keeps the vk's prepared ladders.  A lane with a zero
+    point, a wrong input count, an input >= r or an unparsable proof is
+    filled with generators and answers False.
     """
-    from ..ops.pairing import bn128_pairing_device
+    from ..ops.pairing import pairing_device
 
-    m = _module(curve)
+    m = curve_module(curve)
     n = len(proofs)
     if len(inputs_list) != n:
         raise ValueError(f"{len(inputs_list)} input lists for {n} proofs")
     if n == 0:
         return []
-    pd = bn128_pairing_device(device)
+    pd = pairing_device(curve, device)
     g1, g2_b, fixed, ok_host = _batch_inputs(pd, m, vk, inputs_list, proofs)
     ok = pd.is_one(_pairing_batch(pd, g1, g2_b, fixed)).cpu().tolist()
     return [bool(ok[i]) and ok_host[i] for i in range(n)]

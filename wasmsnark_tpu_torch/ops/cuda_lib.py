@@ -1,16 +1,18 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources live in `wasmsnark_tpu_torch/csrc/`.  Each `.cu` file is
-compiled by one `nvcc` call into a shared library with a plain C interface
-(no PyTorch headers, no ninja), into `wasmsnark_tpu_torch/_build/<hash>/`,
-where <hash> covers every source and the flags.  The libraries are built at
-first use, all sources in parallel, and loaded with ctypes.  Nothing here
-runs at import time: the CPU tests import every module on a machine with no
-`nvcc` and no card.
+compiled once per word count N in `WORDS` (8: BN128 Fp/Fr and BLS12-381
+Fr; 12: BLS12-381 Fq), by one `nvcc -DWORDS=N` call into a shared library
+`lib<name>_w<N>.so` with a plain C interface (no PyTorch headers, no
+ninja), into `wasmsnark_tpu_torch/_build/<hash>/`, where <hash> covers
+every source and the flags.  The libraries are built at first use, all in
+parallel, and loaded with ctypes.  Nothing here runs at import time: the
+CPU tests import every module on a machine with no `nvcc` and no card.
 
-Every launch goes through `launch()`, which passes the tensors' device
-pointers and PyTorch's current stream, raises when the C entry point
-returns a CUDA error, and adds one to the kernel's launch counter.
+Every launch goes through `launch()`, which picks the library of the
+field's word count, passes the tensors' device pointers and PyTorch's
+current stream, raises when the C entry point returns a CUDA error, and
+adds one to the kernel's launch counters.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ BUILD_ROOT = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = {"fp_kernels": "fp_kernels.cu", "curve_kernels": "curve_kernels.cu",
            "tower_kernels": "tower_kernels.cu"}
 HEADERS = ("fp.cuh",)
+# 32-bit words per field element that the libraries are built for
+WORDS = (8, 12)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,6 +53,8 @@ KERNELS = {
     "K8": ("tower_kernels", ("k8_f12_mul", "k8_f12_sqr")),
     "K9": ("tower_kernels", ("k9_f12_cyc_sqr",)),
     "K10": ("tower_kernels", ("k10_miller_dbl", "k10_miller_add")),
+    "K11": ("tower_kernels", ("k11_miller_dbl_mtwist",
+                              "k11_miller_add_mtwist")),
 }
 _ENTRY = {fn: (lib, kid) for kid, (lib, fns) in KERNELS.items() for fn in fns}
 
@@ -60,22 +66,31 @@ _SIGNATURES = {
     "k5_jac_madd": (8, 1), "k6_jac_add": (9, 1), "k7_jac_dbl": (6, 1),
     "k8_f12_mul": (3, 3), "k8_f12_sqr": (2, 3), "k9_f12_cyc_sqr": (2, 3),
     "k10_miller_dbl": (3, 1), "k10_miller_add": (4, 1),
+    "k11_miller_dbl_mtwist": (3, 3), "k11_miller_add_mtwist": (4, 3),
 }
 
-# launches per kernel id, and per C entry point, since the last
-# reset_launches()
+# launches per kernel id, per C entry point, and per (entry point, word
+# count) since the last reset_launches()
 launches = dict.fromkeys(KERNELS, 0)
 fn_launches = dict.fromkeys(_ENTRY, 0)
+word_launches = {(fn, w): 0 for fn in _ENTRY for w in WORDS}
+# seconds each library took to build in this process (library -> s)
+build_seconds: dict = {}
 
 _libs: dict = {}
 _lock = threading.Lock()
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
-    for k in fn_launches:
-        fn_launches[k] = 0
+    for counts in (launches, fn_launches, word_launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def libraries() -> dict:
+    """Library name (`<source>_w<N>`) -> (source file, N)."""
+    return {f"{name}_w{w}": (src, w) for name, src in SOURCES.items()
+            for w in WORDS}
 
 
 def _nvcc() -> str:
@@ -89,7 +104,7 @@ def _nvcc() -> str:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(WORDS).encode())
     for name in sorted(HEADERS + tuple(SOURCES.values())):
         with open(os.path.join(CSRC, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
@@ -101,42 +116,48 @@ def build_dir() -> str:
 
 
 def build():
-    """Compile every library that is not built yet (one nvcc per source,
-    all started together, each logging to <build dir>/<name>.log) and load
-    them."""
+    """Compile every library that is not built yet (one nvcc per source and
+    word count, all started together, each logging to <build
+    dir>/<library>.log) and load them."""
     with _lock:
         out_dir = build_dir()
         os.makedirs(out_dir, exist_ok=True)
-        todo = {name: src for name, src in SOURCES.items()
-                if name not in _libs
-                and not os.path.exists(os.path.join(out_dir, f"lib{name}.so"))}
+        todo = {lib: sw for lib, sw in libraries().items()
+                if lib not in _libs
+                and not os.path.exists(os.path.join(out_dir, f"lib{lib}.so"))}
         procs = {}
         t0 = time.perf_counter()
-        for name, src in todo.items():
-            tmp = os.path.join(out_dir, f"lib{name}.so.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT), tmp)
+        for lib, (src, w) in todo.items():
+            tmp = os.path.join(out_dir, f"lib{lib}.so.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, f"-DWORDS={w}", "-o", tmp,
+                   os.path.join(CSRC, src)]
+            with open(os.path.join(out_dir, f"{lib}.log"), "wb") as log:
+                procs[lib] = (subprocess.Popen(
+                    cmd, stdout=log, stderr=subprocess.STDOUT), tmp)
         failed = []
-        for name, (proc, tmp) in procs.items():
-            log, _ = proc.communicate()
-            with open(os.path.join(out_dir, f"{name}.log"), "wb") as fh:
-                fh.write(log)
-            if proc.returncode != 0:
-                failed.append((name, log.decode(errors="replace")))
-                continue
-            os.replace(tmp, os.path.join(out_dir, f"lib{name}.so"))
+        while procs:                    # in the order the builds finish
+            for lib, (proc, tmp) in list(procs.items()):
+                if proc.poll() is None:
+                    continue
+                del procs[lib]
+                build_seconds[lib] = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    with open(os.path.join(out_dir, f"{lib}.log")) as log:
+                        failed.append((lib, log.read()))
+                    continue
+                os.replace(tmp, os.path.join(out_dir, f"lib{lib}.so"))
+            time.sleep(0.05)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
-                f"--- {name}\n{log}" for name, log in failed))
+                f"--- {lib}\n{log}" for lib, log in failed))
         if todo:
             print(f"wasmsnark_tpu_torch: built {sorted(todo)} in "
                   f"{time.perf_counter() - t0:.1f} s into {out_dir}",
                   file=sys.stderr, flush=True)
-        for name in SOURCES:
-            if name not in _libs:
-                _libs[name] = _bind(ctypes.CDLL(
-                    os.path.join(out_dir, f"lib{name}.so")))
+        for lib in libraries():
+            if lib not in _libs:
+                _libs[lib] = _bind(ctypes.CDLL(
+                    os.path.join(out_dir, f"lib{lib}.so")))
 
 
 def _bind(lib):
@@ -169,17 +190,23 @@ def launch(fn: str, spec, tensors, ints):
     wrapper) and count the launch."""
     import torch
 
-    lib_name, kid = _ENTRY[fn]
-    if lib_name not in _libs:
+    source, kid = _ENTRY[fn]
+    w = spec.n_limbs // 2
+    if spec.n_limbs % 2 or w not in WORDS:
+        raise RuntimeError(f"{fn}: no kernel build for {spec.n_limbs} limbs "
+                           f"(built for {WORDS} 32-bit words)")
+    lib = f"{source}_w{w}"
+    if lib not in _libs:
         build()
     words = _words_cache.get(spec)
     if words is None:
         words = _words_cache[spec] = field_words(spec)
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-    rc = getattr(_libs[lib_name], fn)(
+    rc = getattr(_libs[lib], fn)(
         *[t.data_ptr() for t in tensors], *ints, spec.n_limbs,
         words.ctypes.data, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {rc}")
     launches[kid] += 1
     fn_launches[fn] += 1
+    word_launches[(fn, w)] += 1

@@ -1,5 +1,6 @@
-"""BN128 optimal-ate pairing on the device, batched over pairing pairs —
-PyTorch port of the BN128 part of wasmsnark_tpu/ops/pairing.py.
+"""BN128 and BLS12-381 optimal-ate pairings on the device, batched over
+pairing pairs — PyTorch port of the BN128 and BLS12-381 parts of
+wasmsnark_tpu/ops/pairing.py.
 
 The pairs axis is a batch axis: all Miller loops of a pairing-product
 equation, and of as many independent equations as fit, run in the same
@@ -9,19 +10,23 @@ server).  The algorithm is the JAX package's, value for value:
 * an inversion-free Miller loop over homogeneous twist coordinates, whose
   line values are scaled by subfield factors (2YZ^2, lambda_d) that the
   final exponentiation kills;
-* sparse lines with components at w^0 (a0), w (b0) and v w (b1) of
-  F12 = F2[v, w];
-* two Frobenius add steps with host-computed twist constants;
-* the final exponentiation as the easy part (conjugate, inverse, q^2
-  Frobenius) and the BN z-chain hard part under cyclotomic squaring.
+* sparse lines of F12 = F2[v, w]: BN128's D twist puts them at w^0 (a0),
+  w (b0) and v w (b1); BLS12-381's M twist at w^0 (a0, times xi), v w (b1)
+  and v^2 w (b2);
+* BN128: two Frobenius add steps with host-computed twist constants, and
+  the final exponentiation's hard part as the BN z-chain under cyclotomic
+  squaring;
+* BLS12-381: a negative loop (the Miller value is conjugated after it), no
+  correction steps, and the exact hard part (q^4 - q^2 + 1)/r by a 4-bit
+  window ladder under cyclotomic squaring.
 
 The ladders are static, so where the JAX package scans, this module runs
 Python loops over the same schedules.  The heavy steps are the fused
 kernels of ops/tower_kernels.py — K8 (`_f12_mul`, `_f12_sqr`), K9
-(`cyclotomic_square`), K10 (`_dbl_step`, `_add_step`) — which run their
-CUDA kernels on the card and their plain versions on the CPU: the tensor's
-device decides.  Everything else composes the towers of ops/towers.py over
-the K1/K2 field kernels.
+(`cyclotomic_square`), K10 / K11 (`_dbl_step`, `_add_step` of BN128 /
+BLS12-381) — which run their CUDA kernels on the card and their plain
+versions on the CPU: the tensor's device decides.  Everything else
+composes the towers of ops/towers.py over the K1/K2 field kernels.
 """
 
 from __future__ import annotations
@@ -110,6 +115,32 @@ def _coef_ladder(F2, xQ, yQ, loop_flags, dbl_coefs, add_coefs):
     return _stack_steps(coeffs), (X, Y, Z)
 
 
+def _windowed_cyc_exp(mul, sqr, f, e: int, w: int = 4):
+    """f^e for cyclotomic f by a w-bit window ladder: w cyclotomic squarings
+    between windows, one multiply per window against the table f^1 ..
+    f^(2^w - 1).  The JAX package scans every window and selects; here the
+    digits are static, so the ladder starts at the top window's power and
+    skips the multiply of a zero window.  Every value is canonical, so the
+    result is the JAX ladder's, bit for bit."""
+    pows = [None, f]
+    for _ in range(2, 1 << w):
+        pows.append(mul(pows[-1], f))
+    digits = window_digits(e, w)
+    r = pows[digits[0]]
+    for d in digits[1:]:
+        for _ in range(w):
+            r = sqr(r)
+        if d:
+            r = mul(r, pows[d])
+    return r
+
+
+def window_digits(e: int, w: int) -> list:
+    """The w-bit digits of e > 0, most significant first."""
+    nd = (e.bit_length() + w - 1) // w
+    return [(e >> (w * (nd - 1 - i))) & ((1 << w) - 1) for i in range(nd)]
+
+
 def _append_steps(coeffs, extra):
     """Append per-step coefficient trees (no step axis) to a stacked one."""
     if isinstance(coeffs, tuple):
@@ -118,48 +149,44 @@ def _append_steps(coeffs, extra):
     return torch.cat([coeffs] + [e[None] for e in extra], dim=0)
 
 
-class Bn128PairingDevice:
-    """Device pairing engine for BN128 on one torch device."""
+class _PairingEngine:
+    """What both engines share: marshalling, the fused kernels K8/K9, the
+    Miller loop over the static ate bits, prepared coefficients, Frobenius,
+    the pairs reduction and the pairing products.  A subclass gives the
+    curve module, xi, the twist's line slots and Miller steps, its
+    correction steps, the loop's sign and the final exponentiation."""
 
-    XI = (9, 1)
+    XI: tuple = ()
+    N_CORR = 0                  # correction add steps after the loop
+    NEGATIVE_LOOP = False
 
-    def __init__(self, device=None):
-        from ..models.bn128 import bn128, Q, ATE_LOOP_COUNT, FINAL_EXP_Z
-
-        self.m = bn128()
-        self.fp = FpDevice(self.m.fp_spec, device)
+    def __init__(self, m, device=None):
+        self.m = m
+        self.fp = FpDevice(m.fp_spec, device)
         self.device = self.fp.device
         self.base = FpAdapter(self.fp)
         self.F2d, self.F6d, self.F12d, self.mul_xi = f12_towers(
             self.base, self.XI)
-
-        # static Miller-loop bit string (MSB skipped), MSB-first
-        self.loop_bits = np.array(
-            [int(b) for b in bin(ATE_LOOP_COUNT)[3:]], dtype=np.uint32)
-
-        # host-computed twist-Frobenius constants (Montgomery [L, 1] planes)
-        F2o = self.m.F2
-        xi = self.m.xi
-        self._g12 = self._const_f2(F2o.exp(xi, (Q - 1) // 3))
-        self._g13 = self._const_f2(F2o.exp(xi, (Q - 1) // 2))
-        self._g22 = self._const_f2(F2o.exp(xi, (Q * Q - 1) // 3))
-        self._g23 = self._const_f2(F2o.exp(xi, (Q * Q - 1) // 2))
+        Q = m.F1.q
 
         # Frobenius coefficient tables for x -> x^(q^j), j = 1, 2, 3
         # (build_bn128.js:838-939): component k (power of xi^(1/6)) picks
         # up xi^(k (q^j - 1)/6)
+        F2o, xi = m.F2, m.xi
         self._frob_coefs = []
         for j in (1, 2, 3):
             e = (Q ** j - 1) // 6
             self._frob_coefs.append(tuple(
                 self._const_f2(F2o.exp(xi, k * e)) for k in range(1, 6)))
-
-        # BN parameter z for the hard-part chain (build_bn128.js:1092)
-        self.z_bits = np.array([int(b) for b in bin(FINAL_EXP_Z)[2:]],
-                               dtype=np.uint32)
         # prepared line coefficients of fixed G2 points (a verification
         # key's gamma2, delta2, beta2), filled by groth16.verifier
         self.vk_prep_cache: dict = {}
+
+    @staticmethod
+    def _bits(loop_count):
+        """Static Miller-loop bit string (MSB skipped), MSB-first."""
+        return np.array([int(b) for b in bin(loop_count)[3:]],
+                        dtype=np.uint32)
 
     # -- constants / marshalling ----------------------------------------------
 
@@ -185,13 +212,6 @@ class Bn128PairingDevice:
         return [tk.unflatten12([f[b] for f in flat])
                 for b in range(len(flat[0]))]
 
-    # -- sparse line element ----------------------------------------------------
-
-    def _sparse(self, a0, b0, b1):
-        z = self.base.zero_like(a0[0])
-        z2 = (z, z)
-        return ((a0, z2, z2), (b0, b1, z2))
-
     # -- the fused kernels (ops/tower_kernels.py) -------------------------------
 
     def _f12_mul(self, a, b):
@@ -199,15 +219,6 @@ class Bn128PairingDevice:
 
     def _f12_sqr(self, a):
         return tk.f12_sqr(self.fp.spec, a, self.XI)
-
-    def _dbl_step(self, X, Y, Z, xP, yP):
-        (a0, b0, b1), Xn, Yn, Zn = tk.miller_dbl(self.fp.spec, X, Y, Z, xP, yP)
-        return self._sparse(a0, b0, b1), Xn, Yn, Zn
-
-    def _add_step(self, X, Y, Z, x2, y2, xP, yP):
-        (a0, b0, b1), Xn, Yn, Zn = tk.miller_add(
-            self.fp.spec, X, Y, Z, x2, y2, xP, yP)
-        return self._sparse(a0, b0, b1), Xn, Yn, Zn
 
     def cyclotomic_square(self, f):
         """Granger-Scott squaring for elements of the cyclotomic subgroup
@@ -223,16 +234,9 @@ class Bn128PairingDevice:
             (a.shape[0],) + (1,) * (like.dim() - 1)).expand(like.shape))
 
     def _corrections(self, xQ, yQ):
-        """The two Frobenius-twisted points of the correction add steps
-        (build_bn128.js:530-575): (pi(Q), -pi^2(Q)) in affine twist
-        coordinates."""
-        F2d = self.F2d
-        like = _leaf0(xQ)
-        x1 = F2d.mul(F2d.conjugate(xQ), self._bc(self._g12, like))
-        y1 = F2d.mul(F2d.conjugate(yQ), self._bc(self._g13, like))
-        x2 = F2d.mul(xQ, self._bc(self._g22, like))
-        y2 = F2d.neg(F2d.mul(yQ, self._bc(self._g23, like)))
-        return (x1, y1), (x2, y2)
+        """Affine twist points of the add steps after the loop (none by
+        default)."""
+        return []
 
     def _miller_core(self, f, X, Y, Z, xQ, yQ, xP, yP):
         """Square-and-multiply over the static ate-loop bits, segment by
@@ -252,6 +256,11 @@ class Bn128PairingDevice:
             f, X, Y, Z = dbl_once(f, X, Y, Z)
         return f, X, Y, Z
 
+    def _loop_sign(self, f):
+        """A negative loop conjugates the Miller value (the inverse under
+        the final exponentiation)."""
+        return self._f12_conj(f) if self.NEGATIVE_LOOP else f
+
     def miller_loop(self, g1, g2):
         """g1 = (xP, yP) planes [L, *B]; g2 = ((x0, x1), (y0, y1)) F2
         planes.  Returns the (scaled) Miller value, an F12 element.  Zero
@@ -265,17 +274,22 @@ class Bn128PairingDevice:
         for x2, y2 in self._corrections(xQ, yQ):
             l, X, Y, Z = self._add_step(X, Y, Z, x2, y2, xP, yP)
             f = self._f12_mul(f, l)
-        return f
+        return self._loop_sign(f)
 
     # -- prepared pairing inputs (prepareG2, build_bn128.js:459-575) -----------
     #
     # For a fixed G2 point the line coefficients of every step depend only
     # on the G2 ladder, so they are computed once and reused: each step's
-    # line is (c_y, c_x, c_0) with line(P) = slots (c_y yP, c_x xP, c_0).
+    # line is (c_y, c_x, c_0), placed in the twist's slots at P by
+    # _line_from_coefs.
 
     @functools.cached_property
     def _prep_flags(self):
-        return _step_flags(self.loop_bits, n_corr=2)
+        return _step_flags(self.loop_bits, n_corr=self.N_CORR)
+
+    def _prep_coefs(self, c):
+        """A step's coefficients as prepare_g2 stores them."""
+        return c
 
     def prepare_g2(self, g2):
         """Line coefficients of the ate ladder for g2 (leaves [L, *B]):
@@ -283,24 +297,29 @@ class Bn128PairingDevice:
         any number of miller_loop_prepared calls."""
         F2d = self.F2d
         xQ, yQ = g2
+
+        def dbl(X, Y, Z):
+            c, *pt = _g2_dbl_coefs(F2d, X, Y, Z)
+            return (self._prep_coefs(c), *pt)
+
+        def add(X, Y, Z, x2, y2):
+            c, *pt = _g2_add_coefs(F2d, X, Y, Z, x2, y2)
+            return (self._prep_coefs(c), *pt)
+
         coeffs, (X, Y, Z) = _coef_ladder(
-            F2d, xQ, yQ, _step_flags(self.loop_bits),
-            lambda X, Y, Z: _g2_dbl_coefs(F2d, X, Y, Z),
-            lambda X, Y, Z, x2, y2: _g2_add_coefs(F2d, X, Y, Z, x2, y2))
+            F2d, xQ, yQ, _step_flags(self.loop_bits), dbl, add)
         extra = []
         for x2, y2 in self._corrections(xQ, yQ):
-            c, X, Y, Z = _g2_add_coefs(F2d, X, Y, Z, x2, y2)
+            c, X, Y, Z = add(X, Y, Z, x2, y2)
             extra.append(c)
         return _append_steps(coeffs, extra)
 
-    def _line_from_coefs(self, c, xP, yP):
-        """(c_y, c_x, c_0) -> the sparse line at P: a0 = c_y yP,
-        b0 = c_x xP, b1 = c_0."""
+    def _line_at(self, c, xP, yP):
+        """(c_y, c_x, c_0) at P: (c_y yP, c_x xP, c_0 broadcast)."""
         c_y, c_x, c_0 = c
-        a0, b0 = tk.line_at(self.F2d, c_y, c_x, xP, yP)
+        a0, bx = tk.line_at(self.F2d, c_y, c_x, xP, yP)
         like = _leaf0(a0)
-        b1 = map_leaf(c_0, lambda a: a.expand(like.shape))
-        return self._sparse(a0, b0, b1)
+        return a0, bx, map_leaf(c_0, lambda a: a.expand(like.shape))
 
     def miller_loop_prepared(self, g1, coeffs):
         """miller_loop(g1, g2) for coeffs = prepare_g2(g2): each step is a
@@ -313,7 +332,7 @@ class Bn128PairingDevice:
             if not flag:
                 f = self._f12_sqr(f)
             f = self._f12_mul(f, line)
-        return f
+        return self._loop_sign(f)
 
     def _reduce_pairs(self, f, n_pairs: int):
         """Product over the pairs axis (position 1 of the leaves), as a
@@ -366,6 +385,77 @@ class Bn128PairingDevice:
     def _f12_conj(self, f):
         return (f[0], self.F6d.neg(f[1]))
 
+    def _easy_part(self, f):
+        """f^((q^6 - 1)(q^2 + 1)): conj(f) f^-1, then times its q^2
+        Frobenius."""
+        t = self._f12_mul(self._f12_conj(f), self.F12d.inv(f))
+        return self._f12_mul(self.frobenius(t, 2), t)
+
+    def is_one(self, el):
+        """Batched F12 == 1 (Montgomery form) -> bool [*B]."""
+        return self.F12d.eq(el, self._f12_one(_leaf0(el)))
+
+
+class Bn128PairingDevice(_PairingEngine):
+    """Device pairing engine for BN128 on one torch device: D twist,
+    positive loop, two Frobenius correction steps, BN z-chain hard part."""
+
+    XI = (9, 1)
+    N_CORR = 2
+
+    def __init__(self, device=None):
+        from ..models.bn128 import bn128, Q, ATE_LOOP_COUNT, FINAL_EXP_Z
+
+        super().__init__(bn128(), device)
+        self.loop_bits = self._bits(ATE_LOOP_COUNT)
+
+        # host-computed twist-Frobenius constants (Montgomery [L, 1] planes)
+        F2o = self.m.F2
+        xi = self.m.xi
+        self._g12 = self._const_f2(F2o.exp(xi, (Q - 1) // 3))
+        self._g13 = self._const_f2(F2o.exp(xi, (Q - 1) // 2))
+        self._g22 = self._const_f2(F2o.exp(xi, (Q * Q - 1) // 3))
+        self._g23 = self._const_f2(F2o.exp(xi, (Q * Q - 1) // 2))
+
+        # BN parameter z for the hard-part chain (build_bn128.js:1092)
+        self.z_bits = np.array([int(b) for b in bin(FINAL_EXP_Z)[2:]],
+                               dtype=np.uint32)
+
+    # -- the D twist's sparse line and Miller steps (K10) ------------------------
+
+    def _sparse(self, a0, b0, b1):
+        z = self.base.zero_like(a0[0])
+        z2 = (z, z)
+        return ((a0, z2, z2), (b0, b1, z2))
+
+    def _dbl_step(self, X, Y, Z, xP, yP):
+        (a0, b0, b1), Xn, Yn, Zn = tk.miller_dbl(self.fp.spec, X, Y, Z, xP, yP)
+        return self._sparse(a0, b0, b1), Xn, Yn, Zn
+
+    def _add_step(self, X, Y, Z, x2, y2, xP, yP):
+        (a0, b0, b1), Xn, Yn, Zn = tk.miller_add(
+            self.fp.spec, X, Y, Z, x2, y2, xP, yP)
+        return self._sparse(a0, b0, b1), Xn, Yn, Zn
+
+    def _line_from_coefs(self, c, xP, yP):
+        """(c_y, c_x, c_0) -> the sparse line at P: a0 = c_y yP,
+        b0 = c_x xP, b1 = c_0."""
+        return self._sparse(*self._line_at(c, xP, yP))
+
+    def _corrections(self, xQ, yQ):
+        """The two Frobenius-twisted points of the correction add steps
+        (build_bn128.js:530-575): (pi(Q), -pi^2(Q)) in affine twist
+        coordinates."""
+        F2d = self.F2d
+        like = _leaf0(xQ)
+        x1 = F2d.mul(F2d.conjugate(xQ), self._bc(self._g12, like))
+        y1 = F2d.mul(F2d.conjugate(yQ), self._bc(self._g13, like))
+        x2 = F2d.mul(xQ, self._bc(self._g22, like))
+        y2 = F2d.neg(F2d.mul(yQ, self._bc(self._g23, like)))
+        return [(x1, y1), (x2, y2)]
+
+    # -- final exponentiation ---------------------------------------------------
+
     def _exp_cyc(self, f, bits):
         """f^e for cyclotomic f, static MSB-first bits of e."""
         return _seg_square_multiply(
@@ -377,9 +467,7 @@ class Bn128PairingDevice:
         conj(f) f^-1, then times its q^2 Frobenius.  Hard part: the BN
         addition chain in z, (q^4 - q^2 + 1)/r as an integer identity,
         with three z-powers under cyclotomic squaring."""
-        F12 = self.F12d
-        t = self._f12_mul(self._f12_conj(f), F12.inv(f))
-        t = self._f12_mul(self.frobenius(t, 2), t)
+        t = self._easy_part(f)
         mul, sq = self._f12_mul, self.cyclotomic_square
         conj = self._f12_conj
         fp1 = self.frobenius(t, 1)
@@ -405,17 +493,87 @@ class Bn128PairingDevice:
         t0 = sq(t0)
         return mul(t0, t1)
 
-    def is_one(self, el):
-        """Batched F12 == 1 (Montgomery form) -> bool [*B]."""
-        return self.F12d.eq(el, self._f12_one(_leaf0(el)))
+
+class Bls12381PairingDevice(_PairingEngine):
+    """Device pairing engine for BLS12-381 on one torch device (JAX
+    pairing.py Bls12381PairingDevice): xi = 1 + u, M twist (line at w^0
+    times xi, v w and v^2 w), the negative loop x = -0xd201000000010000
+    conjugated after the loop, no correction steps
+    (build_bls12381.js:228-231, :849), and the exact hard part."""
+
+    XI = (1, 1)
+    NEGATIVE_LOOP = True
+
+    def __init__(self, device=None):
+        from ..models.bls12381 import bls12381, Q, R, ATE_LOOP_COUNT
+
+        super().__init__(bls12381(), device)
+        self.loop_bits = self._bits(ATE_LOOP_COUNT)
+        # the exact hard-part exponent: the z-based BLS chains compute a
+        # fixed power of it (f^(3d)), which would break bit parity with the
+        # oracle's exponent
+        self._hard_exp = (Q ** 4 - Q ** 2 + 1) // R
+
+    # -- the M twist's sparse line and Miller steps (K11) ------------------------
+
+    def _sparse(self, a0, b1, b2):
+        z = self.base.zero_like(a0[0])
+        z2 = (z, z)
+        return ((a0, z2, z2), (z2, b1, b2))
+
+    def _dbl_step(self, X, Y, Z, xP, yP):
+        (a0, b1, b2), Xn, Yn, Zn = tk.miller_dbl_mtwist(
+            self.fp.spec, X, Y, Z, xP, yP, self.XI)
+        return self._sparse(a0, b1, b2), Xn, Yn, Zn
+
+    def _add_step(self, X, Y, Z, x2, y2, xP, yP):
+        (a0, b1, b2), Xn, Yn, Zn = tk.miller_add_mtwist(
+            self.fp.spec, X, Y, Z, x2, y2, xP, yP, self.XI)
+        return self._sparse(a0, b1, b2), Xn, Yn, Zn
+
+    def _prep_coefs(self, c):
+        """xi folds into c_y at prepare time (the M twist's a0 slot)."""
+        c_y, c_x, c_0 = c
+        return (self.mul_xi(c_y), c_x, c_0)
+
+    def _line_from_coefs(self, c, xP, yP):
+        """M-twist slots: a0 = c_y yP, b1 = c_0, b2 = c_x xP."""
+        a0, bx, c0 = self._line_at(c, xP, yP)
+        return self._sparse(a0, c0, bx)
+
+    # -- final exponentiation ---------------------------------------------------
+
+    def _exp_cyc_window(self, f, e: int, w: int = 4):
+        return _windowed_cyc_exp(self._f12_mul, self.cyclotomic_square,
+                                 f, e, w)
+
+    def final_exponentiation(self, f):
+        """f^((q^12 - 1)/r): the easy part as BN128's, the hard part the
+        exact (q^4 - q^2 + 1)/r through a 4-bit window cyclotomic ladder."""
+        return self._exp_cyc_window(self._easy_part(f), self._hard_exp, w=4)
 
 
 @functools.lru_cache(maxsize=None)
-def _pairing_device(device: str) -> Bn128PairingDevice:
-    return Bn128PairingDevice(device)
+def _engine(cls, device: str):
+    return cls(device)
 
 
 def bn128_pairing_device(device=None) -> Bn128PairingDevice:
-    """The pairing engine of `device` (default: the CUDA card), one per
-    device."""
-    return _pairing_device(str(resolve_device(device)))
+    """The BN128 pairing engine of `device` (default: the CUDA card), one
+    per device."""
+    return _engine(Bn128PairingDevice, str(resolve_device(device)))
+
+
+def bls12381_pairing_device(device=None) -> Bls12381PairingDevice:
+    """The BLS12-381 pairing engine of `device` (default: the CUDA card),
+    one per device, with its own vk_prep_cache."""
+    return _engine(Bls12381PairingDevice, str(resolve_device(device)))
+
+
+def pairing_device(curve: str, device=None):
+    """The pairing engine of a curve ("bn128" or "bls12381") on `device`."""
+    engines = {"bn128": bn128_pairing_device,
+               "bls12381": bls12381_pairing_device}
+    if curve not in engines:
+        raise ValueError(f"unknown curve {curve!r}")
+    return engines[curve](device)

@@ -1,12 +1,17 @@
-"""Fused extension-tower and Miller-step kernels for BN128, PyTorch port of
-the BN128 part of wasmsnark_tpu/ops/tower_pallas.py.
+"""Fused extension-tower and Miller-step kernels for BN128 and BLS12-381,
+PyTorch port of the BN128 and BLS12-381 parts of
+wasmsnark_tpu/ops/tower_pallas.py.
 
-    K8  f12_mul / f12_sqr   F12 = F6[w] Karatsuba product / square
+    K8  f12_mul / f12_sqr   F12 = F6[w] Karatsuba product / square, xi an
+                            argument (BN128 9 + u, BLS12-381 1 + u)
     K9  f12_cyc_sqr         Granger-Scott cyclotomic square
     K10 miller_dbl / miller_add
-                            D-twist Miller doubling / mixed-add step: the
-                            new homogeneous F2 point and the sparse line
-                            (a0, b0, b1) evaluated at P
+                            BN128's D-twist Miller doubling / mixed-add
+                            step: the new homogeneous F2 point and the
+                            sparse line (a0, b0, b1) evaluated at P
+    K11 miller_dbl_mtwist / miller_add_mtwist
+                            BLS12-381's M-twist steps: the same point, the
+                            line (a0, b1, b2) = (xi c_y yP, c_0, c_x xP)
 
 Each wrapper launches its CUDA kernel (csrc/tower_kernels.cu) on CUDA
 tensors and runs its plain version on CPU tensors.  The plain versions are
@@ -33,6 +38,7 @@ from .fp import DTYPE, PlainFp, check_cuda, lanes
 from .towers import FpAdapter, f12_towers, gs_cyclotomic_square, stack, unstack
 
 XI = (9, 1)          # BN128's sextic non-residue 9 + u
+XI_BLS = (1, 1)      # BLS12-381's, 1 + u
 N12 = 12
 
 
@@ -140,8 +146,29 @@ def miller_add_plain(spec: FieldSpec, X, Y, Z, x2, y2, xP, yP):
     return (a0, b0, c_0), Xn, Yn, Zn
 
 
+def _mtwist_line(spec, step, xP, yP, xi):
+    """M-twist slots of a step's (c_y, c_x, c_0): (a0, b1, b2) =
+    (xi c_y yP, c_0, c_x xP), the line of tower_pallas.py
+    _miller_*_mtwist_kernel."""
+    F2, _, _, mul_xi = _towers_for(spec, xP, xi)
+    (c_y, c_x, c_0), Xn, Yn, Zn = step
+    a0, b2 = line_at(F2, mul_xi(c_y), c_x, xP, yP)
+    return (a0, c_0, b2), Xn, Yn, Zn
+
+
+def miller_dbl_mtwist_plain(spec: FieldSpec, X, Y, Z, xP, yP, xi=XI_BLS):
+    F2 = _towers_for(spec, xP, xi)[0]
+    return _mtwist_line(spec, g2_dbl_coefs(F2, X, Y, Z), xP, yP, xi)
+
+
+def miller_add_mtwist_plain(spec: FieldSpec, X, Y, Z, x2, y2, xP, yP,
+                            xi=XI_BLS):
+    F2 = _towers_for(spec, xP, xi)[0]
+    return _mtwist_line(spec, g2_add_coefs(F2, X, Y, Z, x2, y2), xP, yP, xi)
+
+
 # ---------------------------------------------------------------------------
-# kernel wrappers K8-K10
+# kernel wrappers K8-K11
 # ---------------------------------------------------------------------------
 
 def _launch(fn: str, spec: FieldSpec, groups, ints=()):
@@ -233,4 +260,36 @@ def miller_add(spec: FieldSpec, X, Y, Z, x2, y2, xP, yP):
     else:
         out = _launch("k10_miller_add", spec,
                       [flat[:6], flat[6:10], flat[10:]])
+    return _step_out(out, L, bshape)
+
+
+def miller_dbl_mtwist(spec: FieldSpec, X, Y, Z, xP, yP, xi=XI_BLS):
+    """K11: M-twist Miller doubling step (replaces tower_pallas.py
+    miller_dbl_pallas with mtwist=True).  Returns ((a0, b1, b2), Xn, Yn,
+    Zn)."""
+    L = spec.n_limbs
+    flat, bshape = lanes(L, *X, *Y, *Z, xP, yP)
+    if not flat[0].is_cuda:
+        f = flat
+        out = _step_flat(miller_dbl_mtwist_plain(
+            spec, (f[0], f[1]), (f[2], f[3]), (f[4], f[5]), f[6], f[7], xi))
+    else:
+        out = _launch("k11_miller_dbl_mtwist", spec, [flat[:6], flat[6:]], xi)
+    return _step_out(out, L, bshape)
+
+
+def miller_add_mtwist(spec: FieldSpec, X, Y, Z, x2, y2, xP, yP, xi=XI_BLS):
+    """K11: M-twist Miller mixed-add step (replaces tower_pallas.py
+    miller_add_pallas with mtwist=True).  Returns ((a0, b1, b2), Xn, Yn,
+    Zn)."""
+    L = spec.n_limbs
+    flat, bshape = lanes(L, *X, *Y, *Z, *x2, *y2, xP, yP)
+    if not flat[0].is_cuda:
+        f = flat
+        out = _step_flat(miller_add_mtwist_plain(
+            spec, (f[0], f[1]), (f[2], f[3]), (f[4], f[5]), (f[6], f[7]),
+            (f[8], f[9]), f[10], f[11], xi))
+    else:
+        out = _launch("k11_miller_add_mtwist", spec,
+                      [flat[:6], flat[6:10], flat[10:]], xi)
     return _step_out(out, L, bshape)
