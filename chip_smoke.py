@@ -9,10 +9,11 @@ Runs from the root of a checkout, with nothing prebuilt:
   2. builds the CUDA kernels from wasmsnark_tpu_torch/csrc (nvcc, one call
      per source and word count, in parallel) and prints the seconds;
   3. holds each kernel against its plain PyTorch version on the card —
-     K1-K10 at BN128's 8 words, and K1, K2, K4-K9 and K11 at BLS12-381's
-     12 — on 2^16 lanes from a seeded numpy generator plus edge values (0,
-     1, q-1, q-2; zero, equal and opposite points for the curve kernels;
-     Z = 0 and x2 = X/Z lanes for the Miller steps), requiring bit
+     K1-K10 at BN128's 8 words, K1, K2, K4-K9 and K11 at BLS12-381's 12,
+     and K1, K2 and K12-K14 at MNT6753's 24 — on 2^16 lanes from a seeded
+     numpy generator plus edge values (0, 1, q-1, q-2; zero, equal and
+     opposite points for the curve kernels; Z = 0 and x2 = X/Z lanes for
+     the Miller steps; cyclotomic elements for K13), requiring bit
      equality, and times both with CUDA events;
 
 then, for BN128 and then for BLS12-381, at each curve's full widths:
@@ -35,7 +36,32 @@ then, for BN128 and then for BLS12-381, at each curve's full widths:
      and holds it against the prepared path on the four pairs of one
      proof, bit for bit;
   9. verifies 4 lanes on the card and with the plain versions on the CPU,
-     requiring the same booleans and bit-equal F12 values.
+     requiring the same booleans and bit-equal F12 values;
+
+then MNT6753 at its full 753-bit width (48 limbs, 24 words):
+
+ 10. verifies N_MNT = 256 lanes through build_mnt6753().
+     bowe_gabizon_verify_batch(fused=True) with a seeded rng, twice: 16
+     distinct synthetic proofs of one synthetic verification key (a
+     trapdoor construction; the Coda test vectors are not in the
+     repository) repeated across the lanes, and 4 bad lanes at fixed
+     places (tampered c, tampered z, a flipped input, a wrong input
+     count), requiring exactly the expected list; the counters are set to
+     0 before the second (steady) call and K12 and K13 must have launched
+     as often as the static schedule says; the steady call is split into
+     host marshalling and device pass; verify and verify_fused on one
+     good and one bad proof;
+ 11. runs the unprepared pd.pairing_products on N_MNT lanes of
+     e(7 G1, 9 G2) against the host oracle's e(G1, G2)^63 and
+     pd.pairing_products_fused on two pairs per lane,
+     e(7 G1, 9 G2) e(-63 G1, G2) = 1, with the counters set to 0 before
+     them (K14 must have launched), and holds the unprepared product
+     against the prepared path on one proof's five pairs, bit for bit;
+ 12. holds 4 sampled lanes against the port's host oracle: the card's
+     booleans against verify_sync, the card's five-pair F6 values against
+     the oracle's pairing product.  The plain versions on the CPU are not
+     the reference here: a 753-bit Miller loop has 550 steps, and its CPU
+     run would take minutes.
 
 Any failure prints its traceback and exits non-zero.  Without a CUDA
 device, or outside the repository, it exits non-zero and prints no
@@ -61,6 +87,7 @@ BUDGET_S = 840                   # under the 900 s outer timeout: a hang
 LOG_2N = 16                      # circuit domain 2^16
 N_LANES = 1 << 16                # lanes of each kernel check
 SEED = 20261017
+DEVICE = "cuda"                  # the card (a host rehearsal sets "cpu")
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # the 32-bit non-tensor rate (float32 outside the tensor cores, an FMA
@@ -70,6 +97,10 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
 N_VERIFY = 1024                  # proofs per verify batch: the JAX kernels'
                                  # lane tile TOWER_TILE_B (tower_pallas.py)
+N_MNT = 256                      # MNT6753 lanes: host marshalling costs
+                                 # ~32 ms per lane (3 scalar multiplications
+                                 # by rho, the vk_x ladder, alphaBeta^rho)
+N_MNT_PROOFS = 16                # distinct synthetic proofs among them
 PROVE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
 CURVES = ("bn128", "bls12381")
 
@@ -85,6 +116,10 @@ ENTRY_KERNEL = {
     "k10_miller_add": "miller_add_kernel",
     "k11_miller_dbl_mtwist": "miller_dbl_kernel",
     "k11_miller_add_mtwist": "miller_add_kernel",
+    "k12_f6_mul": "f6_mul_kernel", "k12_f6_sqr": "f6_sqr_kernel",
+    "k13_f6_cyc_sqr": "f6_cyc_sqr_kernel",
+    "k14_mnt_miller_dbl": "mnt_miller_dbl_kernel",
+    "k14_mnt_miller_add": "mnt_miller_add_kernel",
 }
 
 
@@ -95,7 +130,7 @@ def words(spec):
 
 def elem_bytes(spec):
     """Bytes of one element in int32 limb planes (64 B at 8 words, 96 B
-    at 12)."""
+    at 12, 192 B at 24)."""
     return spec.n_limbs * 4
 
 
@@ -110,12 +145,15 @@ def as_ops(spec):
     return 3 * words(spec)
 
 
+def chain(k):
+    """Modular adds of fp.cuh mul_small(a, k), a double-and-add from 0."""
+    return bin(k).count("1") + k.bit_length() - 1
+
+
 def xi_ops(xi):
     """Modular adds and subs of one multiplication by xi = c0 + c1 u in
     csrc/tower_kernels.cu (f2_mul_xi: four mul_small double-and-add chains,
     then a sub and an add)."""
-    def chain(k):
-        return bin(k).count("1") + k.bit_length() - 1
     return 2 * (chain(xi[0]) + chain(xi[1])) + 2
 
 
@@ -155,8 +193,11 @@ def time_cuda(fn, reps):
 
 
 def kernel_name(mangled):
-    """The `*_kernel` name inside a mangled symbol (a length-prefixed
-    identifier, the length digits possibly glued to hex digits)."""
+    """The `*_kernel` name inside a mangled symbol: a length-prefixed
+    identifier whose length digits may be glued to the hex digits of the
+    namespace before it, which can themselves read as a length that ends
+    on the same `_kernel`; the innermost (rightmost) candidate wins."""
+    found = None
     for i in range(len(mangled)):
         j = i
         while j < len(mangled) and mangled[j].isdigit():
@@ -164,8 +205,8 @@ def kernel_name(mangled):
         if j > i and mangled[j - 1].isdigit():
             n = int(mangled[i:j])
             if mangled[j:j + n].endswith("_kernel"):
-                return mangled[j:j + n]
-    return None
+                found = mangled[j:j + n]
+    return found
 
 
 def ptxas_summary(build_dir):
@@ -221,11 +262,14 @@ def mismatch(a, b):
 def check_kernels(dev):
     """Every kernel against its plain version on the card: K1-K10 over
     BN128's fields (8 words), then K1, K2, K4-K9 and K11 over BLS12-381's
-    Fq (12 words), with K1-K3 over its Fr (8 words) checked untimed."""
+    Fq (12 words), with K1-K3 over its Fr (8 words) checked untimed, then
+    K1, K2 and K12-K14 over MNT6753's Fq (24 words)."""
+    import functools
     import numpy as np
     import torch
     from wasmsnark_tpu_torch.models.bls12381 import bls12381
     from wasmsnark_tpu_torch.models.bn128 import bn128
+    from wasmsnark_tpu_torch.models.mnt6753 import mnt6753
     from wasmsnark_tpu_torch.ops import cuda_lib, fp
 
     rng = np.random.default_rng(SEED)
@@ -266,6 +310,8 @@ def check_kernels(dev):
 
     check_curve_kernels("bn128", bn128(), dev, rng, rand, record, n)
     check_curve_kernels("bls12381", bls12381(), dev, rng, rand, record, n)
+    check_mnt_kernels(rand, functools.partial(record, "mnt6753",
+                                              mnt6753().fp_spec), n)
     return out
 
 
@@ -422,6 +468,98 @@ def check_tower_kernels(curve, m, rand, rec, n):
         lambda: p_add(Fq, X, Y, Z, x2, y2, xP, yP, *extra), 24 * E * n,
         ops(fn_add), fns=(fn_add,))
     a0 = k_add(Fq, X, Y, Z, x2, y2, xP, yP, *extra)[0][0]
+    if any(int(p[:, sl].abs().sum()) for p in a0):
+        raise AssertionError("the x2 = X/Z lanes are not degenerate")
+
+
+# MNT6753 (csrc/mnt_kernels.cu): modular adds and subs of one F3 product
+# (six operand sums, three two-term differences, three final adds and two
+# multiplications by 11), and per entry point (Montgomery products, modular
+# adds and subs) counted from the kernel's formulas
+F3_MUL_ADDS = 6 + 6 + 3 + 2 * chain(11)
+MNT_OPS = {
+    "k12_f6_mul": (18, 3 * F3_MUL_ADDS + 15 + chain(11)),
+    "k12_f6_sqr": (12, 2 * F3_MUL_ADDS + 15 + 2 * chain(11)),
+    "k13_f6_cyc_sqr": (9, 36 + 4 * chain(11)),
+    "k14_mnt_miller_dbl": (17 * 6 + 6, 17 * F3_MUL_ADDS + 18 + 9 * chain(2)
+                           + 9 * chain(8) + 3 * chain(3) + 8 * chain(11)
+                           + 3 * chain(12)),
+    "k14_mnt_miller_add": (13 * 6 + 6, 13 * F3_MUL_ADDS + 24 + 3 * chain(11)
+                           + 3 * chain(2)),
+}
+
+
+def check_mnt_kernels(rand, rec, n):
+    """K1 and K2 over MNT6753's Fq (24 words), then K12 (F6 product and
+    square), K13 (on cyclotomic elements: the easy part of the final
+    exponentiation, computed on the card, of random F6 values) and K14
+    (with Z = 0 lanes and x2 = X/Z lanes), against their plain versions."""
+    from wasmsnark_tpu_torch.models.mnt6753 import mnt6753
+    from wasmsnark_tpu_torch.ops import fp, tower_kernels as tk
+    from wasmsnark_tpu_torch.ops.pairing import mnt6753_pairing_device
+    from wasmsnark_tpu_torch.utils.serialize import (ints_to_limbs_fast,
+                                                     limbs_to_ints)
+    m = mnt6753()
+    Fq = m.fp_spec
+    E, MM, AS = elem_bytes(Fq), mm_ops(Fq), as_ops(Fq)
+
+    def ops(fn):
+        prods, adds = MNT_OPS[fn]
+        return (prods * MM + adds * AS) * n
+
+    x, y = rand(Fq), rand(Fq).flip(1).contiguous()
+    pf = "wasmsnark_tpu/ops/fp_pallas.py"
+    rec("K1", "mont_mul", "fp_kernels.cu", f"{pf}:214",
+        lambda: fp.mont_mul(Fq, x, y), lambda: fp.mont_mul_plain(Fq, x, y),
+        3 * E * n, MM * n)
+    rec("K2", "mod_add/mod_sub", "fp_kernels.cu", f"{pf}:299",
+        lambda: (fp.mod_add(Fq, x, y), fp.mod_sub(Fq, x, y)),
+        lambda: (fp.mod_add_plain(Fq, x, y), fp.mod_sub_plain(Fq, x, y)),
+        2 * 3 * E * n, 2 * AS * n)
+
+    src, pl = "mnt_kernels.cu", "wasmsnark_tpu/ops/tower_pallas.py"
+    a = tk.unflatten6([rand(Fq) for _ in range(6)])
+    b = tk.unflatten6([rand(Fq) for _ in range(6)])
+    rec("K12", "f6_mul", src, f"{pl}:419", lambda: tk.mnt_f6_mul(Fq, a, b),
+        lambda: tk.mnt_f6_mul_plain(Fq, a, b), 18 * E * n,
+        ops("k12_f6_mul"), fns=("k12_f6_mul",))
+    rec("K12", "f6_sqr", src, f"{pl}:419", lambda: tk.mnt_f6_sqr(Fq, a),
+        lambda: tk.mnt_f6_sqr_plain(Fq, a), 12 * E * n,
+        ops("k12_f6_sqr"), fns=("k12_f6_sqr",))
+    pd = mnt6753_pairing_device()
+    t = pd._f6_mul(pd._f6_conj(a), pd.F6d.inv(a))
+    cyc = pd._f6_mul(pd.frobenius(t), t)         # the easy part
+    rec("K13", "f6_cyc_sqr", src, f"{pl}:437",
+        lambda: tk.mnt_f6_cyc_sqr(Fq, cyc),
+        lambda: tk.mnt_f6_cyc_sqr_plain(Fq, cyc), 12 * E * n,
+        ops("k13_f6_cyc_sqr"))
+    # on the cyclotomic subgroup K13 is the square
+    if mismatch(tk.mnt_f6_cyc_sqr(Fq, cyc), tk.mnt_f6_sqr(Fq, cyc))[0]:
+        raise AssertionError("K13 differs from the square on the easy "
+                             "part's outputs")
+    X, Y, Z, x2, y2 = [tuple(rand(Fq) for _ in range(3)) for _ in range(5)]
+    xP, yP = rand(Fq), rand(Fq)
+    for c in Z:                               # lanes 64..95: Z = 0
+        c[:, 64:96] = 0
+    sl = slice(96, 128)                       # lanes 96..127: x2 = X/Z
+
+    def vals(p):
+        return [Fq.from_mont(v) for v in limbs_to_ints(fp.to_numpy(p[:, sl]))]
+
+    xz = [m.F3.mul(u, m.F3.inv(z)) for u, z in zip(
+        zip(*(vals(p) for p in X)), zip(*(vals(p) for p in Z)))]
+    for k in range(3):
+        x2[k][:, sl] = fp.planes(ints_to_limbs_fast(
+            [Fq.to_mont(v[k]) for v in xz], Fq.n_limbs), X[0].device)
+    rec("K14", "mnt_miller_dbl", src, f"{pl}:447",
+        lambda: tk.mnt_miller_dbl(Fq, X, Y, Z, xP, yP),
+        lambda: tk.mnt_miller_dbl_plain(Fq, X, Y, Z, xP, yP), 26 * E * n,
+        ops("k14_mnt_miller_dbl"), fns=("k14_mnt_miller_dbl",))
+    rec("K14", "mnt_miller_add", src, f"{pl}:459",
+        lambda: tk.mnt_miller_add(Fq, X, Y, Z, x2, y2, xP, yP),
+        lambda: tk.mnt_miller_add_plain(Fq, X, Y, Z, x2, y2, xP, yP),
+        32 * E * n, ops("k14_mnt_miller_add"), fns=("k14_mnt_miller_add",))
+    (a0, _), *_ = tk.mnt_miller_add(Fq, X, Y, Z, x2, y2, xP, yP)
     if any(int(p[:, sl].abs().sum()) for p in a0):
         raise AssertionError("the x2 = X/Z lanes are not degenerate")
 
@@ -796,6 +934,345 @@ def run_curve(curve, phases):
     return by_path
 
 
+# -- MNT6753 ------------------------------------------------------------------
+
+
+def _mnt_json(m):
+    """Encoders of G1 and G2 points in the verifier's JSON (decimal
+    strings; an F3 value as {"a", "b", "c"})."""
+    def f3(v):
+        return {"a": str(v[0]), "b": str(v[1]), "c": str(v[2])}
+
+    def g1(p):
+        x, y = m.G1.affine(p)[:2]
+        return {"x": str(x), "y": str(y)}
+
+    def g2(p):
+        x, y = m.G2.affine(p)[:2]
+        return {"x": f3(x), "y": f3(y)}
+
+    return f3, g1, g2
+
+
+def mnt_synthetic_vk(m, n_inputs, rnd):
+    """A Bowe-Gabizon verification key with a known trapdoor: query_i =
+    q_i G1, alphaBeta = e(G1, G2)^k, delta = t G2.  Returns (vk,
+    trapdoor)."""
+    R = m.Fr.q
+    f3, g1, g2 = _mnt_json(m)
+    qs = [rnd.randrange(1, R) for _ in range(n_inputs + 1)]
+    k, t = rnd.randrange(1, R), rnd.randrange(1, R)
+    ab = m.F6.exp(m.pairing(m.g1_gen, m.g2_gen), k)
+    vk = {"query": [g1(m.G1.times_scalar(m.g1_gen, q)) for q in qs],
+          "alphaBeta": {"a": f3(ab[0]), "b": f3(ab[1])},
+          "delta": g2(m.G2.times_scalar(m.g2_gen, t))}
+    return vk, {"qs": qs, "k": k, "t": t}
+
+
+def mnt_synthetic_proof(rt, trap, inputs, rnd):
+    """A valid proof for `inputs` from the trapdoor: A = a G1, B = b G2,
+    deltaPrime = d G2, C = ((a b - x - k)/d) G1 with x = q_0 + sum in_i q_i,
+    Z = (d/t) Ys with Ys = calculate_ys(A, B, C, deltaPrime)."""
+    m = rt.m
+    R = m.Fr.q
+    G1, G2 = m.G1, m.G2
+    _, g1, g2 = _mnt_json(m)
+    a, b, d = (rnd.randrange(1, R) for _ in range(3))
+    qs = trap["qs"]
+    x = (qs[0] + sum(int(v) * q for v, q in zip(inputs, qs[1:]))) % R
+    A, B = G1.times_scalar(m.g1_gen, a), G2.times_scalar(m.g2_gen, b)
+    C = G1.times_scalar(m.g1_gen, (a * b - x - trap["k"]) * pow(d, -1, R) % R)
+    D = G2.times_scalar(m.g2_gen, d)
+    ys = rt.calculate_ys(G1.affine(A), G2.affine(B), G1.affine(C),
+                         G2.affine(D))
+    Z = G1.times_scalar(ys, d * pow(trap["t"], -1, R) % R)
+    return {"a": g1(A), "b": g2(B), "c": g1(C), "deltaPrime": g2(D),
+            "z": g1(Z)}
+
+
+def mnt_lanes(rt, n):
+    """A synthetic vk with one public input, N_MNT_PROOFS distinct proofs
+    repeated over n lanes, and bad lanes at fixed places.  Returns (vk,
+    inputs, proofs, expected)."""
+    import random
+    m = rt.m
+    rnd = random.Random(SEED)
+    vk, trap = mnt_synthetic_vk(m, 1, rnd)
+    pub = [str(rnd.randrange(1 << 200))]
+    good = [mnt_synthetic_proof(rt, trap, pub, rnd)
+            for _ in range(N_MNT_PROOFS)]
+    _, g1, _ = _mnt_json(m)
+
+    def shifted(proof, key):                  # the point plus G1
+        p = dict(proof)
+        p[key] = g1(m.G1.add(rt._g1_affine(proof[key]), m.g1_gen))
+        return p
+
+    bad = {5: (pub, shifted(good[5], "c")),               # tampered c
+           n // 3: (pub, shifted(good[1], "z")),          # tampered z
+           n // 2: ([str(int(pub[0]) + 1)], good[2]),     # flipped input
+           n - 1: (pub + ["1"], good[3])}                 # wrong count
+    ins, prs, want = [], [], []
+    for i in range(n):
+        inp, prf = bad.get(i, (pub, good[i % len(good)]))
+        ins.append(inp)
+        prs.append(prf)
+        want.append(i not in bad)
+    return vk, ins, prs, want
+
+
+def mnt_schedule(pd, n_pairs, prepared, fused):
+    """Launches of each MNT entry point that one pairing product over
+    n_pairs pairs makes, from the static schedules: per Miller step a line
+    multiply and, with fused lanes, the pairs' tree (one multiply per
+    level, ceil(log2(n_pairs)) levels, per step when fused, once after the
+    loop otherwise), a square per doubling step; 2 multiplies in the easy part, then the
+    window ladder of w0: 14 table multiplies, 4 cyclotomic squarings per
+    window after the first and a multiply per nonzero one, and the last
+    multiply by frob(t)."""
+    from wasmsnark_tpu_torch.ops.pairing import window_digits
+    flags = pd._prep_flags
+    steps, dbls = len(flags), int((flags == 0).sum())
+    digits = window_digits(pd._w0, 4)
+    tree = (n_pairs - 1).bit_length()
+    return {
+        "k12_f6_mul": steps * (1 + (tree if fused else 0))
+        + (0 if fused else tree) + 2 + 14
+        + sum(1 for d in digits[1:] if d) + 1,
+        "k12_f6_sqr": dbls,
+        "k13_f6_cyc_sqr": 4 * (len(digits) - 1),
+        "k14_mnt_miller_dbl": 0 if prepared else dbls,
+        "k14_mnt_miller_add": 0 if prepared else steps - dbls,
+    }
+
+
+MNT_FNS = ("k12_f6_mul", "k12_f6_sqr", "k13_f6_cyc_sqr",
+           "k14_mnt_miller_dbl", "k14_mnt_miller_add")
+
+
+def mnt_verify_batch(rt, lanes, phases):
+    """N_MNT lanes through rt.bowe_gabizon_verify_batch(fused=True) with a
+    seeded rng, twice; the split of the steady call; verify and
+    verify_fused on one good and one bad proof.  Returns the launches per
+    (entry point, word count) of the steady call."""
+    import random
+    import torch
+    from wasmsnark_tpu_torch.ops import cuda_lib
+
+    vk, ins, prs, want = lanes
+    pd = rt._pd
+    say(f"mnt6753 verify batch: {N_MNT} lanes, {want.count(False)} bad")
+    pd.vk_prep_cache.clear()
+    for name in ("first", "steady"):
+        if name == "steady":
+            cuda_lib.reset_launches()
+        t = time.perf_counter()
+        got = rt.bowe_gabizon_verify_batch(vk, ins, prs, fused=True,
+                                           rng=random.Random(SEED))
+        torch.cuda.synchronize()
+        phases[f"verify_{name}_s"] = time.perf_counter() - t
+        if got != want:
+            bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+            raise AssertionError(f"mnt6753 verify batch ({name}) wrong at "
+                                 f"lanes {bad[:20]}")
+    counts = dict(cuda_lib.fn_launches)
+    by_words = dict(cuda_lib.word_launches)
+    phases["verify_proofs_per_s"] = N_MNT / phases["verify_steady_s"]
+    phases["verify_launches"] = {k: v for k, v in counts.items() if v}
+    say(f"mnt6753 verify batch: first {phases['verify_first_s']:.2f} s, "
+        f"steady {phases['verify_steady_s']:.2f} s "
+        f"({phases['verify_proofs_per_s']:.1f} proofs/s); launches "
+        f"{phases['verify_launches']}")
+    sched = mnt_schedule(pd, 5, prepared=True, fused=True)
+    if {fn: counts[fn] for fn in MNT_FNS} != sched:
+        raise AssertionError(f"mnt6753 verify batch launches "
+                             f"{ {fn: counts[fn] for fn in MNT_FNS} } are "
+                             f"not the static schedule's {sched}")
+
+    # where the steady time goes: host marshalling, then the device stages
+    t = time.perf_counter()
+    rng = random.Random(SEED)
+    ms = [rt._marshal(vk, i, p, rng) for i, p in zip(ins, prs)]
+    batch = [mm for mm in ms if mm is not None]
+    g1_4, g2_var, expected = rt._pairing_inputs(batch)
+    torch.cuda.synchronize()
+    phases["verify_host_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tt = rt._hash_to_t(batch)
+    torch.cuda.synchronize()
+    phases["verify_hash_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ok = rt._check(tt, g1_4, g2_var, rt._fixed_coeffs(batch[0]["delta"]),
+                   expected, True).tolist()
+    phases["verify_device_s"] = time.perf_counter() - t
+    if ok != [w for w, mm in zip(want, ms) if mm is not None]:
+        raise AssertionError("the split mnt6753 verify batch disagrees")
+    say(f"mnt6753 verify batch split: host marshalling "
+        f"{phases['verify_host_s']:.2f} s, Pedersen hash and blake2s "
+        f"{phases['verify_hash_s']:.2f} s, group map and pairing "
+        f"{phases['verify_device_s']:.2f} s")
+
+    t = time.perf_counter()
+    bad_i = want.index(False)
+    for fn in (rt.verify, rt.verify_fused):
+        for i in (0, bad_i):
+            if fn(vk, ins[i], prs[i], rng=random.Random(i)) is not want[i]:
+                raise AssertionError(f"{fn.__name__} wrong on lane {i}")
+    phases["verify_single_s"] = time.perf_counter() - t
+    say(f"mnt6753 verify and verify_fused: one good and one bad proof each "
+        f"({phases['verify_single_s']:.1f} s)")
+    return by_words
+
+
+def mnt_pairing_batch(rt, lanes, phases):
+    """The unprepared pairing products on N_MNT lanes: pairing_products of
+    e(7 G1, 9 G2) against the oracle's e(G1, G2)^63, pairing_products_fused
+    of e(7 G1, 9 G2) e(-63 G1, G2) = 1, each against the static schedule;
+    then the unprepared against the prepared product on one proof's five
+    pairs.  Returns the launches per (entry point, word count) of the
+    unprepared calls."""
+    import random
+    import torch
+    from wasmsnark_tpu_torch.ops import cuda_lib
+    from wasmsnark_tpu_torch.ops.curve import map_leaf
+
+    pd = rt._pd
+    m = pd.m
+    G1, G2 = m.G1, m.G2
+    p7 = G1.affine(G1.times_scalar(m.g1_gen, 7))[:2]
+    pm63 = G1.affine(G1.neg(G1.times_scalar(m.g1_gen, 63)))[:2]
+    q9 = G2.affine(G2.times_scalar(m.g2_gen, 9))[:2]
+    q1 = G2.affine(m.g2_gen)[:2]
+
+    def on_lanes(points, pack):      # pair j = points[j] on every lane
+        return map_leaf(pack([p for p in points for _ in range(N_MNT)]),
+                        lambda a: a.reshape(a.shape[0], len(points), N_MNT))
+
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    e = pd.pairing_products(on_lanes([p7], pd.pack_g1),
+                            on_lanes([q9], pd.pack_g2))
+    torch.cuda.synchronize()
+    phases["pairing_s"] = time.perf_counter() - t
+    counts = dict(cuda_lib.fn_launches)
+    sched = mnt_schedule(pd, 1, prepared=False, fused=False)
+    if {fn: counts[fn] for fn in MNT_FNS} != sched:
+        raise AssertionError(f"pairing_products launches "
+                             f"{ {fn: counts[fn] for fn in MNT_FNS} } are "
+                             f"not the static schedule's {sched}")
+    want = m.F6.exp(m.pairing(m.g1_gen, m.g2_gen), 63)
+    if any(v != want for v in pd.unpack_f6(e)):
+        raise AssertionError("e(7 G1, 9 G2) != e(G1, G2)^63 on some lane")
+    by_words = dict(cuda_lib.word_launches)
+    phases["pairing_launches"] = {k: v for k, v in counts.items() if v}
+
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    e2 = pd.pairing_products_fused(on_lanes([p7, pm63], pd.pack_g1),
+                                   on_lanes([q9, q1], pd.pack_g2))
+    torch.cuda.synchronize()
+    phases["pairing_fused_s"] = time.perf_counter() - t
+    counts = dict(cuda_lib.fn_launches)
+    sched = mnt_schedule(pd, 2, prepared=False, fused=True)
+    if {fn: counts[fn] for fn in MNT_FNS} != sched:
+        raise AssertionError(f"pairing_products_fused launches "
+                             f"{ {fn: counts[fn] for fn in MNT_FNS} } are "
+                             f"not the static schedule's {sched}")
+    one = m.F6.one()
+    if any(v != one for v in pd.unpack_f6(e2)):
+        raise AssertionError("e(7 G1, 9 G2) e(-63 G1, G2) != 1 on some lane")
+    phases["pairing_fused_launches"] = {k: v for k, v in counts.items() if v}
+    say(f"mnt6753 pairing ({N_MNT} lanes): unprepared "
+        f"{phases['pairing_s']:.2f} s, launches {phases['pairing_launches']};"
+        f" fused 2 pairs {phases['pairing_fused_s']:.2f} s, launches "
+        f"{phases['pairing_fused_launches']}")
+
+    # one proof's five pairs: unprepared against prepared, bit for bit
+    vk, ins, prs, _ = lanes
+    mm = rt._marshal(vk, ins[0], prs[0], random.Random(SEED))
+    g1, g2, _ = mnt_five_pairs(rt, [mm])
+    e_full = pd.pairing_products(g1, g2)
+    e_prep = pd.pairing_products_prepared(g1, pd.prepare_g2(g2))
+    torch.cuda.synchronize()
+    if mismatch(e_full, e_prep)[0] or not bool(pd.is_eq_planes(
+            e_full, pd.pack_f6([mm["expected"]])).all()):
+        raise AssertionError("pairing_products and pairing_products_prepared "
+                             "disagree on a good proof's five pairs")
+    say("mnt6753 pairing: all lanes equal e(G1, G2)^63 and 1; unprepared = "
+        "prepared on a proof's five pairs, bit for bit")
+    return by_words
+
+
+def mnt_five_pairs(rt, batch):
+    """The five pairs of marshalled lanes, (rho A, B), (-rho vk_x, G2gen),
+    (-rho C, dp), (-Z, delta), (Ys, dp), with Ys from the card's hash and
+    group map: (g1, g2) planes [L, 5, N] and the host points per lane."""
+    import torch
+    pd, m = rt._pd, rt.m
+    g1_4, _, _ = rt._pairing_inputs(batch)
+    ys_x, ys_y, _ = rt._dev.group_map(rt._hash_to_t(batch))
+    g1 = (torch.cat([g1_4[0], ys_x[:, None]], dim=1),
+          torch.cat([g1_4[1], ys_y[:, None]], dim=1))
+    ys = list(zip(pd.fp.unpack_mont(ys_x), pd.fp.unpack_mont(ys_y)))
+    g2gen = m.G2.affine(m.g2_gen)[:2]
+    host = [(mm["g1_4"] + [y], [mm["g2_var"][0], g2gen, mm["g2_var"][1],
+                                mm["delta"], mm["g2_var"][1]])
+            for mm, y in zip(batch, ys)]
+    g2 = pd.pack_g2([h[1][k] for k in range(5) for h in host])
+    g2 = tuple(tuple(c.reshape(c.shape[0], 5, len(batch)) for c in xy)
+               for xy in g2)
+    return g1, g2, host
+
+
+def mnt_against_oracle(rt, lanes, phases):
+    """4 sampled lanes (2 good, 2 bad): the card's booleans against the
+    port's host verify_sync, and the card's five-pair F6 values against
+    the host oracle's pairing product of the same pairs."""
+    import random
+
+    t = time.perf_counter()
+    m, pd = rt.m, rt._pd
+    vk, ins, prs, want = lanes
+    pick = [0, 1] + [i for i, w in enumerate(want) if not w][:2]
+    ins, prs = [ins[i] for i in pick], [prs[i] for i in pick]
+    want = [want[i] for i in pick]
+    card = rt.bowe_gabizon_verify_batch(vk, ins, prs, rng=random.Random(1))
+    host = [rt.verify_sync(vk, i, p) for i, p in zip(ins, prs)]
+    if not card == host == want:
+        raise AssertionError(f"card and host verify differ: {card} {host}")
+    ms = [rt._marshal(vk, i, p, random.Random(SEED))
+          for i, p in zip(ins, prs)]
+    g1, g2, pairs = mnt_five_pairs(rt, [mm for mm in ms if mm is not None])
+    got = pd.unpack_f6(pd.pairing_products_prepared(g1, pd.prepare_g2(g2)))
+    for lane, (p1s, q2s) in enumerate(pairs):
+        f = m.F6.one()
+        for p, q in zip(p1s, q2s):
+            f = m.F6.mul(f, m.miller_loop(p, q))
+        if m.final_exponentiation(f) != got[lane]:
+            raise AssertionError(f"sampled lane {lane}: the card's F6 value "
+                                 "is not the oracle's")
+    phases["card_vs_oracle_s"] = time.perf_counter() - t
+    say(f"mnt6753 card against the host oracle: same booleans, bit-equal "
+        f"F6 values ({phases['card_vs_oracle_s']:.1f} s)")
+
+
+def run_mnt(phases):
+    """Steps 10-12; returns the launches per (entry point, word count) of
+    the steady verify batch and of the unprepared pairings."""
+    import wasmsnark_tpu_torch
+
+    rt = wasmsnark_tpu_torch.build_mnt6753()
+    t = time.perf_counter()
+    lanes = mnt_lanes(rt, N_MNT)
+    phases["lanes_s"] = time.perf_counter() - t
+    say(f"mnt6753: {N_MNT_PROOFS} synthetic proofs in "
+        f"{phases['lanes_s']:.1f} s")
+    by_path = {"verify_batch": mnt_verify_batch(rt, lanes, phases),
+               "pairing_batch": mnt_pairing_batch(rt, lanes, phases)}
+    mnt_against_oracle(rt, lanes, phases)
+    return by_path
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     import torch
@@ -805,7 +1282,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from wasmsnark_tpu_torch.ops import cuda_lib
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -838,10 +1315,12 @@ def main() -> int:
     for curve in CURVES:
         phases[curve] = {}
         by_path[curve] = run_curve(curve, phases[curve])
+    phases["mnt6753"] = {}
+    by_path["mnt6753"] = run_mnt(phases["mnt6753"])
 
     # each kernel's launches on the path that serves it, at its word count:
-    # the prove for K1-K7, the steady verify batch for K8 and K9, the
-    # pairing batch for K10 and K11
+    # the prove for K1-K7, the steady verify batch for K8, K9, K12, K13 and
+    # the 24-word K1/K2, the pairing batch for K10, K11 and K14
     for kr in kernels:
         counts = {path: sum(c[(fn, kr["n_words"])] for fn in kr["fns"])
                   for path, c in by_path[kr["curve"]].items()}

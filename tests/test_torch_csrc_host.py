@@ -12,7 +12,17 @@ show that nvcc accepts the code or how it runs on the card.
 
 Inputs: canonical planes from a seeded numpy generator with the edge
 values 0, 1, q-1, q-2; equal, opposite and zero points for K5-K7; Z = 0
-and x2 = X/Z lanes for the Miller steps.  Tolerance: bit-identical.
+and x2 = X/Z lanes for the Miller steps; cyclotomic elements for K13.
+Tolerance: bit-identical.
+
+The same libraries rehearse chip_smoke.py without a card (`rehearse`):
+tensors claim to lie on the card, every launch goes to the host library,
+and the default device is the CPU.  The tier-1 test runs its MNT6753
+kernel phase on 128 lanes; the whole script runs at small sizes with
+
+    PYTHONPATH=. python tests/test_torch_csrc_host.py
+
+(a few minutes; N_LANES 256, LOG_2N 5, N_VERIFY 16, N_MNT 4).
 """
 
 import ctypes
@@ -28,6 +38,7 @@ import torch
 
 from wasmsnark_tpu_torch.models.bls12381 import bls12381
 from wasmsnark_tpu_torch.models.bn128 import bn128
+from wasmsnark_tpu_torch.models.mnt6753 import mnt6753
 from wasmsnark_tpu_torch.ops import cuda_lib, curve, fp, ntt, towers
 from wasmsnark_tpu_torch.ops import tower_kernels as tk
 from wasmsnark_tpu_torch.utils.serialize import (ints_to_limbs_fast,
@@ -37,13 +48,10 @@ SHIM = pathlib.Path(__file__).resolve().parent / "cuda_host_shim"
 N = 96                                    # lanes
 
 
-@pytest.fixture(scope="module")
-def libs(tmp_path_factory):
-    """Every library of cuda_lib.libraries(), built by g++ for the host."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++")
-    out = tmp_path_factory.mktemp("csrc_host")
+def build_host_libs(out):
+    """Every library of cuda_lib.libraries(), compiled by g++ for the host
+    into the directory `out` and bound with the loader's argtypes."""
+    out = pathlib.Path(out)
     for name in cuda_lib.HEADERS:
         shutil.copy(os.path.join(cuda_lib.CSRC, name), out / name)
     procs = {}
@@ -52,7 +60,7 @@ def libs(tmp_path_factory):
         cpp = out / f"{lib}.cpp"
         cpp.write_text(re.sub(r"<<<.*?>>>", "", text, flags=re.S))
         procs[lib] = subprocess.Popen(
-            [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", f"-DWORDS={w}",
+            ["g++", "-O1", "-std=c++17", "-shared", "-fPIC", f"-DWORDS={w}",
              f"-I{SHIM}", f"-I{out}", "-o", str(out / f"lib{lib}.so"),
              str(cpp)], stderr=subprocess.PIPE)
     for lib, p in procs.items():
@@ -60,6 +68,14 @@ def libs(tmp_path_factory):
         assert p.returncode == 0, (lib, err.decode()[-3000:])
     return {lib: cuda_lib._bind(ctypes.CDLL(str(out / f"lib{lib}.so")))
             for lib in procs}
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """Every library of cuda_lib.libraries(), built by g++ for the host."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    return build_host_libs(tmp_path_factory.mktemp("csrc_host"))
 
 
 def call(libs, fn, spec, tensors, ints=()):
@@ -93,13 +109,13 @@ def assert_equal(a, b):
         assert torch.equal(x, y)
 
 
-CURVES = {"bn128": bn128, "bls12381": bls12381}
+CURVES = {"bn128": bn128, "bls12381": bls12381, "mnt6753": mnt6753}
 
 
-@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381", "mnt6753"])
 @pytest.mark.parametrize("field", ["fq", "fr"])
 def test_field_kernels(libs, curve_name, field):
-    """K1, K2 and K4 at the field's word count (8 or 12)."""
+    """K1, K2 and K4 at the field's word count (8, 12 or 24)."""
     m = CURVES[curve_name]()
     spec = m.fp_spec if field == "fq" else m.fr_spec
     x, y = rand(spec, 1), rand(spec, 2).flip(1).contiguous()
@@ -244,3 +260,182 @@ def test_tower_and_miller_kernels(libs, curve_name):
     oextra = xi if other == "K11" else ()
     for fn, g in zip(ofns, groups):
         assert _tower(libs, fn, spec, g, oextra)[0] == 1
+
+
+def _mnt(libs, fn, spec, groups, n_out):
+    ops = [torch.stack(g).contiguous() for g in groups]
+    out = torch.empty((n_out, spec.n_limbs, N), dtype=torch.int32)
+    rc = call(libs, fn, spec, (*ops, out))
+    return rc, list(out.unbind(0))
+
+
+def test_mnt_kernels(libs):
+    """K12, K13 and K14 at 24 words (MNT6753 Fq): the F6 product and
+    square on random elements, the cyclotomic square on the easy part's
+    outputs (where it equals the square), the Miller steps with Z = 0
+    lanes and x2 = X/Z lanes; K3 and the 8/12-word tower kernels are
+    refused at 24 words."""
+    m = mnt6753()
+    spec = m.fp_spec
+    a = tk.unflatten6([rand(spec, 70 + k) for k in range(6)])
+    b = tk.unflatten6([rand(spec, 80 + k) for k in range(6)])
+    F6 = m.F6
+    rng = np.random.default_rng(9)
+    cyc = []
+    for _ in range(N):
+        f = tuple(tuple(int(v) % spec.q for v in rng.integers(
+            1, 2 ** 62, size=3)) for _ in range(2))
+        t = F6.mul(F6.conjugate(f), F6.inv(f))
+        cyc.append(F6.mul(m._frobenius6(t), t))
+    c = tk.unflatten6([fp.planes(ints_to_limbs_fast(
+        [spec.to_mont(v[i][j]) for v in cyc], spec.n_limbs), "cpu")
+        for i in range(2) for j in range(3)])
+    for fn, groups, plain in (
+            ("k12_f6_mul", [tk.flatten6(a), tk.flatten6(b)],
+             tk.mnt_f6_mul_plain(spec, a, b)),
+            ("k12_f6_sqr", [tk.flatten6(a)], tk.mnt_f6_sqr_plain(spec, a)),
+            ("k13_f6_cyc_sqr", [tk.flatten6(c)],
+             tk.mnt_f6_cyc_sqr_plain(spec, c))):
+        rc, out = _mnt(libs, fn, spec, groups, tk.N6)
+        assert rc == 0
+        assert_equal(tk.unflatten6(out), plain)
+    assert_equal(tk.mnt_f6_cyc_sqr_plain(spec, c),
+                 tk.mnt_f6_sqr_plain(spec, c))
+
+    X, Y, Z, x2, y2 = [tuple(rand(spec, 90 + 3 * k + j) for j in range(3))
+                       for k in range(5)]
+    xP, yP = rand(spec, 120), rand(spec, 121)
+    for comp in Z:                            # lanes 4..7: Z = 0
+        comp[:, 4:8] = 0
+    sl = slice(8, 12)                         # lanes 8..11: x2 = X/Z
+
+    def vals(p):
+        return [spec.from_mont(v) for v in limbs_to_ints(fp.to_numpy(p[:, sl]))]
+
+    xz = [m.F3.mul(u, m.F3.inv(z)) for u, z in zip(
+        zip(*(vals(p) for p in X)), zip(*(vals(p) for p in Z)))]
+    for k in range(3):
+        x2[k][:, sl] = fp.planes(ints_to_limbs_fast(
+            [spec.to_mont(v[k]) for v in xz], spec.n_limbs), "cpu")
+    plains = (tk.mnt_miller_dbl_plain(spec, X, Y, Z, xP, yP),
+              tk.mnt_miller_add_plain(spec, X, Y, Z, x2, y2, xP, yP))
+    groups = ([[*X, *Y, *Z], [xP, yP]], [[*X, *Y, *Z], [*x2, *y2], [xP, yP]])
+    for fn, g, plain in zip(cuda_lib.KERNELS["K14"][1], groups, plains):
+        rc, out = _mnt(libs, fn, spec, g, tk.N15)
+        assert rc == 0
+        (a0, bb), Xn, Yn, Zn = plain
+        assert_equal(tuple(out), (*a0, *bb, *Xn, *Yn, *Zn))
+    assert all(int(p[:, sl].abs().sum()) == 0 for p in plains[1][0][0])
+    x = rand(spec, 130)
+    assert call(libs, "k3_butterfly", spec, (x, rand(spec, 131, 4),
+                                             torch.empty_like(x)), (4,)) == 1
+    with pytest.raises(RuntimeError, match="no kernel build for 48 limbs"):
+        cuda_lib.launch("k8_f12_mul", spec, (x, x, x), (N, 9, 1))
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py without a card
+# ---------------------------------------------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+class _Event:
+    def __init__(self, **_):
+        self.t = 0.0
+
+    def record(self):
+        import time
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def rehearse(mp, libs, **sizes):
+    """Patch the process so chip_smoke.py runs on the host libraries: every
+    tensor claims to lie on the card (so each wrapper launches its kernel),
+    every launch goes to the host build of its library, the default device
+    is the CPU, and the card's queries answer for a stand-in.  `sizes`
+    overrides chip_smoke's module constants.  Returns the module."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from wasmsnark_tpu_torch.groth16 import prover, setup, verifier
+    from wasmsnark_tpu_torch.models import mnt6753_device, mnt6753_runtime
+    from wasmsnark_tpu_torch.ops import pairing
+
+    def cpu(device=None):
+        return torch.device("cpu")
+
+    for mod in (fp, pairing, prover, setup, verifier, mnt6753_device,
+                mnt6753_runtime):
+        if hasattr(mod, "resolve_device"):
+            mp.setattr(mod, "resolve_device", cpu)
+    mp.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    mp.setattr(cuda_lib, "_libs", dict(libs))
+    mp.setattr(torch.cuda, "current_stream",
+               lambda *a, **k: type("S", (), {"cuda_stream": None})())
+    mp.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    mp.setattr(torch.cuda, "_sleep", lambda *a, **k: None)
+    mp.setattr(torch.cuda, "Event", _Event)
+    mp.setattr(torch.cuda, "is_available", lambda: True)
+    mp.setattr(torch.cuda, "get_device_name", lambda *a: "host rehearsal")
+    mp.setattr(torch.cuda, "device_count", lambda: 1)
+    for name, v in sizes.items():
+        mp.setattr(chip_smoke, name, v)
+    return chip_smoke
+
+
+def test_chip_smoke_mnt_kernel_phase_rehearsal(libs, monkeypatch):
+    """chip_smoke.py's MNT6753 kernel phase (K1, K2 at 24 words, K12-K14)
+    on 128 lanes of the host libraries: every row bit-equal to its plain
+    version, with the rows' bounds and launch bookkeeping."""
+    smoke = rehearse(monkeypatch, libs, N_LANES=128)
+    rng = np.random.default_rng(smoke.SEED)
+    rows = []
+
+    def record(kid, name, source, line, fn_k, fn_p, nbytes, ops, reps=50,
+               fns=None):
+        bad, err = smoke.mismatch(fn_k(), fn_p())
+        rows.append((kid, name, bad, err, smoke.bound(nbytes, ops)))
+
+    spec = mnt6753().fp_spec
+
+    def rnd(s):
+        a = rng.integers(0, 1 << 16, size=(s.n_limbs, 128), dtype=np.uint32)
+        a[-1] = rng.integers(0, s.q_limbs[-1], size=128, dtype=np.uint32)
+        return fp.planes(a, "cpu")
+
+    cuda_lib.reset_launches()
+    smoke.check_mnt_kernels(rnd, record, 128)
+    assert [(r[0], r[1]) for r in rows] == [
+        ("K1", "mont_mul"), ("K2", "mod_add/mod_sub"), ("K12", "f6_mul"),
+        ("K12", "f6_sqr"), ("K13", "f6_cyc_sqr"), ("K14", "mnt_miller_dbl"),
+        ("K14", "mnt_miller_add")]
+    assert all(r[2] == 0 and r[3] == 0 for r in rows), rows
+    assert all(r[4][0] > 0 for r in rows)
+    assert rows[5][4][1] == "operations"          # K14 dbl: bound by ops
+    for kid in ("K1", "K2", "K12", "K13", "K14"):
+        assert cuda_lib.launches[kid] > 0, kid
+    assert all(cuda_lib.word_launches[(fn, 24)]
+               for fn in cuda_lib.KERNELS["K14"][1])
+    assert spec.n_limbs == 48
+
+
+if __name__ == "__main__":
+    # the whole of chip_smoke.py at small sizes on the host libraries
+    import sys
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp, \
+            pytest.MonkeyPatch.context() as mp:
+        host = build_host_libs(tmp)
+        smoke = rehearse(mp, host, N_LANES=256, LOG_2N=5, N_VERIFY=16,
+                         N_MNT=4, DEVICE="cpu")
+        mp.setattr(smoke.subprocess, "run", lambda *a, **k: type(
+            "R", (), {"stdout": "host rehearsal, 0 W"})())
+        mp.setattr(smoke, "ptxas_summary", lambda d: {})
+        sys.exit(smoke.main())

@@ -96,7 +96,7 @@ def test_wrappers_on_cpu_tensors_launch_nothing():
     assert all(v == 0 for v in cuda_lib.fn_launches.values())
     assert all(v == 0 for v in cuda_lib.word_launches.values())
     assert sorted(cuda_lib.launches, key=lambda k: int(k[1:])) == \
-        [f"K{i}" for i in range(1, 12)]
+        [f"K{i}" for i in range(1, 15)]
 
 
 def test_entry_points_need_a_card_unless_told_cpu():
@@ -151,25 +151,82 @@ def test_bls_modules_import_no_jax(rel):
 
 def test_k11_entry_points_and_per_word_libraries():
     """K11 is registered beside K1-K10; every source builds once per word
-    count, and a field of another width is refused before any build."""
+    count its kernels serve (the field kernels at 8, 12 and 24, the curve
+    and F12 tower kernels at 8 and 12, the MNT6753 kernels at 24 only), and
+    a field of another width is refused before any build."""
     from wasmsnark_tpu_torch.ops import cuda_lib
     from wasmsnark_tpu_torch.fields.spec import FieldSpec
     assert cuda_lib.KERNELS["K11"] == (
         "tower_kernels", ("k11_miller_dbl_mtwist", "k11_miller_add_mtwist"))
     assert cuda_lib._SIGNATURES["k11_miller_dbl_mtwist"] == (3, 3)
     assert cuda_lib._SIGNATURES["k11_miller_add_mtwist"] == (4, 3)
-    assert cuda_lib.WORDS == (8, 12)
+    assert cuda_lib.WORDS == (8, 12, 24)
+    assert {lib: ws for lib, (_, ws) in cuda_lib.SOURCES.items()} == {
+        "fp_kernels": (8, 12, 24), "curve_kernels": (8, 12),
+        "tower_kernels": (8, 12), "mnt_kernels": (24,)}
     assert sorted(cuda_lib.libraries()) == sorted(
-        f"{name}_w{w}" for name in cuda_lib.SOURCES for w in (8, 12))
+        [f"{name}_w{w}" for name in ("fp_kernels", "curve_kernels",
+                                     "tower_kernels") for w in (8, 12)]
+        + ["fp_kernels_w24", "mnt_kernels_w24"])
     text = (pathlib.Path(cuda_lib.CSRC) / "tower_kernels.cu").read_text()
     for fn in ("k11_miller_dbl_mtwist", "k11_miller_add_mtwist"):
         body = text[text.index(f"int {fn}("):]
         assert body.index("#if WORDS == 12") < body.index("}")
-    wide = FieldSpec((1 << 752) + 1155, "wide")    # 48 limbs: no build
+    wide = FieldSpec((1 << 1000) + 1, "wide")      # 64 limbs: no build
     x = torch.zeros((wide.n_limbs, 1), dtype=torch.int32)
-    with pytest.raises(RuntimeError, match="no kernel build for 48 limbs"):
+    with pytest.raises(RuntimeError, match="no kernel build for 64 limbs"):
         cuda_lib.launch("k1_mont_mul", wide, (x, x, x), (1,))
+    mnt = FieldSpec((1 << 752) + 1155, "mnt-width")  # 48 limbs
+    y = torch.zeros((mnt.n_limbs, 1), dtype=torch.int32)
+    for fn in ("k8_f12_mul", "k5_jac_madd"):       # no 24-word build
+        with pytest.raises(RuntimeError, match="no kernel build for 48"):
+            cuda_lib.launch(fn, mnt, (y, y, y), (1,))
     assert not cuda_lib._libs
+
+
+def test_mnt_entry_points_and_modules():
+    """K12-K14 are registered with their C signatures; build_mnt6753 and
+    the MNT6753 engines need a card unless told the CPU."""
+    from wasmsnark_tpu_torch.ops import cuda_lib
+    assert cuda_lib.KERNELS["K12"] == ("mnt_kernels",
+                                       ("k12_f6_mul", "k12_f6_sqr"))
+    assert cuda_lib.KERNELS["K13"] == ("mnt_kernels", ("k13_f6_cyc_sqr",))
+    assert cuda_lib.KERNELS["K14"] == (
+        "mnt_kernels", ("k14_mnt_miller_dbl", "k14_mnt_miller_add"))
+    if torch.cuda.is_available():
+        return
+    import wasmsnark_tpu_torch
+    from wasmsnark_tpu_torch.models.mnt6753_device import mnt6753_device
+    from wasmsnark_tpu_torch.ops.pairing import mnt6753_pairing_device
+    for make in (wasmsnark_tpu_torch.build_mnt6753, mnt6753_pairing_device,
+                 mnt6753_device):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    rt = wasmsnark_tpu_torch.build_mnt6753(device="cpu")
+    assert rt.device.type == "cpu" and rt._pd.fp.L == 48
+
+
+@pytest.mark.parametrize("rel", [
+    "models/mnt6753.py", "models/mnt6753_constants.py",
+    "models/mnt6753_device.py", "models/mnt6753_runtime.py",
+    "csrc/mnt_kernels.cu"])
+def test_mnt_modules_exist_and_import_no_jax(rel):
+    """The slice's new files exist; its Python modules import neither jax
+    nor the JAX package, and the constants are the JAX package's, byte for
+    byte."""
+    path = PORT / rel
+    assert path.exists()
+    if rel.endswith(".py"):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.ImportFrom) and node.level == 0:
+                assert (node.module or "").split(".")[0] not in (
+                    "jax", "jaxlib", "wasmsnark_tpu"), rel
+            if isinstance(node, ast.Import):
+                assert not {a.name.split(".")[0] for a in node.names} & {
+                    "jax", "jaxlib", "wasmsnark_tpu"}, rel
+    if rel == "models/mnt6753_constants.py":
+        assert path.read_bytes() == (
+            ROOT / "wasmsnark_tpu" / rel).read_bytes()
 
 
 def test_loader_builds_only_on_demand_and_matches_sources(tmp_path,
@@ -180,7 +237,7 @@ def test_loader_builds_only_on_demand_and_matches_sources(tmp_path,
     from wasmsnark_tpu_torch.ops import cuda_lib
     from wasmsnark_tpu_torch.models.bn128 import bn128
     assert set(cuda_lib.SOURCES) == {"fp_kernels", "curve_kernels",
-                                     "tower_kernels"}
+                                     "tower_kernels", "mnt_kernels"}
     assert {cuda_lib._ENTRY[fn][1] for fn in cuda_lib._SIGNATURES} == \
         set(cuda_lib.KERNELS)
     assert len(cuda_lib.source_hash()) == 16
@@ -191,7 +248,7 @@ def test_loader_builds_only_on_demand_and_matches_sources(tmp_path,
             cuda_lib.build()
         assert not cuda_lib._libs
     ctype = {"const void*": "p", "void*": "p", "long long": "q", "int": "i"}
-    for lib, src in cuda_lib.SOURCES.items():
+    for lib, (src, _) in cuda_lib.SOURCES.items():
         text = (pathlib.Path(cuda_lib.CSRC) / src).read_text()
         for fn, (n_ptr, n_int) in cuda_lib._SIGNATURES.items():
             if cuda_lib._ENTRY[fn][0] != lib:
@@ -211,12 +268,14 @@ def test_loader_builds_only_on_demand_and_matches_sources(tmp_path,
         assert q == spec.q and one == spec.one_mont
         assert (q * int(w[16]) + 1) % (1 << 32) == 0
     before = cuda_lib.source_hash()
-    for name in cuda_lib.HEADERS + tuple(cuda_lib.SOURCES.values()):
+    names = cuda_lib.HEADERS + tuple(src for src, _ in
+                                     cuda_lib.SOURCES.values())
+    for name in names:
         (tmp_path / name).write_bytes(
             (pathlib.Path(cuda_lib.CSRC) / name).read_bytes())
     monkeypatch.setattr(cuda_lib, "CSRC", str(tmp_path))
     assert cuda_lib.source_hash() == before
-    for name in cuda_lib.HEADERS + tuple(cuda_lib.SOURCES.values()):
+    for name in names:
         text = (tmp_path / name).read_bytes()
         (tmp_path / name).write_bytes(text + b"\n")
         assert cuda_lib.source_hash() != before, name

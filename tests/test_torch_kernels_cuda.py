@@ -1,6 +1,7 @@
-"""The CUDA kernels K1-K11 against their plain versions on the card: K1-K10
-at BN128's 8 words, K1-K3 over BLS12-381's Fr (8 words), and K1, K2,
-K4-K9 and K11 over BLS12-381's Fq (12 words).
+"""The CUDA kernels K1-K14 against their plain versions on the card: K1-K10
+at BN128's 8 words, K1-K3 over BLS12-381's Fr (8 words), K1, K2, K4-K9
+and K11 over BLS12-381's Fq (12 words), and K1, K2, K4 and K12-K14 over
+MNT6753's Fq (24 words).
 
 Marked `cuda`: they need an NVIDIA card and nvcc, and skip elsewhere.  On
 the card, where jax is not installed and tests/conftest.py would import
@@ -13,6 +14,7 @@ import torch
 
 from wasmsnark_tpu_torch.models.bls12381 import bls12381
 from wasmsnark_tpu_torch.models.bn128 import bn128
+from wasmsnark_tpu_torch.models.mnt6753 import mnt6753
 from wasmsnark_tpu_torch.ops import cuda_lib, curve, fp, ntt, towers
 from wasmsnark_tpu_torch.ops import tower_kernels as tk
 
@@ -38,10 +40,11 @@ def _rand(spec, n, seed, dev):
 
 SPECS = {"fp": lambda: bn128().fp_spec, "fr": lambda: bn128().fr_spec,
          "bls_fq": lambda: bls12381().fp_spec,
-         "bls_fr": lambda: bls12381().fr_spec}
+         "bls_fr": lambda: bls12381().fr_spec,
+         "mnt_fq": lambda: mnt6753().fp_spec}
 
 
-@pytest.mark.parametrize("which", ["fp", "fr", "bls_fq", "bls_fr"])
+@pytest.mark.parametrize("which", ["fp", "fr", "bls_fq", "bls_fr", "mnt_fq"])
 def test_field_kernels_match_plain(dev, which):
     spec = SPECS[which]()
     x, y = _rand(spec, 4099, 1, dev), _rand(spec, 4099, 2, dev)
@@ -53,7 +56,7 @@ def test_field_kernels_match_plain(dev, which):
     if spec.n_limbs == 16:
         assert torch.equal(ntt.butterfly(spec, x[:, :4096], tw),
                            ntt.butterfly_plain(spec, x[:, :4096], tw))
-    else:                       # K3 has no 12-word build: the CUDA error
+    else:                       # K3 has no 12- or 24-word build
         with pytest.raises(RuntimeError, match="CUDA error"):
             ntt.butterfly(spec, x[:, :4096], tw)
     f = torch.arange(4099, device=dev) % 3 == 0
@@ -117,3 +120,28 @@ def test_tower_kernels_match_plain(dev, which):
                                              xi))
     with pytest.raises(RuntimeError, match="CUDA error"):
         tk.miller_dbl(spec, X, Y, Z, xP, yP)       # K10 has no 12-word build
+
+
+def test_mnt_kernels_match_plain(dev):
+    """K12-K14 at 24 words, with Z = 0 lanes; the 8/12-word tower kernels
+    have no 24-word build and are refused before any launch."""
+    spec = SPECS["mnt_fq"]()
+    n = 333
+    a = tk.unflatten6([_rand(spec, n, s, dev) for s in range(50, 56)])
+    b = tk.unflatten6([_rand(spec, n, s, dev) for s in range(56, 62)])
+    _assert_equal(tk.mnt_f6_mul(spec, a, b), tk.mnt_f6_mul_plain(spec, a, b))
+    _assert_equal(tk.mnt_f6_sqr(spec, a), tk.mnt_f6_sqr_plain(spec, a))
+    _assert_equal(tk.mnt_f6_cyc_sqr(spec, a),
+                  tk.mnt_f6_cyc_sqr_plain(spec, a))
+    X, Y, Z, x2, y2 = [tuple(_rand(spec, n, s + j, dev) for j in range(3))
+                       for s in (70, 73, 76, 79, 82)]
+    xP, yP = _rand(spec, n, 85, dev), _rand(spec, n, 86, dev)
+    for c in Z:
+        c[:, 5:9] = 0
+    _assert_equal(tk.mnt_miller_dbl(spec, X, Y, Z, xP, yP),
+                  tk.mnt_miller_dbl_plain(spec, X, Y, Z, xP, yP))
+    _assert_equal(tk.mnt_miller_add(spec, X, Y, Z, x2, y2, xP, yP),
+                  tk.mnt_miller_add_plain(spec, X, Y, Z, x2, y2, xP, yP))
+    f12 = tk.unflatten12([a[0][0]] * 12)
+    with pytest.raises(RuntimeError, match="no kernel build for 48 limbs"):
+        tk.f12_mul(spec, f12, f12)

@@ -6,10 +6,17 @@
                                       build_bn128(device="cpu")
     await buildBls12381()             build_bls12381()       (CUDA card)
                                       build_bls12381(device="cpu")
+    await buildMnt6753()              build_mnt6753()        (CUDA card)
+                                      build_mnt6753(device="cpu")
     bn128.groth16GenProof(w, pk)      rt.groth16_gen_proof(witness, pkey)
     bn128.groth16Verify(vk, in, prf)  rt.groth16_verify(vk, inputs, proof)
                                       rt.groth16_verify_batch(vk, inputs_list,
                                                               proofs)
+    mnt6753.verify(vk, in, prf)       rt.verify(vk, inputs, proof)
+    mnt6753.verifyFused(vk, in, prf)  rt.verify_fused(vk, inputs, proof)
+    mnt6753.verifySync(vk, in, prf)   rt.verify_sync(vk, inputs, proof)
+                                      rt.bowe_gabizon_verify_batch(
+                                          vk, inputs_list, proofs)
 """
 
 from __future__ import annotations
@@ -28,3 +35,10 @@ def build_bls12381(device=None):
     module."""
     from .groth16.runtime import Bls12381Runtime
     return Bls12381Runtime(device)
+
+
+def build_mnt6753(device=None):
+    """MNT6753 Bowe-Gabizon verifier runtime on `device` (default: the CUDA
+    card; raises where there is none)."""
+    from .models.mnt6753_runtime import Mnt6753Runtime
+    return Mnt6753Runtime(device)

@@ -4,9 +4,12 @@
 numpy limb planes and sparse LC tables) by duck typing — this module
 imports nothing of that package — and returns the port's ProvingKey, so
 both packages prove from the same state.  `tower_from_numpy` and
-`tower_to_numpy` carry tower state (F2 and F12 elements, prepared-
-coefficient trees with a step axis) between the JAX package's uint32
-planes and the port's int32 tensors.
+`tower_to_numpy` carry tower state between the JAX package's uint32
+planes and the port's int32 tensors: F2, F6 and F12 elements,
+prepared-coefficient trees with a step axis (such as MNT6753's
+[S, L, *B] (c_y, c_x, c_0) stacks), and the MNT6753 Pedersen window
+tables (Mnt6753Device._window_tables, a (tx, ty) pair of [L, n_win, 4]
+planes, the layout of the port's models/mnt6753_device.py).
 """
 
 from __future__ import annotations

@@ -17,9 +17,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-// Every library is built once per word count N, given as -DWORDS=N: 8 for
-// the 16-limb fields (BN128 Fp and Fr, BLS12-381 Fr), 12 for BLS12-381's
-// 24-limb Fq.  An entry point refuses any other limb count.
+// Every library is built once per word count N that its kernels serve,
+// given as -DWORDS=N: 8 for the 16-limb fields (BN128 Fp and Fr, BLS12-381
+// Fr), 12 for BLS12-381's 24-limb Fq, 24 for MNT6753's 48-limb Fq.  An
+// entry point refuses any other limb count.
 #ifndef WORDS
 #error "build with -DWORDS=<32-bit words per field element>"
 #endif
@@ -165,14 +166,22 @@ __device__ __forceinline__ Fe<N> cneg(const Field<N>& f, bool flag,
 
 // CIOS Montgomery product a * b * 2^(-32N) mod q.  The accumulator t has
 // N + 2 words; with q < 2^(32N - 2) the result before the final subtract
-// is < 2q, so one conditional subtract makes it canonical.
+// is < 2q, so one conditional subtract makes it canonical.  Both loops are
+// unrolled, unless a source defines FP_CIOS_ROLLED: then the outer loop
+// over b's words stays rolled (mnt_kernels.cu, whose build it shortens).  Every field of
+// the port meets the bound: BN128 (254 bits < 2^254 at N = 8), BLS12-381
+// Fq (381 < 2^382 at N = 12), MNT6753 Fq (753 < 2^766 at N = 24).
 template <int N>
 __device__ __forceinline__ Fe<N> mont_mul(const Field<N>& f, const Fe<N>& a,
                                           const Fe<N>& b) {
   uint32_t t[N + 2];
 #pragma unroll
   for (int k = 0; k < N + 2; ++k) t[k] = 0;
+#ifdef FP_CIOS_ROLLED
+#pragma unroll 1
+#else
 #pragma unroll
+#endif
   for (int i = 0; i < N; ++i) {
     uint64_t c = 0;
 #pragma unroll
@@ -202,6 +211,32 @@ __device__ __forceinline__ Fe<N> mont_mul(const Field<N>& f, const Fe<N>& a,
 #pragma unroll
   for (int k = 0; k < N; ++k) r.w[k] = t[k];
   return cond_sub_q(f, r);
+}
+
+// a * k for a small k >= 0 by double-and-add.
+template <int N>
+__device__ __forceinline__ Fe<N> mul_small(const Field<N>& f, Fe<N> a, int k) {
+  Fe<N> r = fe_zero<N>();
+  for (; k; k >>= 1) {
+    if (k & 1) r = add(f, r, a);
+    if (k > 1) a = add(f, a, a);
+  }
+  return r;
+}
+
+// Component c of a stacked [k, L, n] operand (the tower and Miller-step
+// kernels): lane i of limb plane j of component c sits at
+// p[(c * L + j) * n + i].
+template <int N>
+__device__ __forceinline__ Fe<N> ld(const uint32_t* __restrict__ p, int c,
+                                    int64_t n, int64_t i) {
+  return load_fe<N>(p + (int64_t)c * 2 * N * n, n, i);
+}
+
+template <int N>
+__device__ __forceinline__ void st(uint32_t* __restrict__ p, int c, int64_t n,
+                                   int64_t i, const Fe<N>& a) {
+  store_fe<N>(p + (int64_t)c * 2 * N * n, n, i, a);
 }
 
 // Grid-stride lane loop used by every kernel.

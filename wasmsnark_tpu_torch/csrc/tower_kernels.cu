@@ -66,19 +66,6 @@ struct F6 {
   F2<N> c0, c1, c2;
 };
 
-// -- base field helpers -------------------------------------------------------
-
-// a * k for a small k >= 0 by double-and-add.
-template <int N>
-__device__ __forceinline__ Fe<N> mul_small(const Field<N>& f, Fe<N> a, int k) {
-  Fe<N> r = fe_zero<N>();
-  for (; k; k >>= 1) {
-    if (k & 1) r = add(f, r, a);
-    if (k > 1) a = add(f, a, a);
-  }
-  return r;
-}
-
 // -- F2 -------------------------------------------------------------------------
 
 template <int N>
@@ -173,18 +160,6 @@ __device__ __noinline__ F6<N> f6_mul(const Field<N>& f, Xi xi, const F6<N>& a,
 }
 
 // -- device memory ---------------------------------------------------------------
-
-template <int N>
-__device__ __forceinline__ Fe<N> ld(const uint32_t* __restrict__ p, int c,
-                                    int64_t n, int64_t i) {
-  return load_fe<N>(p + (int64_t)c * 2 * N * n, n, i);
-}
-
-template <int N>
-__device__ __forceinline__ void st(uint32_t* __restrict__ p, int c, int64_t n,
-                                   int64_t i, const Fe<N>& a) {
-  store_fe<N>(p + (int64_t)c * 2 * N * n, n, i, a);
-}
 
 template <int N>
 __device__ __forceinline__ F2<N> ld2(const uint32_t* __restrict__ p, int c,

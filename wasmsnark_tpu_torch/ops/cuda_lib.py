@@ -1,11 +1,12 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources live in `wasmsnark_tpu_torch/csrc/`.  Each `.cu` file is
-compiled once per word count N in `WORDS` (8: BN128 Fp/Fr and BLS12-381
-Fr; 12: BLS12-381 Fq), by one `nvcc -DWORDS=N` call into a shared library
-`lib<name>_w<N>.so` with a plain C interface (no PyTorch headers, no
-ninja), into `wasmsnark_tpu_torch/_build/<hash>/`, where <hash> covers
-every source and the flags.  The libraries are built at first use, all in
+compiled once per word count N that its kernels serve (`SOURCES`: 8 for
+BN128 Fp/Fr and BLS12-381 Fr, 12 for BLS12-381 Fq, 24 for MNT6753 Fq), by
+one `nvcc -DWORDS=N` call into a shared library `lib<name>_w<N>.so` with a
+plain C interface (no PyTorch headers, no ninja), into
+`wasmsnark_tpu_torch/_build/<hash>/`, where <hash> covers every source,
+the word counts and the flags.  The libraries are built at first use, all in
 parallel, and loaded with ctypes.  Nothing here runs at import time: the
 CPU tests import every module on a machine with no `nvcc` and no card.
 
@@ -32,12 +33,17 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_HERE), "_build")
 
-# library name -> source file; fp.cuh is shared by all
-SOURCES = {"fp_kernels": "fp_kernels.cu", "curve_kernels": "curve_kernels.cu",
-           "tower_kernels": "tower_kernels.cu"}
+# library name -> (source file, 32-bit words per field element it is built
+# for); fp.cuh is shared by all.  Only the field kernels serve MNT6753's
+# 24-word Fq besides its own tower and Miller-step kernels, so nothing else
+# is compiled at 24 words.
+SOURCES = {"fp_kernels": ("fp_kernels.cu", (8, 12, 24)),
+           "curve_kernels": ("curve_kernels.cu", (8, 12)),
+           "tower_kernels": ("tower_kernels.cu", (8, 12)),
+           "mnt_kernels": ("mnt_kernels.cu", (24,))}
 HEADERS = ("fp.cuh",)
-# 32-bit words per field element that the libraries are built for
-WORDS = (8, 12)
+# every word count some library is built for
+WORDS = tuple(sorted({w for _, ws in SOURCES.values() for w in ws}))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -55,6 +61,9 @@ KERNELS = {
     "K10": ("tower_kernels", ("k10_miller_dbl", "k10_miller_add")),
     "K11": ("tower_kernels", ("k11_miller_dbl_mtwist",
                               "k11_miller_add_mtwist")),
+    "K12": ("mnt_kernels", ("k12_f6_mul", "k12_f6_sqr")),
+    "K13": ("mnt_kernels", ("k13_f6_cyc_sqr",)),
+    "K14": ("mnt_kernels", ("k14_mnt_miller_dbl", "k14_mnt_miller_add")),
 }
 _ENTRY = {fn: (lib, kid) for kid, (lib, fns) in KERNELS.items() for fn in fns}
 
@@ -67,13 +76,16 @@ _SIGNATURES = {
     "k8_f12_mul": (3, 3), "k8_f12_sqr": (2, 3), "k9_f12_cyc_sqr": (2, 3),
     "k10_miller_dbl": (3, 1), "k10_miller_add": (4, 1),
     "k11_miller_dbl_mtwist": (3, 3), "k11_miller_add_mtwist": (4, 3),
+    "k12_f6_mul": (3, 1), "k12_f6_sqr": (2, 1), "k13_f6_cyc_sqr": (2, 1),
+    "k14_mnt_miller_dbl": (3, 1), "k14_mnt_miller_add": (4, 1),
 }
 
 # launches per kernel id, per C entry point, and per (entry point, word
 # count) since the last reset_launches()
 launches = dict.fromkeys(KERNELS, 0)
 fn_launches = dict.fromkeys(_ENTRY, 0)
-word_launches = {(fn, w): 0 for fn in _ENTRY for w in WORDS}
+word_launches = {(fn, w): 0 for fn, (lib, _) in _ENTRY.items()
+                 for w in SOURCES[lib][1]}
 # seconds each library took to build in this process (library -> s)
 build_seconds: dict = {}
 
@@ -89,8 +101,8 @@ def reset_launches():
 
 def libraries() -> dict:
     """Library name (`<source>_w<N>`) -> (source file, N)."""
-    return {f"{name}_w{w}": (src, w) for name, src in SOURCES.items()
-            for w in WORDS}
+    return {f"{name}_w{w}": (src, w) for name, (src, ws) in SOURCES.items()
+            for w in ws}
 
 
 def _nvcc() -> str:
@@ -104,8 +116,8 @@ def _nvcc() -> str:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(WORDS).encode())
-    for name in sorted(HEADERS + tuple(SOURCES.values())):
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(SOURCES).encode())
+    for name in sorted(HEADERS + tuple(src for src, _ in SOURCES.values())):
         with open(os.path.join(CSRC, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
     return h.hexdigest()[:16]
@@ -192,9 +204,10 @@ def launch(fn: str, spec, tensors, ints):
 
     source, kid = _ENTRY[fn]
     w = spec.n_limbs // 2
-    if spec.n_limbs % 2 or w not in WORDS:
+    built = SOURCES[source][1]
+    if spec.n_limbs % 2 or w not in built:
         raise RuntimeError(f"{fn}: no kernel build for {spec.n_limbs} limbs "
-                           f"(built for {WORDS} 32-bit words)")
+                           f"({source} is built for {built} 32-bit words)")
     lib = f"{source}_w{w}"
     if lib not in _libs:
         build()

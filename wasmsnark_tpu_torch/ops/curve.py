@@ -1,15 +1,16 @@
-"""Branch-free batched Jacobian group law, PyTorch port of
-wasmsnark_tpu/ops/curve.py (JacobianDevice, map_leaf).
+"""Branch-free batched group laws, PyTorch port of wasmsnark_tpu/ops/curve.py
+(JacobianDevice for a = 0, ProjectiveDevice for a != 0, map_leaf).
 
 Points are (X, Y, Z) tuples of field elements (tower tuples compose); zero
 is any Z = 0, canonical (0, one, 0).  Every degenerate case (zero operands,
 P == Q, P == -Q) is resolved per lane with masked selects.
 
-For G1 (base field Fp) the three operations are fused kernels:
+For the Jacobian G1 (base field Fp) the three operations are fused kernels:
 K5 `jac_madd`, K6 `jac_add`, K7 `jac_double` (csrc/curve_kernels.cu).
 Their plain versions are the composed formulas below evaluated over
 `PlainFp`, pure PyTorch on any device.  G2 composes per-op over F2Device,
-as in the JAX package.
+and ProjectiveDevice (MNT6753 G1) over any field adapter, as in the JAX
+package, where neither has a kernel of its own.
 """
 
 from __future__ import annotations
@@ -164,6 +165,84 @@ class JacobianDevice:
         return (q[0],
                 F.select(zero, F.one_like(q[1]), q[1]),
                 F.select(zero, F.zero_like(q[0]), F.one_like(q[0])))
+
+
+class ProjectiveDevice:
+    """y^2 = x^3 + a x + b over any field adapter in projective coordinates
+    (the JAX package's ProjectiveDevice, build_curve_projective.js): `mul_a`
+    multiplies by a.  Zero is any Z = 0 (canonical (0, one, 0)); zero
+    operands, P == Q and P == -Q are resolved per lane with masked selects.
+    The formulas are the JAX package's, their independent products stacked
+    into one field call each; canonical outputs are unique, so the values
+    are its values."""
+
+    def __init__(self, field, mul_a):
+        self.F = field
+        self.mul_a = mul_a
+
+    def is_zero(self, p):
+        return self.F.is_zero(p[2])
+
+    def zero_like(self, p):
+        F = self.F
+        return (F.zero_like(p[0]), F.one_like(p[1]), F.zero_like(p[2]))
+
+    def select(self, mask, p, q):
+        F = self.F
+        return tuple(F.select(mask, a, b) for a, b in zip(p, q))
+
+    def neg(self, p):
+        return (p[0], self.F.neg(p[1]), p[2])
+
+    def _raw_double(self, p):
+        # build_curve_projective.js:202-288
+        F = self.F
+        X, Y, Z = p
+        XX, ZZ, YZ = unstack(F.mul(stack(X, Z, Y), stack(X, Z, Z)), 3)
+        w = F.add(self.mul_a(ZZ), F.add(F.add(XX, XX), XX))
+        s = F.add(YZ, YZ)
+        ss, R = unstack(F.mul(stack(s, Y), stack(s, s)), 2)
+        XR_ = F.add(X, R)
+        sss, RR, XR, ww = unstack(F.mul(stack(s, R, XR_, w),
+                                        stack(ss, R, XR_, w)), 4)
+        B = F.sub(F.sub(XR, XX), RR)
+        h = F.sub(ww, F.add(B, B))
+        X3, wBh = unstack(F.mul(stack(h, w), stack(s, F.sub(B, h))), 2)
+        return (X3, F.sub(wBh, F.add(RR, RR)), sss)
+
+    def double(self, p):
+        return self.select(self.is_zero(p), p, self._raw_double(p))
+
+    def add(self, p, q):
+        # add-1998-cmo-2 (build_curve_projective.js:291-408), complete
+        F = self.F
+        X1, Y1, Z1 = p
+        X2, Y2, Z2 = q
+        Y1Z2, Y2Z1, X1Z2, X2Z1, ZZ = unstack(F.mul(
+            stack(Y1, Y2, X1, X2, Z1), stack(Z2, Z1, Z2, Z1, Z2)), 5)
+        u, v = unstack(F.sub(stack(Y2Z1, X2Z1), stack(Y1Z2, X1Z2)), 2)
+        uu, vv = unstack(F.mul(stack(u, v), stack(u, v)), 2)
+        vvv, R, uuZZ = unstack(F.mul(stack(v, vv, uu),
+                                     stack(vv, X1Z2, ZZ)), 3)
+        A = F.sub(uuZZ, F.add(vvv, F.add(R, R)))
+        X3, uRA, vvvY, Z3 = unstack(F.mul(
+            stack(v, u, vvv, vvv), stack(A, F.sub(R, A), Y1Z2, ZZ)), 4)
+        gen = (X3, F.sub(uRA, vvvY), Z3)
+        v_zero, u_zero = F.is_zero(v), F.is_zero(u)
+        out = self.select(v_zero & u_zero, self._raw_double(p), gen)
+        out = self.select(v_zero & ~u_zero, self.zero_like(p), out)
+        out = self.select(self.is_zero(q), p, out)
+        return self.select(self.is_zero(p), q, out)
+
+    def sub(self, p, q):
+        return self.add(p, self.neg(q))
+
+    def eq(self, p, q):
+        F = self.F
+        ex = F.eq(F.mul(p[0], q[2]), F.mul(q[0], p[2]))
+        ey = F.eq(F.mul(p[1], q[2]), F.mul(q[1], p[2]))
+        pz, qz = self.is_zero(p), self.is_zero(q)
+        return (ex & ey & ~(pz ^ qz)) | (pz & qz)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,9 @@ package's uint32 planes): PyTorch's uint32 tensors lack the indexing and
 arithmetic that the glue code needs on both devices.  `planes()` and
 `to_numpy()` convert at the package boundary.
 
+`batch_inv` and `FpSqrt` (the Euler criterion and the uniform Tonelli-
+Shanks root of the JAX package) compose the field ops.
+
 Each kernel wrapper below (mont_mul = K1, mod_add / mod_sub = K2) launches
 its CUDA kernel on a CUDA tensor and runs its plain PyTorch version on a CPU
 tensor.  The plain versions compute in int64 with 16-bit limbs, exactly as
@@ -55,11 +58,25 @@ def to_numpy(t) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.uint32)
 
 
+def broadcast_shapes(*shapes) -> tuple:
+    """torch.broadcast_shapes for shapes of plain ints, without its
+    symbolic-shape machinery (a third of the plain path's host time at
+    small batches)."""
+    out = [1] * max(len(s) for s in shapes)
+    for s in shapes:
+        for i, d in enumerate(s, len(out) - len(s)):
+            if d != 1 and d != out[i]:
+                if out[i] != 1:
+                    raise ValueError(f"shapes {shapes} do not broadcast")
+                out[i] = d
+    return tuple(out)
+
+
 def lanes(L: int, *ts):
     """Broadcast [L, *B_i] planes to one batch shape, aligning the batch
     dims right of the limb axis (a constant [L, 1] against [L, G, B]), and
     flatten to contiguous [L, n].  Returns (flat tensors, batch shape)."""
-    bshape = torch.broadcast_shapes(*[t.shape[1:] for t in ts])
+    bshape = broadcast_shapes(*[t.shape[1:] for t in ts])
     out = []
     for t in ts:
         if t.shape[0] != L:
@@ -122,9 +139,18 @@ def _nprime_col(spec: FieldSpec, device):
 
 def _lookahead(g, p):
     """Carry (or borrow) chain over limbs from generate bits g and
-    propagate bits p (int64 0/1 rows [K, n], disjoint, K <= 61).
+    propagate bits p (int64 0/1 rows [K, n], disjoint).  Up to 61 limbs
+    pack into one int64 per lane; longer chains (the 96 limbs of a 48-limb
+    product) run in blocks, the carry out of one block entering the next
+    as the generate bit of a leading zero limb.
     Returns (carry into each limb [K, n], carry out of the top [n])."""
     K = g.shape[0]
+    if K > 61:
+        lo, cout = _lookahead(g[:60], p[:60])
+        z = torch.zeros_like(cout)[None]
+        hi, cout = _lookahead(torch.cat([cout[None], g[60:]]),
+                              torch.cat([z, p[60:]]))
+        return torch.cat([lo, hi[1:]]), cout
     shifts = _const64(("sh", K), g.device, lambda: torch.arange(
         K, dtype=torch.int64)[:, None])
     G = (g << shifts).sum(0)
@@ -163,20 +189,37 @@ def cond_sub_q_plain(spec: FieldSpec, x):
 
 def _columns(x, y):
     """Product columns of limb vectors x [L, n], y [L, n or 1]:
-    S[k] = sum_{i+j=k} x_i*y_j, [2L-1, n] int64 (a Toeplitz shear of the
-    outer product: pad rows to 2L, flatten, re-view with stride 2L-1)."""
+    S[k] = sum_{i+j=k} x_i*y_j, [2L-1, n] int64.  One float64 matrix
+    product against the sliding windows of y (an unfold of y padded by
+    L - 1 zeros each side): every term is below 2^32, so a column of L
+    terms stays below 2^53 and its float64 sum is exact in any order."""
     L = x.shape[0]
-    P = x[:, None] * y[None, :]                       # [L, L, n]
-    n = P.shape[2]
-    Ap = torch.cat([P, torch.zeros_like(P)], dim=1)   # [L, 2L, n]
-    D = Ap.reshape(2 * L * L, n)[:L * (2 * L - 1)].reshape(L, 2 * L - 1, n)
-    return D.sum(0)
+    w = torch.nn.functional.pad(y.t().double(), (L - 1, L - 1)).unfold(
+        1, L, 1)                                      # [n or 1, 2L-1, L]
+    xf = x.t().flip(1).double()                       # [n, L]
+    if y.shape[1] == 1:
+        T = xf @ w[0].t()
+    else:
+        T = torch.bmm(w, xf[:, :, None])[:, :, 0]
+    return T.long().t()
+
+
+# limb products per chunk of lanes in mont_mul_plain: its [n, 2L-1, L]
+# float64 windows are cut into pieces of at most ~8 GiB (at 2^16 lanes, a
+# stacked MNT6753 Miller step holds ~2.4M lanes of 48 limbs)
+_PLAIN_PRODUCTS = 1 << 29
 
 
 def mont_mul_plain(spec: FieldSpec, x, y):
     """x*y*R^-1 mod q on [L, n] planes (the value the JAX package's CIOS
     computes; canonical results are unique)."""
     L = spec.n_limbs
+    cap = max(1, _PLAIN_PRODUCTS // (L * L))
+    n = x.shape[1]
+    if n > cap:
+        return torch.cat([mont_mul_plain(
+            spec, x[:, k:k + cap], y if y.shape[1] == 1 else y[:, k:k + cap])
+            for k in range(0, n, cap)], dim=1)
     x = x.long()
     y = y.long()
     T = _columns(x, y)                                # [2L-1, n]
@@ -197,6 +240,23 @@ def mod_sub_plain(spec: FieldSpec, x, y):
     d, borrow = _sub_limbs(x.long(), y.long())
     d, _ = normalize_plain(d + borrow[None] * _q_col(spec, x.device))
     return d.to(DTYPE)
+
+
+def mul_small_plain(spec: FieldSpec, x, k: int):
+    """k x mod q for canonical [L, n] planes and a small static k >= 0 in
+    one pass: the limbs times k with one carry pass into a spare limb, then
+    conditional subtracts of q 2^j for j from bitlen(k) - 1 down (the value
+    of a chain of k - 1 modular adds)."""
+    L = spec.n_limbs
+    x = x.long()
+    v, _ = normalize_plain(torch.cat([x * k, torch.zeros_like(x[:1])]))
+    for j in range(max(k.bit_length(), 1) - 1, -1, -1):
+        qj = _const64(("qj", spec.q, j), x.device, lambda: torch.tensor(
+            [((spec.q << j) >> (LIMB_BITS * i)) & LIMB_MASK
+             for i in range(L + 1)], dtype=torch.int64)[:, None])
+        d, borrow = _sub_limbs(v, qj)
+        v = torch.where(borrow.bool()[None], v, d)
+    return v[:L].to(DTYPE)
 
 
 # ---------------------------------------------------------------------------
@@ -352,11 +412,79 @@ class FpDevice:
         """Batched inversion via Fermat, x^(q-2); 0 maps to 0."""
         return self.mont_pow_const(x, self.spec.q - 2)
 
+    def batch_inv(self, xs):
+        """Simultaneous inversion (Montgomery's trick, the JAX package's
+        batch_inv): same-shape Montgomery elements inverted with one Fermat
+        ladder and 3(K - 1) products.  Zero inputs invert to zero; a masked
+        substitution by one keeps them out of the shared product chain.
+        Returns the list of inverses."""
+        xs = list(xs)
+        if len(xs) == 1:
+            return [self.mont_inv(xs[0])]
+        one = self.one_mont(*xs[0].shape[1:])
+        zmask = [self.is_zero(x) for x in xs]
+        safe = [self.select(m, one, x) for m, x in zip(zmask, xs)]
+        pref = [safe[0]]
+        for x in safe[1:]:
+            pref.append(self.mont_mul(pref[-1], x))
+        u = self.mont_inv(pref[-1])
+        out = [None] * len(xs)
+        for i in range(len(xs) - 1, 0, -1):
+            out[i] = self.mont_mul(u, pref[i - 1])
+            u = self.mont_mul(u, safe[i])
+        out[0] = u
+        return [self.select(m, torch.zeros_like(o), o)
+                for m, o in zip(zmask, out)]
+
     # -- constants ----------------------------------------------------------------
 
     def one_mont(self, *batch):
         return self.one_mont_t.reshape(
             (self.L,) + (1,) * len(batch)).expand((self.L,) + tuple(batch))
+
+
+class FpSqrt:
+    """Batched Euler criterion and Tonelli-Shanks square root (the JAX
+    package's FpSqrt, f1m_isSquare / f1m_sqrt parity): the data-dependent
+    loop of the reference becomes a fixed ladder of s - 1 rounds with
+    per-lane masked updates, round i squaring i times.  The root is
+    normalised to an even canonical value, and sqrt(0) = 0."""
+
+    def __init__(self, fp: FpDevice):
+        self.fp = fp
+        s, t, z, _ = fp.spec._tonelli
+        self.s, self.t = s, t
+        self.c0 = fp.pack_mont([z])             # nqr^t, [L, 1]
+
+    def is_square(self, x):
+        """Euler criterion on Montgomery-form x -> bool [*B] (0 counts as a
+        square)."""
+        F = self.fp
+        p = F.mont_pow_const(x, (F.spec.q - 1) // 2)
+        return F.eq(p, F.one_mont(*x.shape[1:])) | F.is_zero(x)
+
+    def sqrt(self, x):
+        """A square root of Montgomery-form x where is_square holds (other
+        lanes hold garbage; callers mask), Montgomery form."""
+        F = self.fp
+        # one ladder for both seeds (t odd): u = x^((t-1)/2), r = u x =
+        # x^((t+1)/2), b = r u = x^t
+        u = F.mont_pow_const(x, (self.t - 1) // 2)
+        r = F.mont_mul(u, x)
+        b = F.mont_mul(r, u)
+        c = self.c0.reshape((F.L,) + (1,) * (x.dim() - 1)).expand(x.shape)
+        one = F.one_mont(*x.shape[1:])
+        for i in range(self.s - 2, -1, -1):
+            d = b
+            for _ in range(i):
+                d = F.mont_sqr(d)
+            not_one = ~F.eq(d, one)
+            r = F.select(not_one, F.mont_mul(r, c), r)
+            c = F.mont_sqr(c)
+            b = F.select(not_one, F.mont_mul(b, c), b)
+        odd = (F.from_mont(r)[0] & 1) != 0
+        r = F.select(odd, F.neg(r), r)
+        return F.select(F.is_zero(x), x, r)
 
 
 class PlainFp(FpDevice):

@@ -1,5 +1,5 @@
-"""BN128 and BLS12-381 optimal-ate pairings on the device, batched over
-pairing pairs — PyTorch port of the BN128 and BLS12-381 parts of
+"""BN128 and BLS12-381 optimal-ate pairings and the MNT6753 ate pairing on
+the device, batched over pairing pairs — PyTorch port of
 wasmsnark_tpu/ops/pairing.py.
 
 The pairs axis is a batch axis: all Miller loops of a pairing-product
@@ -18,14 +18,20 @@ server).  The algorithm is the JAX package's, value for value:
   squaring;
 * BLS12-381: a negative loop (the Miller value is conjugated after it), no
   correction steps, and the exact hard part (q^4 - q^2 + 1)/r by a 4-bit
-  window ladder under cyclotomic squaring.
+  window ladder under cyclotomic squaring;
+* MNT6753: F6 = F3[w] over the 753-bit field, homogeneous F3 twist
+  coordinates on the a != 0 twist, a sparse line a0 + b w, a positive loop
+  without correction steps, and the final exponentiation
+  (q^3 - 1)(q + 1)(q + w0) with w0 by the same window ladder.
 
 The ladders are static, so where the JAX package scans, this module runs
 Python loops over the same schedules.  The heavy steps are the fused
 kernels of ops/tower_kernels.py — K8 (`_f12_mul`, `_f12_sqr`), K9
 (`cyclotomic_square`), K10 / K11 (`_dbl_step`, `_add_step` of BN128 /
-BLS12-381) — which run their CUDA kernels on the card and their plain
-versions on the CPU: the tensor's device decides.  Everything else
+BLS12-381), and for MNT6753 K12 (`_f6_mul`, `_f6_sqr`), K13
+(`cyclotomic_square`) and K14 (`_dbl_step`, `_add_step`) — which run their
+CUDA kernels on the card and their plain versions on the CPU: the tensor's
+device decides.  Everything else
 composes the towers of ops/towers.py over the K1/K2 field kernels.
 """
 
@@ -37,9 +43,9 @@ import numpy as np
 import torch
 
 from . import tower_kernels as tk
-from .curve import map_leaf
+from .curve import map_leaf, map_leaf2
 from .fp import FpDevice, resolve_device
-from .towers import FpAdapter, f12_towers
+from .towers import FpAdapter, f12_towers, mnt_towers, stack, unstack
 
 # the Miller-step formulas live with their kernel's plain versions
 _g2_dbl_coefs = tk.g2_dbl_coefs
@@ -553,6 +559,248 @@ class Bls12381PairingDevice(_PairingEngine):
         return self._exp_cyc_window(self._easy_part(f), self._hard_exp, w=4)
 
 
+class Mnt6753PairingDevice:
+    """Device pairing engine for MNT6753 on one torch device (JAX
+    pairing.py Mnt6753PairingDevice), over the 753-bit field (48 limbs).
+
+    An inversion-free Miller loop on homogeneous F3 twist coordinates whose
+    line values are scaled by F3 factors (killed by the q^3 - 1 factor of
+    the final exponentiation); the line is sparse in F6 = F3[w], a0 + b w,
+    the shape of the reference's EV_at_P pair (build_mnt6753.js:694-802).
+    Positive ate loop, no correction steps; the final exponentiation is
+    (q^3 - 1)(q + 1)(q + w0), easy part conj(f) f^-1 times its Frobenius,
+    hard part frob(t) t^w0 with w0 under a 4-bit window ladder of
+    cyclotomic squarings (static digits, as the BLS12-381 engine's)."""
+
+    def __init__(self, device=None):
+        from ..models.mnt6753 import (
+            mnt6753, Q, ATE_LOOP_COUNT, FINAL_EXP_W0, NR)
+
+        self.m = mnt6753()
+        self.fp = FpDevice(self.m.fp_spec, device)
+        self.device = self.fp.device
+        self.base = FpAdapter(self.fp)
+        self.F3d, self.F6d, self.mulv = mnt_towers(self.base, NR)
+        self.loop_bits = _PairingEngine._bits(ATE_LOOP_COUNT)
+        self._w0 = FINAL_EXP_W0
+        # F6-over-Fp Frobenius: component k (power of nr^(1/6), k = (0, 2,
+        # 4, 1, 3, 5) across (a0, a1, a2, b0, b1, b2)) picks up the Fp
+        # scalar nr^(k (q - 1)/6) (build_mnt6753.js:1008-1070); entry k-1
+        # of the tuple is nr^(k (q - 1)/6)
+        e1 = (Q - 1) // 6
+        self._frob_fp = tuple(self.fp.pack_mont([pow(NR, k * e1, Q)])
+                              for k in range(1, 6))
+        # prepared line coefficients of a verification key's fixed G2
+        # points (G2gen, delta), filled by models/mnt6753_runtime.py
+        self.vk_prep_cache: dict = {}
+
+    # -- marshalling ----------------------------------------------------------
+
+    def pack_g1(self, points):
+        """list of oracle-affine (x, y) -> (xP, yP) planes [L, B]."""
+        return (self.fp.pack_mont([p[0] for p in points]),
+                self.fp.pack_mont([p[1] for p in points]))
+
+    def pack_g2(self, points):
+        """list of affine F3 points ((x0, x1, x2), (y0, y1, y2)), or of
+        canonical F6 values ((a0, a1, a2), (b0, b1, b2)) -> Montgomery plane
+        tuples, leaves [L, N]."""
+        def comp(i, j):
+            return self.fp.pack_mont([p[i][j] for p in points])
+        return (tuple(comp(0, j) for j in range(3)),
+                tuple(comp(1, j) for j in range(3)))
+
+    pack_f6 = pack_g2              # an F6 value has an F3 point's layout
+
+    def unpack_f6(self, el):
+        """F6 element -> list over lanes of oracle nested tuples."""
+        L = self.fp.L
+        flat = [self.fp.unpack_mont(c.reshape(L, -1))
+                for c in (*el[0], *el[1])]
+        return [((flat[0][b], flat[1][b], flat[2][b]),
+                 (flat[3][b], flat[4][b], flat[5][b]))
+                for b in range(len(flat[0]))]
+
+    def _f6_one(self, like):
+        F = self.base
+        one, z = F.one_like(like), F.zero_like(like)
+        return ((one, z, z), (z, z, z))
+
+    def is_eq_planes(self, el, expected):
+        """Batched F6 equality against per-lane expected Montgomery planes
+        of the same shapes -> bool [*B]."""
+        m = None
+        for got, exp in zip((*el[0], *el[1]), (*expected[0], *expected[1])):
+            e = self.base.eq(got, exp)
+            m = e if m is None else (m & e)
+        return m
+
+    def _bc(self, c, el):
+        """A packed [L, 1] constant broadcast to the shape of el's leaves."""
+        like = _leaf0(el)
+        return c.reshape((c.shape[0],) + (1,) * (like.dim() - 1)).expand(
+            like.shape)
+
+    # -- the fused kernels (ops/tower_kernels.py) --------------------------------
+
+    def _f6_mul(self, a, b):
+        return tk.mnt_f6_mul(self.fp.spec, a, b)
+
+    def _f6_sqr(self, a):
+        return tk.mnt_f6_sqr(self.fp.spec, a)
+
+    def cyclotomic_square(self, f):
+        """Granger-Scott squaring on the F6 cyclotomic subgroup
+        (build_mnt6753.js:1071-1243), K13."""
+        return tk.mnt_f6_cyc_sqr(self.fp.spec, f)
+
+    def _dbl_step(self, X, Y, Z, xP, yP):
+        """K14: the line (a0, b) as an F6 element and the doubled point."""
+        return tk.mnt_miller_dbl(self.fp.spec, X, Y, Z, xP, yP)
+
+    def _add_step(self, X, Y, Z, x2, y2, xP, yP):
+        """K14: the line (a0, b) and the sum."""
+        return tk.mnt_miller_add(self.fp.spec, X, Y, Z, x2, y2, xP, yP)
+
+    # -- Miller loops -------------------------------------------------------------
+
+    def _ladder(self, f, g1, g2, fold):
+        """The unprepared ate ladder segment by segment: k doubling steps,
+        then one add step; fold(l) turns a step's line into the factor of
+        f (the line itself, or its product over the pairs axis)."""
+        xP, yP = g1
+        xQ, yQ = g2
+        X, Y, Z = xQ, yQ, self.F3d.one_like(xQ)
+        segs, tail = _bit_segments(self.loop_bits)
+
+        def dbl_once(f, X, Y, Z):
+            l, X, Y, Z = self._dbl_step(X, Y, Z, xP, yP)
+            return self._f6_mul(self._f6_sqr(f), fold(l)), X, Y, Z
+
+        for k in segs:
+            for _ in range(k):
+                f, X, Y, Z = dbl_once(f, X, Y, Z)
+            l, X, Y, Z = self._add_step(X, Y, Z, xQ, yQ, xP, yP)
+            f = self._f6_mul(f, fold(l))
+        for _ in range(tail):
+            f, X, Y, Z = dbl_once(f, X, Y, Z)
+        return f
+
+    def miller_loop(self, g1, g2):
+        """g1 = (xP, yP) planes [L, *B], g2 = ((x0, x1, x2), (y0, y1, y2))
+        affine F3 planes: the (scaled) Miller value per lane."""
+        return self._ladder(self._f6_one(g1[0]), g1, g2, lambda l: l)
+
+    def miller_loop_fused(self, g1, g2):
+        """Fused multi-pair Miller loop (the reference's fusedMillerLoop,
+        src/mnt6753.js:803-1006): pairs ride axis 1 (leaves [L, k, *B]),
+        one running f per batch lane is squared once per doubling step and
+        multiplied by the product of the k lines."""
+        f = self._f6_one(g1[0][:, 0])
+        return self._ladder(f, g1, g2, self._f6_prod_pairs)
+
+    # -- prepared pairing inputs (PRECOMPUTE_G1/G2, src/mnt6753.js:151-176) ----
+
+    @functools.cached_property
+    def _prep_flags(self):
+        return _step_flags(self.loop_bits)
+
+    def prepare_g2(self, g2):
+        """Per-step line coefficients (c_y, c_x, c_0) of the ate ladder for
+        g2 (leaves [L, *B] -> [S, L, *B])."""
+        F3d, mulv = self.F3d, self.mulv
+        xQ, yQ = g2
+        coeffs, _ = _coef_ladder(
+            F3d, xQ, yQ, self._prep_flags,
+            lambda X, Y, Z: tk.mnt_dbl_coefs(F3d, mulv, X, Y, Z),
+            lambda X, Y, Z, x2, y2: tk.mnt_add_coefs(F3d, X, Y, Z, x2, y2))
+        return coeffs
+
+    def _line_from_coefs(self, c, xP, yP):
+        return tk.mnt_line(self.base, self.F3d, c, xP, yP)
+
+    def _prepared(self, g1, coeffs, f, fold):
+        xP, yP = g1
+        for s, flag in enumerate(self._prep_flags.tolist()):
+            c = map_leaf(coeffs, lambda a: a[s])
+            line = fold(self._line_from_coefs(c, xP, yP))
+            if not flag:
+                f = self._f6_sqr(f)
+            f = self._f6_mul(f, line)
+        return f
+
+    def miller_loop_prepared(self, g1, coeffs):
+        """miller_loop(g1, g2) for coeffs = prepare_g2(g2)."""
+        return self._prepared(g1, coeffs, self._f6_one(g1[0]), lambda l: l)
+
+    def miller_loop_fused_prepared(self, g1, coeffs):
+        """miller_loop_fused through prepared coefficients: g1 leaves
+        [L, k, *B], coefficient leaves [S, L, k, *B]."""
+        return self._prepared(g1, coeffs, self._f6_one(g1[0][:, 0]),
+                              self._f6_prod_pairs)
+
+    # -- pairs, Frobenius, final exponentiation ---------------------------------
+
+    def _f6_prod_pairs(self, f):
+        """Product over the pairs axis (position 1 of the leaves) as a tree
+        of F6 multiplies; an odd count carries its last lane forward."""
+        k = _leaf0(f).shape[1]
+        while k > 1:
+            half = k // 2
+            prod = self._f6_mul(map_leaf(f, lambda a: a[:, :half]),
+                                map_leaf(f, lambda a: a[:, half:2 * half]))
+            if k % 2:
+                prod = map_leaf2(prod, f, lambda p, r: torch.cat(
+                    [p, r[:, 2 * half:]], dim=1))
+            f = prod
+            k = half + k % 2
+        return map_leaf(f, lambda a: a[:, 0])
+
+    def frobenius(self, f):
+        """f^q on F6 over Fp: an Fp-scalar product per component, no
+        conjugation (the components are Fp elements)."""
+        F = self.base
+        (a0, a1, a2), (b0, b1, b2) = f
+        g = [self._bc(c, a0) for c in self._frob_fp]
+        n1, n2, m0, m1, m2 = unstack(F.mul(stack(a1, a2, b0, b1, b2),
+                                           stack(g[1], g[3], g[0], g[2],
+                                                 g[4])), 5)
+        return ((a0, n1, n2), (m0, m1, m2))
+
+    def _f6_conj(self, f):
+        """f^(q^3): conjugation over F3 (w -> -w)."""
+        return (f[0], self.F3d.neg(f[1]))
+
+    def final_exponentiation(self, f):
+        """f^((q^3 - 1)(q + 1)(q + w0)) (build_mnt6753.js:1244-1314)."""
+        t = self._f6_mul(self._f6_conj(f), self.F6d.inv(f))
+        t = self._f6_mul(self.frobenius(t), t)
+        tw = _windowed_cyc_exp(self._f6_mul, self.cyclotomic_square, t,
+                               self._w0, 4)
+        return self._f6_mul(self.frobenius(t), tw)
+
+    def pairing_products(self, g1, g2):
+        """prod_j e(P_j, Q_j) per batch lane: pairs on axis 1 (point leaves
+        [L, k, *B]), independent Miller loops in lanes, the tree product,
+        one final exponentiation (the reference's verify worker DAG,
+        src/mnt6753.js:944-1087)."""
+        f = self.miller_loop(g1, g2)
+        return self.final_exponentiation(self._f6_prod_pairs(f))
+
+    def pairing_products_fused(self, g1, g2):
+        """pairing_products through the fused Miller loop (verifyFused,
+        src/mnt6753.js:779-941)."""
+        return self.final_exponentiation(self.miller_loop_fused(g1, g2))
+
+    def pairing_products_prepared(self, g1, coeffs, fused: bool = True):
+        """prod_j e(P_j, Q_j) per batch lane from prepared coefficients."""
+        if fused:
+            f = self.miller_loop_fused_prepared(g1, coeffs)
+        else:
+            f = self._f6_prod_pairs(self.miller_loop_prepared(g1, coeffs))
+        return self.final_exponentiation(f)
+
+
 @functools.lru_cache(maxsize=None)
 def _engine(cls, device: str):
     return cls(device)
@@ -570,10 +818,18 @@ def bls12381_pairing_device(device=None) -> Bls12381PairingDevice:
     return _engine(Bls12381PairingDevice, str(resolve_device(device)))
 
 
+def mnt6753_pairing_device(device=None) -> Mnt6753PairingDevice:
+    """The MNT6753 pairing engine of `device` (default: the CUDA card), one
+    per device, with its own vk_prep_cache."""
+    return _engine(Mnt6753PairingDevice, str(resolve_device(device)))
+
+
 def pairing_device(curve: str, device=None):
-    """The pairing engine of a curve ("bn128" or "bls12381") on `device`."""
+    """The pairing engine of a curve ("bn128", "bls12381" or "mnt6753") on
+    `device`."""
     engines = {"bn128": bn128_pairing_device,
-               "bls12381": bls12381_pairing_device}
+               "bls12381": bls12381_pairing_device,
+               "mnt6753": mnt6753_pairing_device}
     if curve not in engines:
         raise ValueError(f"unknown curve {curve!r}")
     return engines[curve](device)

@@ -1,6 +1,5 @@
-"""Fused extension-tower and Miller-step kernels for BN128 and BLS12-381,
-PyTorch port of the BN128 and BLS12-381 parts of
-wasmsnark_tpu/ops/tower_pallas.py.
+"""Fused extension-tower and Miller-step kernels, PyTorch port of
+wasmsnark_tpu/ops/tower_pallas.py (BN128, BLS12-381 and MNT6753).
 
     K8  f12_mul / f12_sqr   F12 = F6[w] Karatsuba product / square, xi an
                             argument (BN128 9 + u, BLS12-381 1 + u)
@@ -12,17 +11,27 @@ wasmsnark_tpu/ops/tower_pallas.py.
     K11 miller_dbl_mtwist / miller_add_mtwist
                             BLS12-381's M-twist steps: the same point, the
                             line (a0, b1, b2) = (xi c_y yP, c_0, c_x xP)
+    K12 mnt_f6_mul / mnt_f6_sqr
+                            MNT6753's F6 = F3[w] product / square
+    K13 mnt_f6_cyc_sqr      MNT6753's Granger-Scott cyclotomic square
+    K14 mnt_miller_dbl / mnt_miller_add
+                            MNT6753's Miller steps on the a != 0 twist over
+                            F3: the new projective point and the line
+                            (a0, b) at P
 
-Each wrapper launches its CUDA kernel (csrc/tower_kernels.cu) on CUDA
-tensors and runs its plain version on CPU tensors.  The plain versions are
-the composed towers of ops/towers.py over `PlainFp`, so chip_smoke.py can
-hold the kernels against pure PyTorch on the card.
+Each wrapper launches its CUDA kernel (csrc/tower_kernels.cu for K8-K11,
+csrc/mnt_kernels.cu for K12-K14) on CUDA tensors and runs its plain version
+on CPU tensors.  The plain versions are the composed towers of
+ops/towers.py over `PlainFp`, so chip_smoke.py can hold the kernels against
+pure PyTorch on the card.
 
 Operands go to a kernel stacked as one contiguous [k, L, n] tensor each:
 an F12 element as its 12 component planes in `flatten12` order (the JAX
 package's `_flatten12`), a Miller point as [6, L, n] (X, Y, Z), an affine
-G2 point as [4, L, n], the G1 point as [2, L, n]; every kernel writes
-[12, L, n].  Inputs with a batch shape ([L, 4, N] pairing lanes, [L, 1]
+G2 point as [4, L, n], the G1 point as [2, L, n]; K8-K11 write
+[12, L, n].  MNT6753's F6 element is its 6 planes in `flatten6` order, a
+Miller point [9, L, n], an affine F3 point [6, L, n]; K12 and K13 write
+[6, L, n], K14 [15, L, n].  Inputs with a batch shape ([L, 4, N] pairing lanes, [L, 1]
 constants) are broadcast and flattened to lanes first.
 """
 
@@ -35,7 +44,8 @@ import torch
 from ..fields.spec import FieldSpec
 from . import cuda_lib
 from .fp import DTYPE, PlainFp, check_cuda, lanes
-from .towers import FpAdapter, f12_towers, gs_cyclotomic_square, stack, unstack
+from .towers import (FpAdapter, f12_towers, gs_cyclotomic_square,
+                     mnt_towers, stack, unstack)
 
 XI = (9, 1)          # BN128's sextic non-residue 9 + u
 XI_BLS = (1, 1)      # BLS12-381's, 1 + u
@@ -171,13 +181,13 @@ def miller_add_mtwist_plain(spec: FieldSpec, X, Y, Z, x2, y2, xP, yP,
 # kernel wrappers K8-K11
 # ---------------------------------------------------------------------------
 
-def _launch(fn: str, spec: FieldSpec, groups, ints=()):
+def _launch(fn: str, spec: FieldSpec, groups, ints=(), n_out=N12):
     """Stack each group of [L, n] planes into one [k, L, n] operand, launch
-    `fn` and return the 12 output planes [L, n]."""
+    `fn` and return the n_out output planes [L, n]."""
     ops = [torch.stack(g) for g in groups]
     check_cuda(*ops)
     n = ops[0].shape[2]
-    out = torch.empty((N12, spec.n_limbs, n), dtype=DTYPE,
+    out = torch.empty((n_out, spec.n_limbs, n), dtype=DTYPE,
                       device=ops[0].device)
     cuda_lib.launch(fn, spec, (*ops, out), (n, *ints))
     return list(out.unbind(0))
@@ -293,3 +303,176 @@ def miller_add_mtwist(spec: FieldSpec, X, Y, Z, x2, y2, xP, yP, xi=XI_BLS):
         out = _launch("k11_miller_add_mtwist", spec,
                       [flat[:6], flat[6:10], flat[10:]], xi)
     return _step_out(out, L, bshape)
+
+
+# ---------------------------------------------------------------------------
+# MNT6753 (L = 48): F6 = F3[w]/(w^2 - v), F3 = Fp[v]/(v^3 - 11), and the
+# Miller steps on the a != 0 twist (K12-K14)
+# ---------------------------------------------------------------------------
+
+MNT_NR = 11          # F3 non-residue; also G1's a and G2's a2 / v^2
+N6, N15 = 6, 15
+
+
+def flatten6(el) -> list:
+    """F6 element ((a0, a1, a2), (b0, b1, b2)) -> its 6 planes."""
+    return [*el[0], *el[1]]
+
+
+def unflatten6(flat):
+    return (tuple(flat[0:3]), tuple(flat[3:6]))
+
+
+def mnt_dbl_coefs(F3, mulv, X, Y, Z, a_small=MNT_NR):
+    """Doubling step on homogeneous F3 twist coordinates with a2 =
+    a_small v^2: the line coefficients (c_y, c_x, c_0) = (2YZ^2, WZ,
+    WX - 2Y^2Z), W = 3X^2 + a2 Z^2, and the doubled point.  The products of
+    tower_pallas.py mnt_dbl_formula (the G2 half of the JAX package's
+    Mnt6753PairingDevice._dbl_coefs), the independent ones stacked."""
+    X2, Z2, Y2, YZ = unstack(F3.mul(stack(X, Z, Y, Y), stack(X, Z, Y, Z)), 4)
+    Y2Z, YZ2, Y3, Z3, Y4 = unstack(F3.mul(stack(Y2, Y, Y2, Z2, Y2),
+                                          stack(Z, Z2, Y, Z, Y2)), 5)
+    W = F3.add(F3.mul_small(X2, 3), F3.mul_small(mulv(mulv(Z2)), a_small))
+    WZ, WX, W2, XY2Z, Y3Z3, Y4Z2 = unstack(F3.mul(
+        stack(W, W, W, X, Y3, Y4), stack(Z, X, W, Y2Z, Z3, Z2)), 6)
+    c_y, Y2Z_2, YZ_2 = unstack(F3.mul_small(stack(YZ2, Y2Z, YZ), 2), 3)
+    XY2Z_8, Zn, Y4Z2_8 = unstack(F3.mul_small(stack(XY2Z, Y3Z3, Y4Z2), 8), 3)
+    Xn, WYn = unstack(F3.mul(
+        stack(YZ_2, W),
+        stack(F3.sub(W2, XY2Z_8), F3.sub(F3.mul_small(XY2Z, 12), W2))), 2)
+    return (c_y, WZ, F3.sub(WX, Y2Z_2)), Xn, F3.sub(WYn, Y4Z2_8), Zn
+
+
+def mnt_add_coefs(F3, X, Y, Z, x2, y2):
+    """Mixed-add step (homogeneous + affine (x2, y2)): the line
+    coefficients (c_y, c_x, c_0) = (lm, th, th x2 - y2 lm) and the sum, the
+    products of tower_pallas.py mnt_add_formula."""
+    y2Z, x2Z = unstack(F3.mul(stack(y2, x2), stack(Z, Z)), 2)
+    th, lm = unstack(F3.sub(stack(y2Z, x2Z), stack(Y, X)), 2)
+    thx2, y2lm, C, D = unstack(F3.mul(stack(th, y2, th, lm),
+                                      stack(x2, lm, th, lm)), 4)
+    E, Fv, G = unstack(F3.mul(stack(lm, Z, X), stack(D, C, D)), 3)
+    H = F3.sub(F3.sub(Fv, F3.mul_small(G, 2)), E)
+    Xn, thGH, EY, Zn = unstack(F3.mul(stack(lm, th, E, Z),
+                                      stack(H, F3.sub(G, H), Y, E)), 4)
+    return (lm, th, F3.sub(thx2, y2lm)), Xn, F3.sub(thGH, EY), Zn
+
+
+def mnt_line(base, F3, c, xP, yP):
+    """The sparse F6 line a0 + b w at P from (c_y, c_x, c_0):
+    a0 = v^2 (c_y yP), b = c_0 - v (c_x xP) (the JAX package's
+    _line_from_coefs; the same values as the line of mnt_dbl_formula and
+    mnt_add_formula)."""
+    c_y, c_x, c_0 = c
+    y0, y1, y2, x0, x1, x2 = unstack(base.mul(
+        stack(*c_y, *c_x), stack(yP, yP, yP, xP, xP, xP)), 6)
+    n1, n2, nx = unstack(base.mul_small(stack(y1, y2, x2), MNT_NR), 3)
+    return (n1, n2, y0), F3.sub(c_0, (nx, x0, x1))
+
+
+def mnt_dbl_formula(base, F3, mulv, X, Y, Z, xP, yP):
+    """tower_pallas.py mnt_dbl_formula: ((a0, b), X', Y', Z')."""
+    c, Xn, Yn, Zn = mnt_dbl_coefs(F3, mulv, X, Y, Z)
+    return mnt_line(base, F3, c, xP, yP), Xn, Yn, Zn
+
+
+def mnt_add_formula(base, F3, mulv, X, Y, Z, x2, y2, xP, yP):
+    """tower_pallas.py mnt_add_formula: ((a0, b), X', Y', Z')."""
+    c, Xn, Yn, Zn = mnt_add_coefs(F3, X, Y, Z, x2, y2)
+    return mnt_line(base, F3, c, xP, yP), Xn, Yn, Zn
+
+
+@functools.lru_cache(maxsize=None)
+def plain_mnt_towers(spec: FieldSpec, device: str):
+    """(base, F3, F6, mulv) over PlainFp on `device`."""
+    base = FpAdapter(PlainFp(spec, device))
+    return (base, *mnt_towers(base, MNT_NR))
+
+
+def _mnt_for(spec, plane):
+    return plain_mnt_towers(spec, str(plane.device))
+
+
+def mnt_f6_mul_plain(spec: FieldSpec, a, b):
+    return _mnt_for(spec, a[0][0])[2].mul(a, b)
+
+
+def mnt_f6_sqr_plain(spec: FieldSpec, a):
+    return _mnt_for(spec, a[0][0])[2].square(a)
+
+
+def mnt_f6_cyc_sqr_plain(spec: FieldSpec, a):
+    base = _mnt_for(spec, a[0][0])[0]
+    return gs_cyclotomic_square(base, lambda x: base.mul_small(x, MNT_NR), a)
+
+
+def mnt_miller_dbl_plain(spec: FieldSpec, X, Y, Z, xP, yP):
+    base, F3, _, mulv = _mnt_for(spec, xP)
+    return mnt_dbl_formula(base, F3, mulv, X, Y, Z, xP, yP)
+
+
+def mnt_miller_add_plain(spec: FieldSpec, X, Y, Z, x2, y2, xP, yP):
+    base, F3, _, mulv = _mnt_for(spec, xP)
+    return mnt_add_formula(base, F3, mulv, X, Y, Z, x2, y2, xP, yP)
+
+
+def _f6_call(fn, plain, spec, els):
+    """Flatten F6 operands to lanes, run K12/K13 or its plain version, and
+    return the F6 result in the operands' batch shape."""
+    L = spec.n_limbs
+    flat, bshape = lanes(L, *[p for el in els for p in flatten6(el)])
+    groups = [flat[k:k + N6] for k in range(0, len(flat), N6)]
+    if not flat[0].is_cuda:
+        out = flatten6(plain(spec, *[unflatten6(g) for g in groups]))
+    else:
+        out = _launch(fn, spec, groups, n_out=N6)
+    return unflatten6(_reshape(out, L, bshape))
+
+
+def mnt_f6_mul(spec: FieldSpec, a, b):
+    """K12: F6 product (replaces tower_pallas.py mnt_f6_mul_pallas)."""
+    return _f6_call("k12_f6_mul", mnt_f6_mul_plain, spec, (a, b))
+
+
+def mnt_f6_sqr(spec: FieldSpec, a):
+    """K12: F6 square (replaces tower_pallas.py mnt_f6_sqr_pallas)."""
+    return _f6_call("k12_f6_sqr", mnt_f6_sqr_plain, spec, (a,))
+
+
+def mnt_f6_cyc_sqr(spec: FieldSpec, a):
+    """K13: Granger-Scott cyclotomic square (replaces tower_pallas.py
+    mnt_f6_cyc_sqr_pallas)."""
+    return _f6_call("k13_f6_cyc_sqr", mnt_f6_cyc_sqr_plain, spec, (a,))
+
+
+def _mnt_step(fn, plain, spec, pts, xP, yP):
+    """Run K14 or its plain version on F3 points `pts` ((X, Y, Z) or
+    (X, Y, Z, x2, y2)) and P; returns ((a0, b), X', Y', Z')."""
+    L = spec.n_limbs
+    flat, bshape = lanes(L, *[c for pt in pts for c in pt], xP, yP)
+    k = 3 * len(pts)
+    if not flat[0].is_cuda:
+        f3s = [tuple(flat[j:j + 3]) for j in range(0, k, 3)]
+        (a0, b), Xn, Yn, Zn = plain(spec, *f3s, flat[k], flat[k + 1])
+        out = [*a0, *b, *Xn, *Yn, *Zn]
+    else:
+        groups = [flat[:9], flat[9:k], flat[k:]] if k > 9 else \
+            [flat[:9], flat[9:]]
+        out = _launch(fn, spec, groups, n_out=N15)
+    o = _reshape(out, L, bshape)
+    f3 = [tuple(o[j:j + 3]) for j in range(0, N15, 3)]
+    return (f3[0], f3[1]), f3[2], f3[3], f3[4]
+
+
+def mnt_miller_dbl(spec: FieldSpec, X, Y, Z, xP, yP):
+    """K14: MNT6753 Miller doubling step (replaces tower_pallas.py
+    mnt_miller_dbl_pallas).  Returns ((a0, b), X', Y', Z')."""
+    return _mnt_step("k14_mnt_miller_dbl", mnt_miller_dbl_plain, spec,
+                     (X, Y, Z), xP, yP)
+
+
+def mnt_miller_add(spec: FieldSpec, X, Y, Z, x2, y2, xP, yP):
+    """K14: MNT6753 Miller mixed-add step (replaces tower_pallas.py
+    mnt_miller_add_pallas).  Returns ((a0, b), X', Y', Z')."""
+    return _mnt_step("k14_mnt_miller_add", mnt_miller_add_plain, spec,
+                     (X, Y, Z, x2, y2), xP, yP)

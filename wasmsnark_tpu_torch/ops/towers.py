@@ -3,9 +3,9 @@
 
 A tower element is a tuple of base-field planes, so the curve, MSM and
 pairing code is generic over Fp (G1), Fp2 (G2) and the F6/F12 towers, as
-in the JAX package.  The one kernel here is K4 (`mod_cneg`), the MSM's
-signed-digit negation; the fused F12 and Miller-step kernels K8-K10 sit in
-ops/tower_kernels.py.
+in the JAX package (MNT6753's F3/F6 over Fp too, `mnt_towers`).  The one
+kernel here is K4 (`mod_cneg`), the MSM's signed-digit negation; the fused
+F12, F6 and Miller-step kernels K8-K14 sit in ops/tower_kernels.py.
 
 Every formula stacks its independent base-field calls on a new batch axis
 (`stack`), so one tower operation is a few base calls (one launch each on
@@ -19,7 +19,8 @@ import torch
 
 from ..fields.spec import FieldSpec
 from . import cuda_lib
-from .fp import DTYPE, check_cuda, lanes, mod_sub_plain
+from .fp import (DTYPE, PlainFp, broadcast_shapes, check_cuda, lanes,
+                 mod_sub_plain, mul_small_plain)
 
 
 def mod_cneg_plain(spec: FieldSpec, flag, y):
@@ -85,7 +86,14 @@ class FpAdapter:
         return self.fp.one_mont(*a.shape[1:])
 
     def mul_small(self, a, k: int):
-        return mul_small(self, a, k)
+        """a * k for a small static k >= 0: on the card a double-and-add
+        chain of K2 adds (one launch each); the plain field and CPU tensors
+        take mul_small_plain, one pass with the same canonical value."""
+        if a.is_cuda and not isinstance(self.fp, PlainFp):
+            return mul_small(self, a, k)
+        (af,), bshape = lanes(self.fp.L, a)
+        return mul_small_plain(self.fp.spec, af, k).reshape(
+            (self.fp.L,) + bshape)
 
     def inv(self, a):
         return self.fp.mont_inv(a)
@@ -111,7 +119,7 @@ def stack(*els):
     axis 1 (so one field call computes them all)."""
     if isinstance(els[0], tuple):
         return tuple(stack(*[e[i] for e in els]) for i in range(len(els[0])))
-    shape = torch.broadcast_shapes(*[e.shape for e in els])
+    shape = broadcast_shapes(*[e.shape for e in els])
     return torch.stack([e.expand(shape) for e in els], dim=1)
 
 
@@ -186,7 +194,9 @@ class F2Device:
         return (F.one_like(a[0]), F.zero_like(a[1]))
 
     def mul_small(self, a, k: int):
-        return mul_small(self, a, k)
+        """Per component over the stacked base: the same chain of base adds
+        (one call each) as a chain of F2 adds."""
+        return tuple(unstack(self.base.mul_small(stack(*a), k), 2))
 
     def mul_base(self, a, b_base):
         """a * b for b in the base field."""
@@ -256,7 +266,7 @@ class F3Device:
         return (F.one_like(a[0]), F.zero_like(a[1]), F.zero_like(a[2]))
 
     def mul_small(self, a, k: int):
-        return mul_small(self, a, k)
+        return tuple(unstack(self.base.mul_small(stack(*a), k), 3))
 
     def mul_base(self, a, b_base):
         return tuple(unstack(self.base.mul(
@@ -303,6 +313,20 @@ def f12_towers(base, xi):
         return (mul_xi(a[2]), a[0], a[1])
 
     return F2, F6, F2Device(F6, mul_nr12), mul_xi
+
+
+def mnt_towers(base, nr: int = 11):
+    """MNT6753's F3 = base[v]/(v^3 - nr) and F6 = F3[w]/(w^2 - v) over a
+    base adapter (tower_pallas.py _mnt_towers); returns (F3, F6, mulv),
+    mulv(a) = v a = (nr a2, a0, a1)."""
+    def mul_nr(a):
+        return base.mul_small(a, nr)
+
+    def mulv(a):
+        return (mul_nr(a[2]), a[0], a[1])
+
+    F3 = F3Device(base, mul_nr)
+    return F3, F2Device(F3, mulv), mulv
 
 
 def _part(e, sl):
