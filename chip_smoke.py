@@ -61,7 +61,15 @@ then MNT6753 at its full 753-bit width (48 limbs, 24 words):
      booleans against verify_sync, the card's five-pair F6 values against
      the oracle's pairing product.  The plain versions on the CPU are not
      the reference here: a 753-bit Miller loop has 550 steps, and its CPU
-     run would take minutes.
+     run would take minutes;
+
+then, for every kernel row:
+
+ 13. times it again at the PATH_LANES lane counts its paths launched it
+     with most (cuda_lib.lane_launches, read on each path of steps 5-11),
+     on the same inputs cut to that many lanes, after the same
+     bit-equality check, with the bound at that lane count: the record's
+     lanes_at_path, ms_at_path and bound_ms_at_path.
 
 Any failure prints its traceback and exits non-zero.  Without a CUDA
 device, or outside the repository, it exits non-zero and prints no
@@ -101,6 +109,8 @@ N_MNT = 256                      # MNT6753 lanes: host marshalling costs
                                  # ~32 ms per lane (3 scalar multiplications
                                  # by rho, the vk_x ladder, alphaBeta^rho)
 N_MNT_PROOFS = 16                # distinct synthetic proofs among them
+PATH_LANES = 3                   # lane counts each kernel row is also
+                                 # timed at: its paths' most frequent
 PROVE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
 CURVES = ("bn128", "bls12381")
 
@@ -210,9 +220,9 @@ def kernel_name(mangled):
 
 
 def ptxas_summary(build_dir):
-    """Registers, stack frame and spill bytes of every kernel entry
-    function, "<kernel>@N<words>", read from the `-Xptxas -v` build logs
-    (<source>_w<words>.log)."""
+    """Registers, stack frame, spill bytes and static shared memory of
+    every kernel entry function, "<kernel>@N<words>", read from the
+    `-Xptxas -v` build logs (<source>_w<words>.log)."""
     import re
     out = {}
     for log in sorted(os.listdir(build_dir)):
@@ -227,12 +237,14 @@ def ptxas_summary(build_dir):
             props = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                               r"stores, (\d+) bytes spill loads", block)
             regs = re.search(r"Used (\d+) registers", block)
+            smem = re.search(r"(\d+) bytes smem", block)
             if name and props and regs:
                 out[name] = {
                     "registers": int(regs.group(1)),
                     "stack": int(props.group(1)),
                     "spill_stores": int(props.group(2)),
-                    "spill_loads": int(props.group(3))}
+                    "spill_loads": int(props.group(3)),
+                    "smem": int(smem.group(1)) if smem else 0}
     return out
 
 
@@ -257,6 +269,68 @@ def mismatch(a, b):
         lanes = bad if lanes is None else lanes | bad
         err = max(err, int(d.max()))
     return int(lanes.sum()), err
+
+
+def lane_counts(counts, fns, nw):
+    """Launches by lane count of the entry points `fns` at word count nw,
+    from one path's launches per (entry point, word count, lanes)."""
+    out = {}
+    for (fn, w, k), v in counts.items():
+        if fn in fns and w == nw:
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def cut(t, k, n):
+    """The tree of lane-last tensors t of a check made at n lanes, made for
+    k: each tensor's last dimension s becomes s k / n, its first lanes
+    (repeated where k > n), so the edge lanes stay in front."""
+    import torch
+    if isinstance(t, (tuple, list)):
+        return tuple(cut(c, k, n) for c in t)
+    idx = torch.arange(t.shape[-1] * k // n, device=t.device) % t.shape[-1]
+    return t[..., idx].contiguous()
+
+
+def at_path_lanes(kr):
+    """Time a kernel row at the PATH_LANES lane counts its paths launch it
+    with most often, each after the same bit-equality check against the
+    plain version as at N_LANES; the bound is that lane count's.  Also
+    the time lost against the bound on the row's own path."""
+    import torch
+    fn_k, fn_p, args = kr["run"]
+    total = {}
+    for c in kr["lanes_by_path"].values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    kr["lanes_at_path"] = sorted(sorted(total, key=lambda k: (-total[k], k))
+                                 [:PATH_LANES])
+    kr["ms_at_path"], kr["bound_ms_at_path"] = {}, {}
+    for k in kr["lanes_at_path"]:
+        a = cut(args, k, kr["lanes"])
+        got, want = fn_k(*a), fn_p(*a)
+        torch.cuda.synchronize()
+        if mismatch(got, want)[0]:
+            raise AssertionError(f"{kr['name']} disagrees with its plain "
+                                 f"version at {k} lanes")
+        kr["ms_at_path"][k] = time_cuda(lambda: fn_k(*a), 50)
+        kr["bound_ms_at_path"][k] = bound(kr["bytes"] * k / kr["lanes"],
+                                          kr["ops"] * k / kr["lanes"])[0]
+    # time lost on the row's own path (the one its launches count):
+    # launches x (ms - bound) over the lane counts timed, and the share of
+    # that path's launches they cover
+    counts = next((c for c in kr["lanes_by_path"].values() if c), {})
+    timed = {k: v for k, v in counts.items() if k in kr["ms_at_path"]}
+    kr["path_loss_ms"] = sum(v * (kr["ms_at_path"][k]
+                                  - kr["bound_ms_at_path"][k])
+                             for k, v in timed.items())
+    kr["path_loss_share"] = (sum(timed.values()) / sum(counts.values())
+                             if counts else 0.0)
+    say(f"{kr['name']} at path lanes: " + ", ".join(
+        f"{k} lanes {kr['ms_at_path'][k]:.4f} ms (bound "
+        f"{kr['bound_ms_at_path'][k]:.4f})" for k in kr["lanes_at_path"])
+        + f"; lost on its path {kr['path_loss_ms']:.1f} ms "
+        f"({kr['path_loss_share']:.0%} of its launches timed)")
 
 
 def check_kernels(dev):
@@ -287,13 +361,13 @@ def check_kernels(dev):
 
     out = []
 
-    def record(curve, spec, kid, name, source, line, fn_k, fn_p, nbytes, ops,
-               reps=50, fns=None):
-        a, b = fn_k(), fn_p()
+    def record(curve, spec, kid, name, source, line, fn_k, fn_p, args,
+               nbytes, ops, fns=None):
+        a, b = fn_k(*args), fn_p(*args)
         torch.cuda.synchronize()
         bad, err = mismatch(a, b)
-        ms = time_cuda(fn_k, reps)
-        plain_ms = time_cuda(fn_p, 3)
+        ms = time_cuda(lambda: fn_k(*args), 50)
+        plain_ms = time_cuda(lambda: fn_p(*args), 3)
         b_ms, b_by = bound(nbytes, ops)
         nw = words(spec)
         label = f"{kid} {name}" + ("" if nw == 8 else f" @N{nw}")
@@ -303,8 +377,9 @@ def check_kernels(dev):
             "replaces": line, "launches": None, "max_abs_err": err,
             "mismatched_lanes": bad, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "bytes": nbytes, "lanes": n, "n_words": nw, "curve": curve,
-            "fns": fns or cuda_lib.KERNELS[kid][1]})
+            "bytes": nbytes, "ops": ops, "lanes": n, "n_words": nw,
+            "curve": curve, "fns": fns or cuda_lib.KERNELS[kid][1],
+            "run": (fn_k, fn_p, args)})
         say(f"{label}: {bad} mismatched lanes, {ms:.4f} ms "
             f"(plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
 
@@ -340,13 +415,14 @@ def check_curve_kernels(curve, m, dev, rng, rand, record, n):
                                  f"version over {curve} Fr")
     rec("K1", "mont_mul", "fp_kernels.cu",
         "wasmsnark_tpu/ops/fp_pallas.py:214",
-        lambda: fp.mont_mul(Fq, x, y), lambda: fp.mont_mul_plain(Fq, x, y),
-        3 * E * n, MM * n)
+        lambda x, y: fp.mont_mul(Fq, x, y),
+        lambda x, y: fp.mont_mul_plain(Fq, x, y), (x, y), 3 * E * n, MM * n)
     rec("K2", "mod_add/mod_sub", "fp_kernels.cu",
         "wasmsnark_tpu/ops/fp_pallas.py:299",
-        lambda: (fp.mod_add(Fq, x, y), fp.mod_sub(Fq, x, y)),
-        lambda: (fp.mod_add_plain(Fq, x, y), fp.mod_sub_plain(Fq, x, y)),
-        2 * 3 * E * n, 2 * AS * n)
+        lambda x, y: (fp.mod_add(Fq, x, y), fp.mod_sub(Fq, x, y)),
+        lambda x, y: (fp.mod_add_plain(Fq, x, y),
+                      fp.mod_sub_plain(Fq, x, y)),
+        (x, y), 2 * 3 * E * n, 2 * AS * n)
     # K3 at the first stage (h = 1), a middle one (h = 2^7) and the last
     # (h = n/2, timed): below the last, lanes pair across groups g > 0
     for h in (1, 1 << 7, n // 2):
@@ -360,32 +436,32 @@ def check_curve_kernels(curve, m, dev, rng, rand, record, n):
         Er = elem_bytes(Fr)
         record(curve, Fr, "K3", "butterfly", "fp_kernels.cu",
                "wasmsnark_tpu/ops/fp_pallas.py:500",
-               lambda: ntt.butterfly(Fr, xr, tw),
-               lambda: ntt.butterfly_plain(Fr, xr, tw),
+               lambda x, t: ntt.butterfly(Fr, x, t),
+               lambda x, t: ntt.butterfly_plain(Fr, x, t), (xr, tw),
                (2 * n + n // 2) * Er,
                (n // 2) * (mm_ops(Fr) + 2 * as_ops(Fr)))
     flag = torch.from_numpy(rng.integers(0, 2, size=n).astype(bool)).to(dev)
     rec("K4", "cneg", "fp_kernels.cu",
         "wasmsnark_tpu/ops/fp_pallas.py:374",
-        lambda: towers.mod_cneg(Fq, flag, y),
-        lambda: towers.mod_cneg_plain(Fq, flag, y),
+        lambda f, y: towers.mod_cneg(Fq, f, y),
+        lambda f, y: towers.mod_cneg_plain(Fq, f, y), (flag, y),
         (2 * E + 1) * n, 2 * words(Fq) * n)
 
     P, Q, Qa = curve_inputs(m, rng, dev, n)
     rec("K5", "jac_madd", "curve_kernels.cu",
         "wasmsnark_tpu/ops/curve_pallas.py:114",
-        lambda: cv.jac_madd(Fq, P, Qa),
-        lambda: cv.jac_madd_plain(Fq, P, Qa),
+        lambda P, Qa: cv.jac_madd(Fq, P, Qa),
+        lambda P, Qa: cv.jac_madd_plain(Fq, P, Qa), (P, Qa),
         8 * E * n, (18 * MM + 25 * AS) * n)
     rec("K6", "jac_add", "curve_kernels.cu",
         "wasmsnark_tpu/ops/curve_pallas.py:53",
-        lambda: cv.jac_add(Fq, P, Q),
-        lambda: cv.jac_add_plain(Fq, P, Q),
+        lambda P, Q: cv.jac_add(Fq, P, Q),
+        lambda P, Q: cv.jac_add_plain(Fq, P, Q), (P, Q),
         9 * E * n, (23 * MM + 26 * AS) * n)
     rec("K7", "jac_dbl", "curve_kernels.cu",
         "wasmsnark_tpu/ops/curve_pallas.py:175",
-        lambda: cv.jac_double(Fq, P),
-        lambda: cv.jac_double_plain(Fq, P),
+        lambda P: cv.jac_double(Fq, P),
+        lambda P: cv.jac_double_plain(Fq, P), (P,),
         6 * E * n, (7 * MM + 11 * AS) * n)
     check_tower_kernels(curve, m, rand, rec, n)
 
@@ -423,15 +499,16 @@ def check_tower_kernels(curve, m, rand, rec, n):
     src, pl = "tower_kernels.cu", "wasmsnark_tpu/ops/tower_pallas.py"
     a = tk.unflatten12([rand(Fq) for _ in range(12)])
     b = tk.unflatten12([rand(Fq) for _ in range(12)])
-    rec("K8", "f12_mul", src, f"{pl}:75", lambda: tk.f12_mul(Fq, a, b, xi),
-        lambda: tk.f12_mul_plain(Fq, a, b, xi), 36 * E * n,
+    rec("K8", "f12_mul", src, f"{pl}:75",
+        lambda a, b: tk.f12_mul(Fq, a, b, xi),
+        lambda a, b: tk.f12_mul_plain(Fq, a, b, xi), (a, b), 36 * E * n,
         ops("k8_f12_mul"), fns=("k8_f12_mul",))
-    rec("K8", "f12_sqr", src, f"{pl}:75", lambda: tk.f12_sqr(Fq, a, xi),
-        lambda: tk.f12_sqr_plain(Fq, a, xi), 24 * E * n,
+    rec("K8", "f12_sqr", src, f"{pl}:75", lambda a: tk.f12_sqr(Fq, a, xi),
+        lambda a: tk.f12_sqr_plain(Fq, a, xi), (a,), 24 * E * n,
         ops("k8_f12_sqr"), fns=("k8_f12_sqr",))
     rec("K9", "f12_cyc_sqr", src, f"{pl}:90",
-        lambda: tk.f12_cyc_sqr(Fq, a, xi),
-        lambda: tk.f12_cyc_sqr_plain(Fq, a, xi), 24 * E * n,
+        lambda a: tk.f12_cyc_sqr(Fq, a, xi),
+        lambda a: tk.f12_cyc_sqr_plain(Fq, a, xi), (a,), 24 * E * n,
         ops("k9_f12_cyc_sqr"))
     X, Y, Z, x2, y2 = [(rand(Fq), rand(Fq)) for _ in range(5)]
     xP, yP = rand(Fq), rand(Fq)
@@ -460,13 +537,11 @@ def check_tower_kernels(curve, m, rand, rec, n):
         lines, extra = (f"{pl}:164", f"{pl}:205"), (xi,)
     fn_dbl, fn_add = cuda_lib.KERNELS[kid][1]
     rec(kid, dbl, src, lines[0],
-        lambda: k_dbl(Fq, X, Y, Z, xP, yP, *extra),
-        lambda: p_dbl(Fq, X, Y, Z, xP, yP, *extra), 20 * E * n,
-        ops(fn_dbl), fns=(fn_dbl,))
+        lambda *a: k_dbl(Fq, *a, *extra), lambda *a: p_dbl(Fq, *a, *extra),
+        (X, Y, Z, xP, yP), 20 * E * n, ops(fn_dbl), fns=(fn_dbl,))
     rec(kid, add, src, lines[1],
-        lambda: k_add(Fq, X, Y, Z, x2, y2, xP, yP, *extra),
-        lambda: p_add(Fq, X, Y, Z, x2, y2, xP, yP, *extra), 24 * E * n,
-        ops(fn_add), fns=(fn_add,))
+        lambda *a: k_add(Fq, *a, *extra), lambda *a: p_add(Fq, *a, *extra),
+        (X, Y, Z, x2, y2, xP, yP), 24 * E * n, ops(fn_add), fns=(fn_add,))
     a0 = k_add(Fq, X, Y, Z, x2, y2, xP, yP, *extra)[0][0]
     if any(int(p[:, sl].abs().sum()) for p in a0):
         raise AssertionError("the x2 = X/Z lanes are not degenerate")
@@ -475,13 +550,14 @@ def check_tower_kernels(curve, m, rand, rec, n):
 # MNT6753 (csrc/mnt_kernels.cu): modular adds and subs of one F3 product
 # (six operand sums, three two-term differences, three final adds and two
 # multiplications by 11), and per entry point (Montgomery products, modular
-# adds and subs) counted from the kernel's formulas
+# adds and subs) counted from the kernel's formulas (K14's doubling: 14 F3
+# products and 6 base ones, Y3 Z3 and Y4 Z2 from Y2Z)
 F3_MUL_ADDS = 6 + 6 + 3 + 2 * chain(11)
 MNT_OPS = {
     "k12_f6_mul": (18, 3 * F3_MUL_ADDS + 15 + chain(11)),
     "k12_f6_sqr": (12, 2 * F3_MUL_ADDS + 15 + 2 * chain(11)),
     "k13_f6_cyc_sqr": (9, 36 + 4 * chain(11)),
-    "k14_mnt_miller_dbl": (17 * 6 + 6, 17 * F3_MUL_ADDS + 18 + 9 * chain(2)
+    "k14_mnt_miller_dbl": (14 * 6 + 6, 14 * F3_MUL_ADDS + 18 + 9 * chain(2)
                            + 9 * chain(8) + 3 * chain(3) + 8 * chain(11)
                            + 3 * chain(12)),
     "k14_mnt_miller_add": (13 * 6 + 6, 13 * F3_MUL_ADDS + 24 + 3 * chain(11)
@@ -510,28 +586,30 @@ def check_mnt_kernels(rand, rec, n):
     x, y = rand(Fq), rand(Fq).flip(1).contiguous()
     pf = "wasmsnark_tpu/ops/fp_pallas.py"
     rec("K1", "mont_mul", "fp_kernels.cu", f"{pf}:214",
-        lambda: fp.mont_mul(Fq, x, y), lambda: fp.mont_mul_plain(Fq, x, y),
-        3 * E * n, MM * n)
+        lambda x, y: fp.mont_mul(Fq, x, y),
+        lambda x, y: fp.mont_mul_plain(Fq, x, y), (x, y), 3 * E * n, MM * n)
     rec("K2", "mod_add/mod_sub", "fp_kernels.cu", f"{pf}:299",
-        lambda: (fp.mod_add(Fq, x, y), fp.mod_sub(Fq, x, y)),
-        lambda: (fp.mod_add_plain(Fq, x, y), fp.mod_sub_plain(Fq, x, y)),
-        2 * 3 * E * n, 2 * AS * n)
+        lambda x, y: (fp.mod_add(Fq, x, y), fp.mod_sub(Fq, x, y)),
+        lambda x, y: (fp.mod_add_plain(Fq, x, y),
+                      fp.mod_sub_plain(Fq, x, y)),
+        (x, y), 2 * 3 * E * n, 2 * AS * n)
 
     src, pl = "mnt_kernels.cu", "wasmsnark_tpu/ops/tower_pallas.py"
     a = tk.unflatten6([rand(Fq) for _ in range(6)])
     b = tk.unflatten6([rand(Fq) for _ in range(6)])
-    rec("K12", "f6_mul", src, f"{pl}:419", lambda: tk.mnt_f6_mul(Fq, a, b),
-        lambda: tk.mnt_f6_mul_plain(Fq, a, b), 18 * E * n,
+    rec("K12", "f6_mul", src, f"{pl}:419",
+        lambda a, b: tk.mnt_f6_mul(Fq, a, b),
+        lambda a, b: tk.mnt_f6_mul_plain(Fq, a, b), (a, b), 18 * E * n,
         ops("k12_f6_mul"), fns=("k12_f6_mul",))
-    rec("K12", "f6_sqr", src, f"{pl}:419", lambda: tk.mnt_f6_sqr(Fq, a),
-        lambda: tk.mnt_f6_sqr_plain(Fq, a), 12 * E * n,
+    rec("K12", "f6_sqr", src, f"{pl}:419", lambda a: tk.mnt_f6_sqr(Fq, a),
+        lambda a: tk.mnt_f6_sqr_plain(Fq, a), (a,), 12 * E * n,
         ops("k12_f6_sqr"), fns=("k12_f6_sqr",))
     pd = mnt6753_pairing_device()
     t = pd._f6_mul(pd._f6_conj(a), pd.F6d.inv(a))
     cyc = pd._f6_mul(pd.frobenius(t), t)         # the easy part
     rec("K13", "f6_cyc_sqr", src, f"{pl}:437",
-        lambda: tk.mnt_f6_cyc_sqr(Fq, cyc),
-        lambda: tk.mnt_f6_cyc_sqr_plain(Fq, cyc), 12 * E * n,
+        lambda c: tk.mnt_f6_cyc_sqr(Fq, c),
+        lambda c: tk.mnt_f6_cyc_sqr_plain(Fq, c), (cyc,), 12 * E * n,
         ops("k13_f6_cyc_sqr"))
     # on the cyclotomic subgroup K13 is the square
     if mismatch(tk.mnt_f6_cyc_sqr(Fq, cyc), tk.mnt_f6_sqr(Fq, cyc))[0]:
@@ -552,13 +630,14 @@ def check_mnt_kernels(rand, rec, n):
         x2[k][:, sl] = fp.planes(ints_to_limbs_fast(
             [Fq.to_mont(v[k]) for v in xz], Fq.n_limbs), X[0].device)
     rec("K14", "mnt_miller_dbl", src, f"{pl}:447",
-        lambda: tk.mnt_miller_dbl(Fq, X, Y, Z, xP, yP),
-        lambda: tk.mnt_miller_dbl_plain(Fq, X, Y, Z, xP, yP), 26 * E * n,
-        ops("k14_mnt_miller_dbl"), fns=("k14_mnt_miller_dbl",))
+        lambda *a: tk.mnt_miller_dbl(Fq, *a),
+        lambda *a: tk.mnt_miller_dbl_plain(Fq, *a), (X, Y, Z, xP, yP),
+        26 * E * n, ops("k14_mnt_miller_dbl"), fns=("k14_mnt_miller_dbl",))
     rec("K14", "mnt_miller_add", src, f"{pl}:459",
-        lambda: tk.mnt_miller_add(Fq, X, Y, Z, x2, y2, xP, yP),
-        lambda: tk.mnt_miller_add_plain(Fq, X, Y, Z, x2, y2, xP, yP),
-        32 * E * n, ops("k14_mnt_miller_add"), fns=("k14_mnt_miller_add",))
+        lambda *a: tk.mnt_miller_add(Fq, *a),
+        lambda *a: tk.mnt_miller_add_plain(Fq, *a),
+        (X, Y, Z, x2, y2, xP, yP), 32 * E * n, ops("k14_mnt_miller_add"),
+        fns=("k14_mnt_miller_add",))
     (a0, _), *_ = tk.mnt_miller_add(Fq, X, Y, Z, x2, y2, xP, yP)
     if any(int(p[:, sl].abs().sum()) for p in a0):
         raise AssertionError("the x2 = X/Z lanes are not degenerate")
@@ -694,7 +773,7 @@ def verify_lanes(m, pub, proof, n):
 
 def verify_batch(rt, vk, lanes, phases):
     """N_VERIFY proofs through rt.groth16_verify_batch, twice; returns the
-    launches per (entry point, word count) of the steady call."""
+    launches per (entry point, word count, lanes) of the steady call."""
     import torch
     from wasmsnark_tpu_torch.groth16 import verifier
     from wasmsnark_tpu_torch.ops import cuda_lib
@@ -718,7 +797,7 @@ def verify_batch(rt, vk, lanes, phases):
             raise AssertionError(f"verify batch ({name}) wrong at lanes "
                                  f"{bad[:20]}")
     counts = dict(cuda_lib.fn_launches)
-    by_words = dict(cuda_lib.word_launches)
+    by_lanes = dict(cuda_lib.lane_launches)
     phases["verify_proofs_per_s"] = N_VERIFY / phases["verify_steady_s"]
     phases["verify_launches"] = {k: v for k, v in counts.items() if v}
     say(f"{rt.CURVE} verify batch: first {phases['verify_first_s']:.2f} s, "
@@ -749,13 +828,13 @@ def verify_batch(rt, vk, lanes, phases):
         if rt.groth16_verify(vk, ins[i], prs[i]) is not want[i]:
             raise AssertionError(f"lane {i} disagrees with host verify")
     phases["verify_host_lanes_s"] = time.perf_counter() - t
-    return by_words
+    return by_lanes
 
 
 def pairing_batch(rt, vk, pub, proof, phases):
     """The unprepared pairing on N_VERIFY lanes of e(7 G1, 9 G2) against
     e(G1, G2)^63, and against the prepared path on one proof's four
-    pairs.  Returns the launches per (entry point, word count) of the
+    pairs.  Returns the launches per (entry point, word count, lanes) of the
     pairing batch."""
     import torch
     from wasmsnark_tpu_torch.groth16 import verifier
@@ -776,7 +855,7 @@ def pairing_batch(rt, vk, pub, proof, phases):
         torch.cuda.synchronize()
         phases[f"pairing_{name}_s"] = time.perf_counter() - t
     counts = dict(cuda_lib.fn_launches)
-    by_words = dict(cuda_lib.word_launches)
+    by_lanes = dict(cuda_lib.lane_launches)
     phases["pairing_launches"] = {k: v for k, v in counts.items() if v}
     say(f"{rt.CURVE} pairing batch ({N_VERIFY} lanes): first "
         f"{phases['pairing_first_s']:.2f} s, steady "
@@ -806,7 +885,7 @@ def pairing_batch(rt, vk, pub, proof, phases):
                              "disagree on a good proof's four pairs")
     say(f"{rt.CURVE} pairing: all lanes equal e(G1, G2)^63; unprepared = "
         "prepared on a proof's four pairs, bit for bit")
-    return by_words
+    return by_lanes
 
 
 def card_against_cpu(rt, vk, lanes, phases):
@@ -840,7 +919,7 @@ def card_against_cpu(rt, vk, lanes, phases):
 
 def run_curve(curve, phases):
     """Steps 4-9 for one curve; returns the launches per (entry point,
-    word count) on each of its paths: prove, steady verify batch,
+    word count, lanes) on each of its paths: prove, steady verify batch,
     pairing batch."""
     import torch
     import wasmsnark_tpu_torch
@@ -879,7 +958,7 @@ def run_curve(curve, phases):
     torch.cuda.synchronize()
     phases["prove_first_s"] = time.perf_counter() - t
     launches = dict(cuda_lib.launches)
-    by_path = {"prove": dict(cuda_lib.word_launches)}
+    by_path = {"prove": dict(cuda_lib.lane_launches)}
     phases["prove_launches"] = {kid: v for kid, v in launches.items() if v}
     say(f"{curve} prove: {phases['prove_first_s']:.2f} s, launches "
         f"{launches}")
@@ -1054,7 +1133,7 @@ def mnt_verify_batch(rt, lanes, phases):
     """N_MNT lanes through rt.bowe_gabizon_verify_batch(fused=True) with a
     seeded rng, twice; the split of the steady call; verify and
     verify_fused on one good and one bad proof.  Returns the launches per
-    (entry point, word count) of the steady call."""
+    (entry point, word count, lanes) of the steady call."""
     import random
     import torch
     from wasmsnark_tpu_torch.ops import cuda_lib
@@ -1076,7 +1155,7 @@ def mnt_verify_batch(rt, lanes, phases):
             raise AssertionError(f"mnt6753 verify batch ({name}) wrong at "
                                  f"lanes {bad[:20]}")
     counts = dict(cuda_lib.fn_launches)
-    by_words = dict(cuda_lib.word_launches)
+    by_lanes = dict(cuda_lib.lane_launches)
     phases["verify_proofs_per_s"] = N_MNT / phases["verify_steady_s"]
     phases["verify_launches"] = {k: v for k, v in counts.items() if v}
     say(f"mnt6753 verify batch: first {phases['verify_first_s']:.2f} s, "
@@ -1121,7 +1200,7 @@ def mnt_verify_batch(rt, lanes, phases):
     phases["verify_single_s"] = time.perf_counter() - t
     say(f"mnt6753 verify and verify_fused: one good and one bad proof each "
         f"({phases['verify_single_s']:.1f} s)")
-    return by_words
+    return by_lanes
 
 
 def mnt_pairing_batch(rt, lanes, phases):
@@ -1129,8 +1208,8 @@ def mnt_pairing_batch(rt, lanes, phases):
     e(7 G1, 9 G2) against the oracle's e(G1, G2)^63, pairing_products_fused
     of e(7 G1, 9 G2) e(-63 G1, G2) = 1, each against the static schedule;
     then the unprepared against the prepared product on one proof's five
-    pairs.  Returns the launches per (entry point, word count) of the
-    unprepared calls."""
+    pairs.  Returns the launches per (entry point, word count, lanes) of
+    the unprepared call and of the fused one."""
     import random
     import torch
     from wasmsnark_tpu_torch.ops import cuda_lib
@@ -1163,7 +1242,7 @@ def mnt_pairing_batch(rt, lanes, phases):
     want = m.F6.exp(m.pairing(m.g1_gen, m.g2_gen), 63)
     if any(v != want for v in pd.unpack_f6(e)):
         raise AssertionError("e(7 G1, 9 G2) != e(G1, G2)^63 on some lane")
-    by_words = dict(cuda_lib.word_launches)
+    by_lanes = dict(cuda_lib.lane_launches)
     phases["pairing_launches"] = {k: v for k, v in counts.items() if v}
 
     cuda_lib.reset_launches()
@@ -1182,6 +1261,7 @@ def mnt_pairing_batch(rt, lanes, phases):
     if any(v != one for v in pd.unpack_f6(e2)):
         raise AssertionError("e(7 G1, 9 G2) e(-63 G1, G2) != 1 on some lane")
     phases["pairing_fused_launches"] = {k: v for k, v in counts.items() if v}
+    fused_lanes = dict(cuda_lib.lane_launches)
     say(f"mnt6753 pairing ({N_MNT} lanes): unprepared "
         f"{phases['pairing_s']:.2f} s, launches {phases['pairing_launches']};"
         f" fused 2 pairs {phases['pairing_fused_s']:.2f} s, launches "
@@ -1200,7 +1280,7 @@ def mnt_pairing_batch(rt, lanes, phases):
                              "disagree on a good proof's five pairs")
     say("mnt6753 pairing: all lanes equal e(G1, G2)^63 and 1; unprepared = "
         "prepared on a proof's five pairs, bit for bit")
-    return by_words
+    return by_lanes, fused_lanes
 
 
 def mnt_five_pairs(rt, batch):
@@ -1257,8 +1337,9 @@ def mnt_against_oracle(rt, lanes, phases):
 
 
 def run_mnt(phases):
-    """Steps 10-12; returns the launches per (entry point, word count) of
-    the steady verify batch and of the unprepared pairings."""
+    """Steps 10-12; returns the launches per (entry point, word count,
+    lanes) of the steady verify batch, the unprepared pairing and the
+    fused one."""
     import wasmsnark_tpu_torch
 
     rt = wasmsnark_tpu_torch.build_mnt6753()
@@ -1267,8 +1348,9 @@ def run_mnt(phases):
     phases["lanes_s"] = time.perf_counter() - t
     say(f"mnt6753: {N_MNT_PROOFS} synthetic proofs in "
         f"{phases['lanes_s']:.1f} s")
-    by_path = {"verify_batch": mnt_verify_batch(rt, lanes, phases),
-               "pairing_batch": mnt_pairing_batch(rt, lanes, phases)}
+    by_path = {"verify_batch": mnt_verify_batch(rt, lanes, phases)}
+    by_path["pairing_batch"], by_path["pairing_fused"] = mnt_pairing_batch(
+        rt, lanes, phases)
     mnt_against_oracle(rt, lanes, phases)
     return by_path
 
@@ -1320,10 +1402,14 @@ def main() -> int:
 
     # each kernel's launches on the path that serves it, at its word count:
     # the prove for K1-K7, the steady verify batch for K8, K9, K12, K13 and
-    # the 24-word K1/K2, the pairing batch for K10, K11 and K14
+    # the 24-word K1/K2, the pairing batch for K10, K11 and K14; per path
+    # also by lane count
     for kr in kernels:
-        counts = {path: sum(c[(fn, kr["n_words"])] for fn in kr["fns"])
-                  for path, c in by_path[kr["curve"]].items()}
+        kr["lanes_by_path"] = {
+            path: lane_counts(c, kr["fns"], kr["n_words"])
+            for path, c in by_path[kr["curve"]].items()}
+        counts = {path: sum(c.values())
+                  for path, c in kr["lanes_by_path"].items()}
         kr["launches_by_path"] = counts
         kr["launches"] = next((v for v in counts.values() if v), 0)
         if not kr["launches"]:
@@ -1331,14 +1417,22 @@ def main() -> int:
         kr["ptxas"] = {fn: ptxas.get(f"{ENTRY_KERNEL[fn]}@N{kr['n_words']}")
                        for fn in kr["fns"]}
 
+    say("kernels at the lane counts their paths launch them with")
+    t = time.perf_counter()
+    for kr in kernels:
+        at_path_lanes(kr)
+    phases["path_lanes_s"] = time.perf_counter() - t
+
     phases["wall_s"] = time.perf_counter() - _T0
     say("phases " + json.dumps(phases))
     say(f"done in {phases['wall_s']:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "n_words", "mismatched_lanes", "bytes", "launches_by_path",
-            "ptxas")
+            "ms_at_path", "lanes_at_path", "bound_ms_at_path",
+            "path_loss_ms", "path_loss_share", "n_words",
+            "mismatched_lanes", "bytes", "launches_by_path",
+            "lanes_by_path", "ptxas")
     print(json.dumps({"kernels": [{k_: kr[k_] for k_ in keys}
                                   for kr in kernels]}))
     print(smi)

@@ -78,15 +78,15 @@ def libs(tmp_path_factory):
     return build_host_libs(tmp_path_factory.mktemp("csrc_host"))
 
 
-def call(libs, fn, spec, tensors, ints=()):
-    """Run C entry point fn of the field's word-count build; returns its
-    CUDA error code."""
+def call(libs, fn, spec, tensors, ints=(), n=N):
+    """Run C entry point fn of the field's word-count build on n lanes;
+    returns its CUDA error code."""
     source = cuda_lib._ENTRY[fn][0]
     words = cuda_lib.field_words(spec)
     for t in tensors:
         assert t.is_contiguous()
     return getattr(libs[f"{source}_w{spec.n_limbs // 2}"], fn)(
-        *[t.data_ptr() for t in tensors], N, *ints, spec.n_limbs,
+        *[t.data_ptr() for t in tensors], n, *ints, spec.n_limbs,
         words.ctypes.data, None)
 
 
@@ -262,11 +262,70 @@ def test_tower_and_miller_kernels(libs, curve_name):
         assert _tower(libs, fn, spec, g, oextra)[0] == 1
 
 
-def _mnt(libs, fn, spec, groups, n_out):
-    ops = [torch.stack(g).contiguous() for g in groups]
-    out = torch.empty((n_out, spec.n_limbs, N), dtype=torch.int32)
-    rc = call(libs, fn, spec, (*ops, out))
+def _mnt(libs, fn, spec, groups, n_out, n=N):
+    ops = [torch.stack(g)[..., :n].contiguous() for g in groups]
+    out = torch.empty((n_out, spec.n_limbs, n), dtype=torch.int32)
+    rc = call(libs, fn, spec, (*ops, out), n=n)
     return rc, list(out.unbind(0))
+
+
+def _mnt_points(m):
+    """Miller-step inputs over N lanes: X, Y, Z, x2, y2 (F3 triples of
+    planes) and xP, yP, with Z = 0 on lanes 4..7 and x2 = X/Z on lanes
+    8..11."""
+    spec = m.fp_spec
+    X, Y, Z, x2, y2 = [tuple(rand(spec, 90 + 3 * k + j) for j in range(3))
+                       for k in range(5)]
+    xP, yP = rand(spec, 120), rand(spec, 121)
+    for comp in Z:                            # lanes 4..7: Z = 0
+        comp[:, 4:8] = 0
+    sl = slice(8, 12)                         # lanes 8..11: x2 = X/Z
+
+    def vals(p):
+        return [spec.from_mont(v) for v in limbs_to_ints(fp.to_numpy(p[:, sl]))]
+
+    xz = [m.F3.mul(u, m.F3.inv(z)) for u, z in zip(
+        zip(*(vals(p) for p in X)), zip(*(vals(p) for p in Z)))]
+    for k in range(3):
+        x2[k][:, sl] = fp.planes(ints_to_limbs_fast(
+            [spec.to_mont(v[k]) for v in xz], spec.n_limbs), "cpu")
+    return X, Y, Z, x2, y2, xP, yP
+
+
+def _cut(t, n):
+    """n lanes of a tree of [L, N] planes: the first n, which hold the edge
+    values and the special lanes, once n >= 12, else the last n (random
+    values)."""
+    if isinstance(t, tuple):
+        return tuple(_cut(c, n) for c in t)
+    lo = 0 if n >= 12 else N - n
+    return t[:, lo:lo + n].contiguous()
+
+
+@pytest.mark.parametrize("n", [1, 13, 30, 96])
+def test_mnt_team_kernels(libs, n):
+    """The team kernels, K12's F6 product and K14's doubling (and K14's
+    add beside them), on n lanes: one lane, ragged lane groups (13 and 30
+    are multiples of neither K12's 8 nor K14's 4 lanes a block) and full
+    ones, with the edge values, the Z = 0 lanes 4..7 and the x2 = X/Z
+    lanes 8..11 from 13 lanes on."""
+    m = mnt6753()
+    spec = m.fp_spec
+    a = _cut(tk.unflatten6([rand(spec, 70 + k) for k in range(6)]), n)
+    b = _cut(tk.unflatten6([rand(spec, 80 + k) for k in range(6)]), n)
+    rc, out = _mnt(libs, "k12_f6_mul", spec, [tk.flatten6(a), tk.flatten6(b)],
+                   tk.N6, n)
+    assert rc == 0
+    assert_equal(tk.unflatten6(out), tk.mnt_f6_mul_plain(spec, a, b))
+    X, Y, Z, x2, y2, xP, yP = _cut(_mnt_points(m), n)
+    plains = (tk.mnt_miller_dbl_plain(spec, X, Y, Z, xP, yP),
+              tk.mnt_miller_add_plain(spec, X, Y, Z, x2, y2, xP, yP))
+    groups = ([[*X, *Y, *Z], [xP, yP]], [[*X, *Y, *Z], [*x2, *y2], [xP, yP]])
+    for fn, g, plain in zip(cuda_lib.KERNELS["K14"][1], groups, plains):
+        rc, out = _mnt(libs, fn, spec, g, tk.N15, n)
+        assert rc == 0
+        (a0, bb), Xn, Yn, Zn = plain
+        assert_equal(tuple(out), (*a0, *bb, *Xn, *Yn, *Zn))
 
 
 def test_mnt_kernels(libs):
@@ -302,21 +361,8 @@ def test_mnt_kernels(libs):
     assert_equal(tk.mnt_f6_cyc_sqr_plain(spec, c),
                  tk.mnt_f6_sqr_plain(spec, c))
 
-    X, Y, Z, x2, y2 = [tuple(rand(spec, 90 + 3 * k + j) for j in range(3))
-                       for k in range(5)]
-    xP, yP = rand(spec, 120), rand(spec, 121)
-    for comp in Z:                            # lanes 4..7: Z = 0
-        comp[:, 4:8] = 0
+    X, Y, Z, x2, y2, xP, yP = _mnt_points(m)
     sl = slice(8, 12)                         # lanes 8..11: x2 = X/Z
-
-    def vals(p):
-        return [spec.from_mont(v) for v in limbs_to_ints(fp.to_numpy(p[:, sl]))]
-
-    xz = [m.F3.mul(u, m.F3.inv(z)) for u, z in zip(
-        zip(*(vals(p) for p in X)), zip(*(vals(p) for p in Z)))]
-    for k in range(3):
-        x2[k][:, sl] = fp.planes(ints_to_limbs_fast(
-            [spec.to_mont(v[k]) for v in xz], spec.n_limbs), "cpu")
     plains = (tk.mnt_miller_dbl_plain(spec, X, Y, Z, xP, yP),
               tk.mnt_miller_add_plain(spec, X, Y, Z, x2, y2, xP, yP))
     groups = ([[*X, *Y, *Z], [xP, yP]], [[*X, *Y, *Z], [*x2, *y2], [xP, yP]])
@@ -398,9 +444,9 @@ def test_chip_smoke_mnt_kernel_phase_rehearsal(libs, monkeypatch):
     rng = np.random.default_rng(smoke.SEED)
     rows = []
 
-    def record(kid, name, source, line, fn_k, fn_p, nbytes, ops, reps=50,
+    def record(kid, name, source, line, fn_k, fn_p, args, nbytes, ops,
                fns=None):
-        bad, err = smoke.mismatch(fn_k(), fn_p())
+        bad, err = smoke.mismatch(fn_k(*args), fn_p(*args))
         rows.append((kid, name, bad, err, smoke.bound(nbytes, ops)))
 
     spec = mnt6753().fp_spec
@@ -421,9 +467,54 @@ def test_chip_smoke_mnt_kernel_phase_rehearsal(libs, monkeypatch):
     assert rows[5][4][1] == "operations"          # K14 dbl: bound by ops
     for kid in ("K1", "K2", "K12", "K13", "K14"):
         assert cuda_lib.launches[kid] > 0, kid
-    assert all(cuda_lib.word_launches[(fn, 24)]
+    assert all(any(key[:2] == (fn, 24) for key in cuda_lib.lane_launches)
                for fn in cuda_lib.KERNELS["K14"][1])
     assert spec.n_limbs == 48
+
+
+def test_chip_smoke_times_rows_at_path_lanes(libs, monkeypatch):
+    """chip_smoke.py's path-lane timing on the host libraries: the launch
+    counters by lane count, the three most frequent lane counts of a row,
+    its inputs cut (or repeated) to each, the bit-equality check there
+    (a disagreeing plain version fails the row) and the bound scaled."""
+    smoke = rehearse(monkeypatch, libs)
+    spec = mnt6753().fp_spec
+    a = tk.unflatten6([rand(spec, 70 + k) for k in range(6)])
+    b = tk.unflatten6([rand(spec, 80 + k) for k in range(6)])
+    cuda_lib.reset_launches()
+    tk.mnt_f6_mul(spec, smoke.cut(a, 13, N), smoke.cut(b, 13, N))
+    tk.mnt_f6_mul(spec, smoke.cut(a, 130, N), smoke.cut(b, 130, N))
+    assert cuda_lib.lane_launches == {("k12_f6_mul", 24, 13): 1,
+                                      ("k12_f6_mul", 24, 130): 1}
+    assert smoke.lane_counts({**cuda_lib.lane_launches,
+                              ("k12_f6_sqr", 24, 13): 5},
+                             ("k12_f6_mul",), 24) == {13: 1, 130: 1}
+    grown = smoke.cut(a[0][0], 130, N)
+    assert torch.equal(grown[:, N:], a[0][0][:, :130 - N])
+    cuda_lib.reset_launches()
+    assert cuda_lib.lane_launches == {}
+
+    def row(plain):
+        return {"name": "K12 f6_mul @N24", "lanes": N, "bytes": 18 * 192 * N,
+                "ops": 10 ** 6 * N,
+                "run": (lambda a, b: tk.mnt_f6_mul(spec, a, b), plain,
+                        (a, b)),
+                "lanes_by_path": {"verify_batch": {13: 5, 30: 1},
+                                  "pairing_batch": {13: 2, 1: 4, 7: 1}}}
+
+    r = row(lambda a, b: tk.mnt_f6_mul_plain(spec, a, b))
+    smoke.at_path_lanes(r)
+    assert r["lanes_at_path"] == [1, 7, 13]
+    assert sorted(r["ms_at_path"]) == [1, 7, 13]
+    assert r["bound_ms_at_path"][13] == smoke.bound(18 * 192 * 13,
+                                                    10 ** 6 * 13)[0]
+    # on its own path (verify_batch) 13 lanes is timed, 30 is not
+    assert r["path_loss_share"] == 5 / 6
+    assert r["path_loss_ms"] == pytest.approx(
+        5 * (r["ms_at_path"][13] - r["bound_ms_at_path"][13]))
+    bad = row(lambda a, b: tk.mnt_f6_mul_plain(spec, b, b))
+    with pytest.raises(AssertionError, match="disagrees with its plain"):
+        smoke.at_path_lanes(bad)
 
 
 if __name__ == "__main__":

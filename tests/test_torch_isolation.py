@@ -94,7 +94,7 @@ def test_wrappers_on_cpu_tensors_launch_nothing():
     tk.miller_add_mtwist(Fq, (x, y), (y, x), (x, x), (y, y), (x, y), x, y)
     assert all(v == 0 for v in cuda_lib.launches.values()), cuda_lib.launches
     assert all(v == 0 for v in cuda_lib.fn_launches.values())
-    assert all(v == 0 for v in cuda_lib.word_launches.values())
+    assert cuda_lib.lane_launches == {}
     assert sorted(cuda_lib.launches, key=lambda k: int(k[1:])) == \
         [f"K{i}" for i in range(1, 15)]
 
@@ -209,7 +209,7 @@ def test_mnt_entry_points_and_modules():
 @pytest.mark.parametrize("rel", [
     "models/mnt6753.py", "models/mnt6753_constants.py",
     "models/mnt6753_device.py", "models/mnt6753_runtime.py",
-    "csrc/mnt_kernels.cu"])
+    "csrc/mnt_kernels.cu", "csrc/team.cuh"])
 def test_mnt_modules_exist_and_import_no_jax(rel):
     """The slice's new files exist; its Python modules import neither jax
     nor the JAX package, and the constants are the JAX package's, byte for

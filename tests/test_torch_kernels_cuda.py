@@ -1,7 +1,8 @@
 """The CUDA kernels K1-K14 against their plain versions on the card: K1-K10
 at BN128's 8 words, K1-K3 over BLS12-381's Fr (8 words), K1, K2, K4-K9
 and K11 over BLS12-381's Fq (12 words), and K1, K2, K4 and K12-K14 over
-MNT6753's Fq (24 words).
+MNT6753's Fq (24 words); the team kernels of K12 and K14 also at the lane
+counts of the MNT6753 paths.
 
 Marked `cuda`: they need an NVIDIA card and nvcc, and skip elsewhere.  On
 the card, where jax is not installed and tests/conftest.py would import
@@ -120,6 +121,29 @@ def test_tower_kernels_match_plain(dev, which):
                                              xi))
     with pytest.raises(RuntimeError, match="CUDA error"):
         tk.miller_dbl(spec, X, Y, Z, xP, yP)       # K10 has no 12-word build
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 512, 1280, 1 << 16])
+def test_mnt_team_kernels_match_plain(dev, n):
+    """The team kernels, K12's F6 product and K14's doubling, at the lane
+    counts of the MNT6753 paths (255, 256, 512, 1,280), one lane and 2^16,
+    with Z = 0 lanes; one lane takes a random lane, not an edge value."""
+    spec = SPECS["mnt_fq"]()
+    m = max(n, 64)
+    lo = 0 if n >= 12 else m - n
+
+    def rand(seed):
+        return _rand(spec, m, seed, dev)[:, lo:lo + n].contiguous()
+
+    a = tk.unflatten6([rand(s) for s in range(50, 56)])
+    b = tk.unflatten6([rand(s) for s in range(56, 62)])
+    _assert_equal(tk.mnt_f6_mul(spec, a, b), tk.mnt_f6_mul_plain(spec, a, b))
+    X, Y, Z = [tuple(rand(s + j) for j in range(3)) for s in (70, 73, 76)]
+    xP, yP = rand(85), rand(86)
+    for c in Z:
+        c[:, 5:9] = 0
+    _assert_equal(tk.mnt_miller_dbl(spec, X, Y, Z, xP, yP),
+                  tk.mnt_miller_dbl_plain(spec, X, Y, Z, xP, yP))
 
 
 def test_mnt_kernels_match_plain(dev):

@@ -13,7 +13,8 @@ CPU tests import every module on a machine with no `nvcc` and no card.
 Every launch goes through `launch()`, which picks the library of the
 field's word count, passes the tensors' device pointers and PyTorch's
 current stream, raises when the C entry point returns a CUDA error, and
-adds one to the kernel's launch counters.
+adds one to the kernel's launch counters (per kernel id, entry point,
+word count, and lane count).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ SOURCES = {"fp_kernels": ("fp_kernels.cu", (8, 12, 24)),
            "curve_kernels": ("curve_kernels.cu", (8, 12)),
            "tower_kernels": ("tower_kernels.cu", (8, 12)),
            "mnt_kernels": ("mnt_kernels.cu", (24,))}
-HEADERS = ("fp.cuh",)
+HEADERS = ("fp.cuh", "team.cuh")
 # every word count some library is built for
 WORDS = tuple(sorted({w for _, ws in SOURCES.values() for w in ws}))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -80,12 +81,12 @@ _SIGNATURES = {
     "k14_mnt_miller_dbl": (3, 1), "k14_mnt_miller_add": (4, 1),
 }
 
-# launches per kernel id, per C entry point, and per (entry point, word
-# count) since the last reset_launches()
+# launches per kernel id, per C entry point and per (entry point, word
+# count, lanes) since the last reset_launches(); lanes is the launch's n,
+# its first integer argument
 launches = dict.fromkeys(KERNELS, 0)
 fn_launches = dict.fromkeys(_ENTRY, 0)
-word_launches = {(fn, w): 0 for fn, (lib, _) in _ENTRY.items()
-                 for w in SOURCES[lib][1]}
+lane_launches: dict = {}
 # seconds each library took to build in this process (library -> s)
 build_seconds: dict = {}
 
@@ -94,9 +95,10 @@ _lock = threading.Lock()
 
 
 def reset_launches():
-    for counts in (launches, fn_launches, word_launches):
+    for counts in (launches, fn_launches):
         for k in counts:
             counts[k] = 0
+    lane_launches.clear()
 
 
 def libraries() -> dict:
@@ -222,4 +224,5 @@ def launch(fn: str, spec, tensors, ints):
         raise RuntimeError(f"{fn} failed: CUDA error {rc}")
     launches[kid] += 1
     fn_launches[fn] += 1
-    word_launches[(fn, w)] += 1
+    key = (fn, w, int(ints[0]))
+    lane_launches[key] = lane_launches.get(key, 0) + 1
