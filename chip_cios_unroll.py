@@ -1,40 +1,49 @@
 #!/usr/bin/env python3
-"""Experiment on one NVIDIA card: variants of the MNT6753 tower library
-`mnt_kernels.cu` (24 words), built side by side and timed in turns.
+"""Experiment on one NVIDIA card: variants of the tower libraries, built
+side by side and timed in turns.
 
-    python3 chip_cios_unroll.py [--baseline DIR] [--unrolled] [--batches R]
+    python3 chip_cios_unroll.py [--baseline DIR] [--unrolled]
+                                [--pairings R] [--batches R]
 
 Run from the root of a checkout on a machine with the CUDA toolkit and a
-card.  The variants:
+card.  Each variant is the MNT6753 library `mnt_kernels.cu` (24 words)
+and the BN128 / BLS12-381 library `tower_kernels.cu` (8 and 12 words):
 
-  rolled    the committed source (fp.cuh's CIOS outer loop rolled, as
-            mnt_kernels.cu defines FP_CIOS_ROLLED);
-  unrolled  with --unrolled, the same with the define removed;
-  baseline  with --baseline DIR, the `mnt_kernels.cu` and headers of
-            another checkout DIR (an older commit, unpacked with
-            `git archive`), as committed there.
+  rolled    the committed sources (mnt_kernels.cu defines FP_CIOS_ROLLED,
+            fp.cuh's CIOS outer loop rolled);
+  unrolled  with --unrolled, the same with that define removed;
+  baseline  with --baseline DIR, the sources and headers of another
+            checkout DIR (an older commit, unpacked with `git archive`),
+            as committed there.
 
-It compiles every variant at once (one nvcc each) into the ignored
-wasmsnark_tpu_torch/_build/cios_unroll/, prints each build's seconds and
-each kernel's registers, stack, spill stores, static shared memory and,
-where the library reports its blocks' threads (`mnt_block_threads`), the
-blocks an SM can hold by those (H100 limits: 64 K registers, 228 KB of
-shared memory with 1 KB reserved per block, 2,048 threads and 32 blocks),
-then binds each variant in turn and times K12 (product and square), K13
-and K14 (doubling and add) at 256, 512 and 2^16 lanes: the median of CUDA
-events around each wrapper call, each behind a ~1 ms device sleep; and
-the team kernels' C entry points alone (and K1's, one product a thread),
-as the mean of 20 launches in a row between two events.  The variants
-run in one order and then in the reverse one, and every variant's results
-must equal the plain versions' at 256 lanes and the first variant's at
-2^16 lanes, bit for bit.
+It compiles every library of every variant at once (one nvcc each) into
+the ignored wasmsnark_tpu_torch/_build/cios_unroll/, prints each build's
+seconds and each kernel's registers, stack, spill stores, static shared
+memory and, where the library reports its blocks' threads
+(`mnt_block_threads`, `tower_block_threads`), the blocks an SM can hold by
+those (H100 limits: 64 K registers, 228 KB of shared memory with 1 KB
+reserved per block, 2,048 threads and 32 blocks).  Then it binds each
+variant in turn and times K12 (product and square), K13 and K14 (doubling
+and add) at 256, 512 and 2^16 lanes and K9 at 8 and 12 words at 1,024 and
+2^16 lanes: the median of CUDA events around each wrapper call, each
+behind a ~1 ms device sleep; and the team kernels' C entry points alone
+(and K1's, one product a thread), as the mean of 20 launches in a row
+between two events.  The variants run in one order and then in the
+reverse one, and every variant's results must equal the plain versions'
+at the smallest lane count and the first variant's at 2^16 lanes, bit for
+bit.
 
-With --batches R it then times chip_smoke.py's steady MNT6753 verify
-batch (256 lanes, the wall time of bowe_gabizon_verify_batch, and its
-group-map-and-pairing stage alone) under each variant's library in R
-rounds, the variants in one order and then in the reverse one, after one
-warm-up batch; every batch must return its expected list.  Only the
-library of K12-K14 differs between the turns.
+With --pairings R it then times chip_smoke.py's unprepared pairing
+batches (BN128 and BLS12-381 on 1,024 lanes, MNT6753 on 256 lanes and
+fused on two pairs a lane: the wall time of the call, synchronized) under
+each variant's libraries in R rounds, the variants in one order and then
+in the reverse one, after one warm-up round, and then the card's kernel
+time of one call of each under torch.profiler; every batch must equal the
+host oracle's value.  With --batches R it times chip_smoke.py's steady
+MNT6753 verify batch (256 lanes, the wall time of
+bowe_gabizon_verify_batch, and its group-map-and-pairing stage alone) the
+same way; every batch must return its expected list.  Only the tower
+libraries differ between the turns.
 
 The last line is one JSON object of all of it.
 """
@@ -51,12 +60,24 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROLLED = "#define FP_CIOS_ROLLED\n"
-LANES = (256, 512, 1 << 16)
+# library -> (source, words)
+LIBS = {"mnt_kernels_w24": ("mnt_kernels.cu", 24),
+        "tower_kernels_w8": ("tower_kernels.cu", 8),
+        "tower_kernels_w12": ("tower_kernels.cu", 12)}
+BIG = 1 << 16                    # the lane count of the cross-variant check
+MNT_LANES = (256, 512, BIG)
+K9_LANES = (1024, BIG)
+DEVICE = "cuda"                  # the card (a host rehearsal sets "cpu")
 # H100 SM limits for the occupancy estimate
 SM_REGS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 228 * 1024, 2048, 32
-# the kernels behind mnt_block_threads' entries, in its order
-BLOCK_KERNELS = ("f6_mul_kernel", "f6_sqr_kernel", "f6_cyc_sqr_kernel",
-                 "mnt_miller_dbl_kernel", "mnt_miller_add_kernel")
+# the kernels behind each library's block-threads export, in its order
+BLOCK_KERNELS = {
+    "mnt_block_threads": ("f6_mul_kernel", "f6_sqr_kernel",
+                          "f6_cyc_sqr_kernel", "mnt_miller_dbl_kernel",
+                          "mnt_miller_add_kernel"),
+    "tower_block_threads": ("f12_mul_kernel", "f12_sqr_kernel",
+                            "f12_cyc_sqr_kernel", "miller_dbl_kernel",
+                            "miller_add_kernel")}
 
 
 def blocks_per_sm(regs, smem, threads):
@@ -69,12 +90,13 @@ def blocks_per_sm(regs, smem, threads):
 
 def block_threads(lib):
     """Kernel name -> threads a block, as the library launches them; {} for
-    a library without `mnt_block_threads` (an older source)."""
-    if not hasattr(lib, "mnt_block_threads"):
-        return {}
-    threads = (ctypes.c_int * len(BLOCK_KERNELS))()
-    lib.mnt_block_threads(threads)
-    return dict(zip(BLOCK_KERNELS, threads))
+    a library without a block-threads export (an older source)."""
+    for fn, kernels in BLOCK_KERNELS.items():
+        if hasattr(lib, fn):
+            threads = (ctypes.c_int * len(kernels))()
+            getattr(lib, fn)(threads)
+            return dict(zip(kernels, threads))
+    return {}
 
 
 def ptxas(log_path, threads):
@@ -102,11 +124,63 @@ def ptxas(log_path, threads):
     return out
 
 
+def build_variants(variants, cuda_lib):
+    """Every library of every variant, compiled at once; returns (variant
+    -> library -> bound CDLL, result dict with build seconds and ptxas)."""
+    out = os.path.join(cuda_lib.BUILD_ROOT, "cios_unroll")
+    shutil.rmtree(out, ignore_errors=True)
+    dirs, procs = {}, {}
+    t0 = time.perf_counter()
+    for k, (name, (src, rolled)) in enumerate(variants.items()):
+        d = dirs[name] = os.path.join(out, f"v{k}")
+        os.makedirs(d)
+        for f in os.listdir(src):
+            if f.endswith(".cuh"):
+                shutil.copy(os.path.join(src, f), d)
+        for f in sorted({s for s, _ in LIBS.values()}):
+            with open(os.path.join(src, f)) as fh:
+                text = fh.read()
+            if rolled is not None and f == "mnt_kernels.cu":
+                text = (ROLLED if rolled else "") + text.replace(ROLLED, "")
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(text)
+        for lib, (f, w) in LIBS.items():
+            cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, f"-DWORDS={w}",
+                   "-o", os.path.join(d, f"lib{lib}.so"), os.path.join(d, f)]
+            log = open(os.path.join(d, f"{lib}.log"), "w")
+            procs[name, lib] = subprocess.Popen(cmd, stdout=log,
+                                                stderr=subprocess.STDOUT)
+    result = {"build_s": {}, "ptxas": {}}
+    done = {}
+    while len(done) < len(procs):
+        for (name, lib), proc in procs.items():
+            if (name, lib) not in done and proc.poll() is not None:
+                if proc.returncode:
+                    with open(os.path.join(dirs[name], f"{lib}.log")) as fh:
+                        print(fh.read()[-4000:])
+                    raise RuntimeError(f"nvcc failed for {name} {lib}")
+                done[name, lib] = time.perf_counter() - t0
+        time.sleep(0.05)
+    libs = {}
+    for name in variants:
+        libs[name] = {lib: cuda_lib._bind(ctypes.CDLL(
+            os.path.join(dirs[name], f"lib{lib}.so"))) for lib in LIBS}
+        result["build_s"][name] = {lib: done[name, lib] for lib in LIBS}
+        result["ptxas"][name] = {
+            lib: ptxas(os.path.join(dirs[name], f"{lib}.log"),
+                       block_threads(libs[name][lib])) for lib in LIBS}
+        print(f"build {name}: " + json.dumps(result["build_s"][name]) + "; "
+              + json.dumps(result["ptxas"][name]), flush=True)
+    return libs, result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--baseline", help="root of another checkout")
     ap.add_argument("--unrolled", action="store_true",
                     help="also the committed source with the loop unrolled")
+    ap.add_argument("--pairings", type=int, default=0,
+                    help="rounds of the pairing batches per variant")
     ap.add_argument("--batches", type=int, default=0,
                     help="rounds of the MNT6753 verify batch per variant")
     args = ap.parse_args()
@@ -116,6 +190,8 @@ def main() -> int:
         print("chip_cios_unroll: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from wasmsnark_tpu_torch.models.bls12381 import bls12381
+    from wasmsnark_tpu_torch.models.bn128 import bn128
     from wasmsnark_tpu_torch.models.mnt6753 import mnt6753
     from wasmsnark_tpu_torch.ops import cuda_lib, fp, tower_kernels as tk
 
@@ -124,8 +200,6 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(smi, flush=True)
-    out = os.path.join(cuda_lib.BUILD_ROOT, "cios_unroll")
-    shutil.rmtree(out, ignore_errors=True)
     csrc = cuda_lib.CSRC
     variants = {"rolled": (csrc, True)}
     if args.unrolled:
@@ -133,150 +207,149 @@ def main() -> int:
     if args.baseline:
         variants["baseline"] = (os.path.join(
             args.baseline, "wasmsnark_tpu_torch", "csrc"), None)
-    dirs, procs = {}, {}
-    t0 = time.perf_counter()
-    for k, (name, (src, rolled)) in enumerate(variants.items()):
-        d = dirs[name] = os.path.join(out, f"v{k}")
-        os.makedirs(d)
-        for f in os.listdir(src):
-            if f.endswith(".cuh"):
-                shutil.copy(os.path.join(src, f), d)
-        with open(os.path.join(src, "mnt_kernels.cu")) as fh:
-            text = fh.read()
-        if rolled is not None:
-            text = (ROLLED if rolled else "") + text.replace(ROLLED, "")
-        with open(os.path.join(d, "mnt_kernels.cu"), "w") as fh:
-            fh.write(text)
-        cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-DWORDS=24", "-o", os.path.join(d, "libmnt_kernels.so"),
-               os.path.join(d, "mnt_kernels.cu")]
-        log = open(os.path.join(d, "build.log"), "w")
-        procs[name] = subprocess.Popen(cmd, stdout=log,
-                                       stderr=subprocess.STDOUT)
-    result = {"device": smi, "build_s": {}, "ptxas": {}, "ms": {}}
-    while len(result["build_s"]) < len(procs):
-        for name, proc in procs.items():
-            if name not in result["build_s"] and proc.poll() is not None:
-                if proc.returncode:
-                    with open(os.path.join(dirs[name], "build.log")) as fh:
-                        print(fh.read()[-4000:])
-                    raise RuntimeError(f"nvcc failed for {name}")
-                result["build_s"][name] = time.perf_counter() - t0
-        time.sleep(0.05)
-    libs = {name: cuda_lib._bind(ctypes.CDLL(
-        os.path.join(dirs[name], "libmnt_kernels.so"))) for name in variants}
-    for name in variants:
-        result["ptxas"][name] = ptxas(os.path.join(dirs[name], "build.log"),
-                                      block_threads(libs[name]))
-        print(f"build {name}: {result['build_s'][name]:.1f} s; "
-              + json.dumps(result["ptxas"][name]), flush=True)
+    libs, result = build_variants(variants, cuda_lib)
+    result = {"device": smi, **result, "ms": {}}
 
     import chip_smoke as smoke
-    spec = mnt6753().fp_spec
     rng = np.random.default_rng(5)
-    n = LANES[-1]
+    n = BIG
+    specs = {24: mnt6753().fp_spec, 8: bn128().fp_spec,
+             12: bls12381().fp_spec}
+    spec = specs[24]
 
-    def rand():
-        a = rng.integers(0, 1 << 16, size=(spec.n_limbs, n), dtype=np.uint32)
-        a[-1] = rng.integers(0, spec.q_limbs[-1], size=n, dtype=np.uint32)
-        return fp.planes(a, "cuda")
+    def rand(s):
+        a = rng.integers(0, 1 << 16, size=(s.n_limbs, n), dtype=np.uint32)
+        a[-1] = rng.integers(0, s.q_limbs[-1], size=n, dtype=np.uint32)
+        return fp.planes(a, DEVICE)
 
-    def median_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(2_000_000)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return sorted(times)[reps // 2]
-
-    A = tk.unflatten6([rand() for _ in range(6)])
-    B = tk.unflatten6([rand() for _ in range(6)])
-    X, Y, Z = [tuple(rand() for _ in range(3)) for _ in range(3)]
+    A = tk.unflatten6([rand(spec) for _ in range(6)])
+    B = tk.unflatten6([rand(spec) for _ in range(6)])
+    X, Y, Z = [tuple(rand(spec) for _ in range(3)) for _ in range(3)]
     for c in Z:
         c[:, 64:96] = 0
-    xP, yP = rand(), rand()
+    xP, yP = rand(spec), rand(spec)
+    F12 = {w: tk.unflatten12([rand(specs[w]) for _ in range(12)])
+           for w in (8, 12)}
+    XI = {8: tk.XI, 12: tk.XI_BLS}
     ins = (A, B, X, Y, Z, xP, yP)
 
     def cut(t, k):
         return smoke.cut(t, k, n)
 
     def runs(k):
-        A, B, X, Y, Z, xP, yP = cut(ins, k)
-        return {
-            "K12 mul": lambda: tk.mnt_f6_mul(spec, A, B),
-            "K12 sqr": lambda: tk.mnt_f6_sqr(spec, A),
-            "K13": lambda: tk.mnt_f6_cyc_sqr(spec, A),
-            "K14 dbl": lambda: tk.mnt_miller_dbl(spec, X, Y, Z, xP, yP),
-            "K14 add": lambda: tk.mnt_miller_add(spec, X, Y, Z, Y, X, xP,
-                                                 yP)}
+        """The wrappers timed at k lanes: K12-K14 at the MNT6753 lane
+        counts, K9 at its own."""
+        out = {}
+        if k in MNT_LANES:
+            A, B, X, Y, Z, xP, yP = cut(ins, k)
+            out.update({
+                "K12 mul": lambda: tk.mnt_f6_mul(spec, A, B),
+                "K12 sqr": lambda: tk.mnt_f6_sqr(spec, A),
+                "K13": lambda: tk.mnt_f6_cyc_sqr(spec, A),
+                "K14 dbl": lambda: tk.mnt_miller_dbl(spec, X, Y, Z, xP, yP),
+                "K14 add": lambda: tk.mnt_miller_add(spec, X, Y, Z, Y, X,
+                                                     xP, yP)})
+        if k in K9_LANES:
+            for w in (8, 12):
+                a = cut(F12[w], k)
+                out[f"K9 @N{w}"] = (lambda a=a, w=w: tk.f12_cyc_sqr(
+                    specs[w], a, XI[w]))
+        return out
+
+    def plain(k):
+        """The plain versions of runs(k)'s wrappers, in its order."""
+        out = []
+        if k in MNT_LANES:
+            A, B, X, Y, Z, xP, yP = cut(ins, k)
+            out += [tk.mnt_f6_mul_plain(spec, A, B),
+                    tk.mnt_f6_sqr_plain(spec, A),
+                    tk.mnt_f6_cyc_sqr_plain(spec, A),
+                    tk.mnt_miller_dbl_plain(spec, X, Y, Z, xP, yP),
+                    tk.mnt_miller_add_plain(spec, X, Y, Z, Y, X, xP, yP)]
+        if k in K9_LANES:
+            out += [tk.f12_cyc_sqr_plain(specs[w], cut(F12[w], k), XI[w])
+                    for w in (8, 12)]
+        return _leaves(out)
 
     def raw(k):
         """The team kernels' C entry points alone on stacked operands, and
         K1's: one base product a thread, for scale."""
-        A, B, X, Y, Z, xP, yP = cut(ins, k)
-        f6 = [torch.stack(tk.flatten6(A)), torch.stack(tk.flatten6(B)),
-              torch.empty((6, spec.n_limbs, k), dtype=torch.int32,
-                          device="cuda")]
-        dbl = [torch.stack([*X, *Y, *Z]), torch.stack([xP, yP]),
-               torch.empty((15, spec.n_limbs, k), dtype=torch.int32,
-                           device="cuda")]
-        k1 = [A[0][0], B[0][0], torch.empty_like(A[0][0])]
-        return {"K12 mul": ("k12_f6_mul", f6), "K14 dbl":
-                ("k14_mnt_miller_dbl", dbl), "K1": ("k1_mont_mul", k1)}
+        def empty(planes, s):
+            return torch.empty((planes, s.n_limbs, k), dtype=torch.int32,
+                               device=DEVICE)
 
-    def stream_ms(fn, tensors, k, reps=20):
+        out = {}
+        if k in MNT_LANES:
+            A, B, X, Y, Z, xP, yP = cut(ins, k)
+            pts = [torch.stack([*X, *Y, *Z]), torch.stack([xP, yP])]
+            out.update({
+                "K12 mul": ("k12_f6_mul", spec, [
+                    torch.stack(tk.flatten6(A)), torch.stack(tk.flatten6(B)),
+                    empty(6, spec)], ()),
+                "K14 dbl": ("k14_mnt_miller_dbl", spec,
+                            [*pts, empty(15, spec)], ()),
+                "K14 add": ("k14_mnt_miller_add", spec,
+                            [pts[0], torch.stack([*Y, *X]), pts[1],
+                             empty(15, spec)], ()),
+                "K1": ("k1_mont_mul", spec,
+                       [A[0][0], B[0][0], torch.empty_like(A[0][0])], ())})
+        if k in K9_LANES:
+            for w in (8, 12):
+                out[f"K9 @N{w}"] = ("k9_f12_cyc_sqr", specs[w], [
+                    torch.stack(tk.flatten12(cut(F12[w], k))),
+                    empty(12, specs[w])], XI[w])
+        return out
+
+    def stream_ms(fn, s, tensors, k, ints, reps=20):
         """Milliseconds a launch in a stream of reps launches, behind a
         device sleep: the kernel without its wrapper's stacking."""
-        cuda_lib.launch(fn, spec, tensors, (k,))
+        cuda_lib.launch(fn, s, tensors, (k, *ints))
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(2_000_000)
         a.record()
         for _ in range(reps):
-            cuda_lib.launch(fn, spec, tensors, (k,))
+            cuda_lib.launch(fn, s, tensors, (k, *ints))
         b.record()
         b.synchronize()
         return a.elapsed_time(b) / reps
 
-    small = runs(LANES[0])
-    plain = _leaves([
-        tk.mnt_f6_mul_plain(spec, *cut((A, B), LANES[0])),
-        tk.mnt_f6_sqr_plain(spec, cut(A, LANES[0])),
-        tk.mnt_f6_cyc_sqr_plain(spec, cut(A, LANES[0])),
-        tk.mnt_miller_dbl_plain(spec, *cut((X, Y, Z, xP, yP), LANES[0])),
-        tk.mnt_miller_add_plain(spec, *cut((X, Y, Z, Y, X, xP, yP),
-                                           LANES[0]))])
+    cuda_lib._libs.update(libs[next(iter(variants))])
+    if args.pairings or args.batches:
+        cuda_lib.build()              # the field and curve libraries
+    lanes = sorted(set(MNT_LANES + K9_LANES))
+    small = {k: plain(k) for k in (MNT_LANES[0], K9_LANES[0])}
     first = None
     order = list(variants) + list(variants)[::-1]
     for turn, name in enumerate(order):
-        cuda_lib._libs["mnt_kernels_w24"] = libs[name]
-        got = _leaves([fn() for fn in small.values()])
+        cuda_lib._libs.update(libs[name])
+        same = True
+        for k, want in small.items():
+            got = _leaves([fn() for fn in runs(k).values()])
+            same &= all(torch.equal(a, b) for a, b in zip(got, want,
+                                                          strict=True))
         big = _leaves([fn() for fn in runs(n).values()])
         torch.cuda.synchronize()
         first = first or [t.cpu() for t in big]
-        same = (all(torch.equal(a, b) for a, b in zip(got, plain))
-                and all(torch.equal(a.cpu(), b) for a, b in zip(big, first)))
+        same &= all(torch.equal(a.cpu(), b) for a, b in zip(big, first))
         if not same:
             print(f"{name}: results differ from the plain versions or from "
                   "the first variant")
             return 1
         ms = {}
-        for k in LANES:
+        for k in lanes:
             for kern, fn in runs(k).items():
                 reps = 10 if k == n and kern.startswith("K14") else 30
-                ms[f"{kern} @{k}"] = median_ms(fn, reps)
-            for kern, (fn, tensors) in raw(k).items():
-                ms[f"{kern} kernel @{k}"] = stream_ms(fn, tensors, k)
+                ms[f"{kern} @{k}"] = smoke.time_cuda(fn, reps)
+            for kern, (fn, s, tensors, ints) in raw(k).items():
+                ms[f"{kern} kernel @{k}"] = stream_ms(fn, s, tensors, k, ints)
         result["ms"].setdefault(name, []).append(ms)
         print(f"turn {turn} {name}: " + ", ".join(
             f"{key} {v:.4f}" for key, v in ms.items()), flush=True)
+    if args.pairings:
+        result["pairing_s"] = pairing_batches(smoke, libs, cuda_lib,
+                                              args.pairings)
     if args.batches:
         result["verify_batch_s"] = verify_batches(
             smoke, libs, cuda_lib, args.batches)
@@ -284,9 +357,110 @@ def main() -> int:
     return 0
 
 
+def turns(names, rounds):
+    """A warm-up turn of the first variant, then rounds of every variant,
+    in one order and then in the reverse one."""
+    return [(True, names[0])] + [(False, name) for r in range(rounds)
+                                 for name in (names if r % 2 == 0
+                                              else names[::-1])]
+
+
+def pairing_batches(smoke, libs, cuda_lib, rounds):
+    """Seconds of chip_smoke.py's unprepared pairing batches under each
+    variant's libraries, in alternating turns: BN128 and BLS12-381 on
+    N_VERIFY lanes of e(7 G1, 9 G2), MNT6753 on N_MNT lanes of the same
+    and fused on two pairs a lane, e(7 G1, 9 G2) e(-63 G1, G2); each
+    result held against the host oracle's e(G1, G2)^63 (or 1)."""
+    import torch
+    from wasmsnark_tpu_torch.ops.curve import map_leaf
+    from wasmsnark_tpu_torch.ops.pairing import (mnt6753_pairing_device,
+                                                 pairing_device)
+
+    def on_lanes(points, pack, n):    # pair j = points[j] on every lane
+        return map_leaf(pack([p for p in points for _ in range(n)]),
+                        lambda a: a.reshape(a.shape[0], len(points), n))
+
+    batches = {}
+    for curve in smoke.CURVES:
+        pd = pairing_device(curve)
+        m = pd.m
+        p7 = m.G1.affine(m.G1.times_scalar(m.g1_gen, 7))[:2]
+        q9 = m.G2.affine(m.G2.times_scalar(m.g2_gen, 9))[:2]
+        g1 = on_lanes([p7], pd.pack_g1, smoke.N_VERIFY)
+        g2 = on_lanes([q9], pd.pack_g2, smoke.N_VERIFY)
+        want = m.F12.exp(m.final_exponentiation(m.miller_loop(
+            m.G1.affine(m.g1_gen)[:2], m.G2.affine(m.g2_gen)[:2])), 63)
+        batches[curve] = (lambda pd=pd, g1=g1, g2=g2: pd.pairing_product(
+            g1, g2, 1), lambda e, pd=pd, want=want: all(
+                v == want for v in pd.unpack_f12(e)))
+    pd = mnt6753_pairing_device()
+    m = pd.m
+    G1, G2 = m.G1, m.G2
+    p7 = G1.affine(G1.times_scalar(m.g1_gen, 7))[:2]
+    pm63 = G1.affine(G1.neg(G1.times_scalar(m.g1_gen, 63)))[:2]
+    q9 = G2.affine(G2.times_scalar(m.g2_gen, 9))[:2]
+    q1 = G2.affine(m.g2_gen)[:2]
+    nm = smoke.N_MNT
+    g1, g2 = on_lanes([p7], pd.pack_g1, nm), on_lanes([q9], pd.pack_g2, nm)
+    g1f = on_lanes([p7, pm63], pd.pack_g1, nm)
+    g2f = on_lanes([q9, q1], pd.pack_g2, nm)
+    want = m.F6.exp(m.pairing(m.g1_gen, m.g2_gen), 63)
+    batches["mnt6753"] = (lambda: pd.pairing_products(g1, g2), lambda e: all(
+        v == want for v in pd.unpack_f6(e)))
+    batches["mnt6753 fused"] = (
+        lambda: pd.pairing_products_fused(g1f, g2f),
+        lambda e: all(v == m.F6.one() for v in pd.unpack_f6(e)))
+
+    names = list(libs)
+    out = {name: {b: [] for b in batches} for name in names}
+    for turn, (warm, name) in enumerate(turns(names, rounds)):
+        cuda_lib._libs.update(libs[name])
+        secs = {}
+        for b, (run, ok) in batches.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            e = run()
+            torch.cuda.synchronize()
+            secs[b] = time.perf_counter() - t
+            if not ok(e):
+                raise AssertionError(f"{b} pairing batch wrong under {name}")
+            if not warm:
+                out[name][b].append(secs[b])
+        print(f"pairing turn {turn} {name}: " + ", ".join(
+            f"{b} {s:.4f} s" for b, s in secs.items()), flush=True)
+    for name in names:                # then one profiled call of each
+        cuda_lib._libs.update(libs[name])
+        out[name]["device"] = {b: device_ms(run)
+                               for b, (run, _) in batches.items()}
+        print(f"pairing {name} on the card: " + json.dumps(
+            out[name]["device"]), flush=True)
+    return out
+
+
+def device_ms(run):
+    """The card's kernel time in one call of run(), from torch.profiler:
+    the sum over its kernels, and the five that take most of it (ms); a
+    total of None where the profiler recorded no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA]
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:5]
+    return {"total_ms": sum(e.self_device_time_total for e in ev) / 1e3
+            or None,
+            "top_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                       for e in top}}
+
+
 def verify_batches(smoke, libs, cuda_lib, rounds):
     """Seconds of the steady MNT6753 verify batch and of its group map and
-    pairing stage (rt._check) under each library, in alternating turns."""
+    pairing stage (rt._check) under each variant's libraries, in
+    alternating turns."""
     import random
     import torch
     import wasmsnark_tpu_torch
@@ -302,12 +476,8 @@ def verify_batches(smoke, libs, cuda_lib, rounds):
     want_ok = [w for w, mm in zip(want, ms) if mm is not None]
     names = list(libs)
     out = {name: {"batch": [], "pairing": []} for name in names}
-    turns = ["warm-up"] + [name for r in range(rounds)
-                           for name in (names if r % 2 == 0
-                                        else names[::-1])]
-    for turn, name in enumerate(turns):
-        cuda_lib._libs["mnt_kernels_w24"] = libs[names[0] if turn == 0
-                                                 else name]
+    for turn, (warm, name) in enumerate(turns(names, rounds)):
+        cuda_lib._libs.update(libs[name])
         torch.cuda.synchronize()
         t = time.perf_counter()
         got = rt.bowe_gabizon_verify_batch(vk, ins, prs, fused=True,
@@ -322,7 +492,7 @@ def verify_batches(smoke, libs, cuda_lib, rounds):
             raise AssertionError(f"verify batch wrong under {name}")
         print(f"verify batch turn {turn} {name}: batch {batch_s:.3f} s, "
               f"group map and pairing {pairing_s:.3f} s", flush=True)
-        if turn:
+        if not warm:
             out[name]["batch"].append(batch_s)
             out[name]["pairing"].append(pairing_s)
     return out

@@ -97,12 +97,17 @@ N_LANES = 1 << 16                # lanes of each kernel check
 SEED = 20261017
 DEVICE = "cuda"                  # the card (a host rehearsal sets "cpu")
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
-# the 32-bit non-tensor rate (float32 outside the tensor cores, an FMA
-# counted as 2 operations; a 32x32-bit integer multiply-add is counted the
-# same way)
+# H100 SXM peaks at the 700 W limit: HBM bytes/s (NVIDIA data sheet), and
+# the 32-bit integer multiply-add rate, a multiply-add counted as 2
+# operations as mm_ops counts them.  The CUDA C++ Programming Guide's
+# throughput table of arithmetic instructions gives compute capability 9.0
+# 64 results a clock an SM for 32-bit integer multiply, multiply-add and
+# extended-precision multiply-add, half its 128 for float32 multiply-add:
+# so half the data sheet's 67 TFLOP/s of float32 (an FMA as 2 operations).
+# Modular adds are counted at the same rate, which leaves the bound a lower
+# bound.
 PEAK_BYTES = 3.35e12
-PEAK_OPS = 67e12
+PEAK_OPS = 67e12 * 64 / 128
 N_VERIFY = 1024                  # proofs per verify batch: the JAX kernels'
                                  # lane tile TOWER_TILE_B (tower_pallas.py)
 N_MNT = 256                      # MNT6753 lanes: host marshalling costs

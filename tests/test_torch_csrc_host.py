@@ -200,10 +200,10 @@ def test_curve_kernels(libs, curve_name):
         assert_equal(outs, plain)
 
 
-def _tower(libs, fn, spec, groups, ints):
-    ops = [torch.stack(g).contiguous() for g in groups]
-    out = torch.empty((tk.N12, spec.n_limbs, N), dtype=torch.int32)
-    rc = call(libs, fn, spec, (*ops, out), ints)
+def _tower(libs, fn, spec, groups, ints, n=N):
+    ops = [torch.stack(g)[..., :n].contiguous() for g in groups]
+    out = torch.empty((tk.N12, spec.n_limbs, n), dtype=torch.int32)
+    rc = call(libs, fn, spec, (*ops, out), ints, n)
     return rc, list(out.unbind(0))
 
 
@@ -262,6 +262,49 @@ def test_tower_and_miller_kernels(libs, curve_name):
         assert _tower(libs, fn, spec, g, oextra)[0] == 1
 
 
+def _cyclotomic(m, seed, count):
+    """count elements of the cyclotomic subgroup of the curve's F12: the
+    easy part of the final exponentiation, f^((q^6 - 1)(q^2 + 1)), of
+    random f."""
+    rng = np.random.default_rng(seed)
+    F, q = m.F12, m.fp_spec.q
+    out = []
+    for _ in range(count):
+        f = tuple(tuple(tuple(int(v) % q for v in rng.integers(
+            1, 2 ** 62, size=2)) for _ in range(3)) for _ in range(2))
+        t = F.mul(F.conjugate(f), F.inv(f))
+        out.append(F.mul(m.frobenius(t, 2), t))
+    return out
+
+
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+@pytest.mark.parametrize("n", [1, 13, 30, 96])
+def test_k9_team_kernel(libs, curve_name, n):
+    """K9's team kernel at 8 (BN128) and 12 (BLS12-381) words on n lanes:
+    one lane, ragged lane groups (13 and 30 are not multiples of its 8
+    lanes a block) and full ones; the edge values on lanes 0..3 and
+    cyclotomic elements on lanes 4..11 and the last lane, where the
+    cyclotomic square equals the F12 square."""
+    m = CURVES[curve_name]()
+    spec = m.fp_spec
+    xi = tk.XI if curve_name == "bn128" else tk.XI_BLS
+    planes = [rand(spec, 140 + k) for k in range(12)]
+    cyc = [tk.flatten12(c) for c in _cyclotomic(m, 11, 9)]
+    on = [*range(4, 12), N - 1]
+    for k, p in enumerate(planes):
+        p[:, on] = fp.planes(ints_to_limbs_fast(
+            [spec.to_mont(c[k]) for c in cyc], spec.n_limbs), "cpu")
+    a = _cut(tk.unflatten12(planes), n)
+    rc, out = _tower(libs, "k9_f12_cyc_sqr", spec, [tk.flatten12(a)], xi, n)
+    assert rc == 0
+    got = tk.unflatten12(out)
+    assert_equal(got, tk.f12_cyc_sqr_plain(spec, a, xi))
+    on = slice(4, 12) if n >= 12 else slice(n - 1, n)
+    for x, y in zip(leaves(got), leaves(tk.f12_sqr_plain(spec, a, xi)),
+                    strict=True):
+        assert torch.equal(x[:, on], y[:, on])
+
+
 def _mnt(libs, fn, spec, groups, n_out, n=N):
     ops = [torch.stack(g)[..., :n].contiguous() for g in groups]
     out = torch.empty((n_out, spec.n_limbs, n), dtype=torch.int32)
@@ -304,11 +347,11 @@ def _cut(t, n):
 
 @pytest.mark.parametrize("n", [1, 13, 30, 96])
 def test_mnt_team_kernels(libs, n):
-    """The team kernels, K12's F6 product and K14's doubling (and K14's
-    add beside them), on n lanes: one lane, ragged lane groups (13 and 30
-    are multiples of neither K12's 8 nor K14's 4 lanes a block) and full
-    ones, with the edge values, the Z = 0 lanes 4..7 and the x2 = X/Z
-    lanes 8..11 from 13 lanes on."""
+    """The MNT6753 team kernels, K12's F6 product and K14's doubling and
+    mixed add, on n lanes: one lane, ragged lane groups (13 and 30 are
+    multiples of neither K12's 8 nor K14's 4 lanes a block) and full ones,
+    with the edge values, the Z = 0 lanes 4..7 and the x2 = X/Z lanes
+    8..11 from 13 lanes on."""
     m = mnt6753()
     spec = m.fp_spec
     a = _cut(tk.unflatten6([rand(spec, 70 + k) for k in range(6)]), n)

@@ -1,8 +1,8 @@
 """The CUDA kernels K1-K14 against their plain versions on the card: K1-K10
 at BN128's 8 words, K1-K3 over BLS12-381's Fr (8 words), K1, K2, K4-K9
 and K11 over BLS12-381's Fq (12 words), and K1, K2, K4 and K12-K14 over
-MNT6753's Fq (24 words); the team kernels of K12 and K14 also at the lane
-counts of the MNT6753 paths.
+MNT6753's Fq (24 words); the team kernels of K9, K12 and K14 also at the
+lane counts of their paths.
 
 Marked `cuda`: they need an NVIDIA card and nvcc, and skip elsewhere.  On
 the card, where jax is not installed and tests/conftest.py would import
@@ -125,9 +125,10 @@ def test_tower_kernels_match_plain(dev, which):
 
 @pytest.mark.parametrize("n", [1, 255, 256, 512, 1280, 1 << 16])
 def test_mnt_team_kernels_match_plain(dev, n):
-    """The team kernels, K12's F6 product and K14's doubling, at the lane
-    counts of the MNT6753 paths (255, 256, 512, 1,280), one lane and 2^16,
-    with Z = 0 lanes; one lane takes a random lane, not an edge value."""
+    """The MNT6753 team kernels, K12's F6 product and K14's doubling and
+    mixed add, at the lane counts of the MNT6753 paths (255, 256, 512,
+    1,280), one lane and 2^16, with Z = 0 lanes; one lane takes a random
+    lane, not an edge value."""
     spec = SPECS["mnt_fq"]()
     m = max(n, 64)
     lo = 0 if n >= 12 else m - n
@@ -138,12 +139,30 @@ def test_mnt_team_kernels_match_plain(dev, n):
     a = tk.unflatten6([rand(s) for s in range(50, 56)])
     b = tk.unflatten6([rand(s) for s in range(56, 62)])
     _assert_equal(tk.mnt_f6_mul(spec, a, b), tk.mnt_f6_mul_plain(spec, a, b))
-    X, Y, Z = [tuple(rand(s + j) for j in range(3)) for s in (70, 73, 76)]
+    X, Y, Z, x2, y2 = [tuple(rand(s + j) for j in range(3))
+                       for s in (70, 73, 76, 79, 82)]
     xP, yP = rand(85), rand(86)
     for c in Z:
         c[:, 5:9] = 0
     _assert_equal(tk.mnt_miller_dbl(spec, X, Y, Z, xP, yP),
                   tk.mnt_miller_dbl_plain(spec, X, Y, Z, xP, yP))
+    _assert_equal(tk.mnt_miller_add(spec, X, Y, Z, x2, y2, xP, yP),
+                  tk.mnt_miller_add_plain(spec, X, Y, Z, x2, y2, xP, yP))
+
+
+@pytest.mark.parametrize("which", ["fp", "bls_fq"])
+@pytest.mark.parametrize("n", [1, 1000, 1024, 1 << 16])
+def test_k9_team_kernel_match_plain(dev, which, n):
+    """K9's team kernel at 8 and 12 words, at the pairing batches' 1,024
+    lanes, a ragged count, one lane and 2^16."""
+    spec = SPECS[which]()
+    xi = tk.XI if which == "fp" else tk.XI_BLS
+    m = max(n, 64)
+    lo = 0 if n >= 12 else m - n
+    a = tk.unflatten12([_rand(spec, m, s, dev)[:, lo:lo + n].contiguous()
+                        for s in range(20, 32)])
+    _assert_equal(tk.f12_cyc_sqr(spec, a, xi),
+                  tk.f12_cyc_sqr_plain(spec, a, xi))
 
 
 def test_mnt_kernels_match_plain(dev):

@@ -32,19 +32,19 @@
 // write 15 planes (a0, b, X', Y', Z').
 //
 // What bounds them on the H100: counted against the card's peaks, K14's
-// steps (84-108 Montgomery products of ~2N^2 = 1,152 wide multiply-adds)
+// steps (84-90 Montgomery products of ~2N^2 = 1,152 wide multiply-adds)
 // need more time for their operations than for their 26-32 planes of 2N
 // words per lane, and K12's product about as much for both.  But the
 // MNT6753 paths launch them on 255-512 lanes, where one thread per lane
 // fills 4-8 of the 132 SMs and the time is one thread's serial chain of
-// products (18 in K12's product, 108 in a one-thread doubling): the latency
-// of a thread bounds them, not the card's throughput.  So the product and
-// the doubling run a team of threads per lane (team.cuh): the lane's values
-// in shared memory, one base product per thread per round, which shortens
-// the chain to one round of products (K12) and four (K14) plus their
-// combines.  K12's square, K13 and K14's add still run one thread per
-// lane: an F6 operand is 6N = 144 words and a Miller point 9N = 216, more
-// than the 255 registers of a thread, so their base product is one
+// products (18 in K12's product, 84-108 in a one-thread Miller step): the
+// latency of a thread bounds them, not the card's throughput.  So K12's
+// product and both Miller steps run a team of threads per lane (team.cuh):
+// the lane's values in shared memory, one base product per thread per
+// round, which shortens the chain to one round of products (K12) and four
+// (each K14 step) plus their combines.  K12's square and K13 still run one
+// thread per lane: an F6 operand is 6N = 144 words, more than fits the 255
+// registers of a thread beside the CIOS state, so their base product is one
 // __noinline__ copy of the CIOS body, the F3 product is __noinline__ too,
 // and they read their inputs from device memory where a formula needs
 // them again instead of keeping them live; the call boundaries cost spills
@@ -53,16 +53,15 @@
 // Both CIOS products here, fmul's and the team kernels' (team.cuh
 // mont_mul_nc), keep their outer loop rolled: on the H100 that builds this
 // library ~11 s faster, and the team kernels run faster rolled at every
-// lane count; the one-thread kernels (K12's square, K13, K14's add) would
-// run 15-24 % faster unrolled at the paths' 256 lanes (chip_cios_unroll.py,
-// PERF.md §6), which is left to their redesign.
+// lane count; the one-thread kernels (K12's square, K13) would run 15-24 %
+// faster unrolled at the paths' 256 lanes (chip_cios_unroll.py, PERF.md
+// §6), which is left to their redesign.
 #define FP_CIOS_ROLLED
 #include "team.cuh"
 
 namespace {
 
 constexpr int kMntThreads = 64;
-constexpr int kWarp = 32;
 constexpr int kNR = 11;            // F3 non-residue, G1's a, G2's a2 / v^2
 
 template <int N>
@@ -92,30 +91,10 @@ __device__ __forceinline__ F3<N> f3_sub(const Field<N>& f, const F3<N>& a,
   return {sub(f, a.c0, b.c0), sub(f, a.c1, b.c1), sub(f, a.c2, b.c2)};
 }
 
-template <int N>
-__device__ __forceinline__ F3<N> f3_small(const Field<N>& f, const F3<N>& a,
-                                          int k) {
-  return {mul_small(f, a.c0, k), mul_small(f, a.c1, k),
-          mul_small(f, a.c2, k)};
-}
-
 // v * a = (11 a2, a0, a1)
 template <int N>
 __device__ __forceinline__ F3<N> f3_mulv(const Field<N>& f, const F3<N>& a) {
   return {mul_small(f, a.c2, kNR), a.c0, a.c1};
-}
-
-// v^2 * a = (11 a1, 11 a2, a0)
-template <int N>
-__device__ __forceinline__ F3<N> f3_mulv2(const Field<N>& f, const F3<N>& a) {
-  return {mul_small(f, a.c1, kNR), mul_small(f, a.c2, kNR), a.c0};
-}
-
-// a * s for s in Fp: 3 base products
-template <int N>
-__device__ __forceinline__ F3<N> f3_scal(const Field<N>& f, const F3<N>& a,
-                                         const Fe<N>& s) {
-  return {fmul(f, a.c0, s), fmul(f, a.c1, s), fmul(f, a.c2, s)};
 }
 
 // Karatsuba over the cubic extension, 6 base products (build_f3m.js,
@@ -416,33 +395,128 @@ __global__ void __launch_bounds__(kDblLanes * kDblTeam)
 // In: xyz = (X, Y, Z) [9, L, n], q = (x2, y2) [6, L, n], p = (xP, yP).
 // mnt_add_formula: th = y2 Z - Y, lm = x2 Z - X; line a0 = v^2 (lm yP),
 // b = th x2 - (y2 lm + v (th xP)); C = th^2, D = lm^2, E = lm D, F = Z C,
-// G = X D, H = F - 2G - E; X' = lm H, Y' = th (G - H) - E Y, Z' = Z E.
+// G = X D, H = F - 2G - E; X' = lm H, Y' = th (G - H) - E Y, Z' = Z E,
+// each square a product of the value with itself as in the formula.  Out:
+// (a0, b, X', Y', Z') [15, L, n].
+//
+// By a team of kAddTeam threads per lane over kAddLanes lanes a block, in
+// four levels of F3 products (84 base products, at most 30 a level), each
+// followed by its combine:
+//   P1  y2 Z, x2 Z                          -> th, lm
+//   P2  lm yP, th xP (in Fp), th x2, y2 lm, th th, lm lm
+//                                           -> a0, b, C, D
+//   P3  lm D, Z C, X D                      -> E, F, G; then H, G - H
+//   P4  lm H, th (G - H), E Y, Z E          -> X', Y', Z'
+// P3's combine is two stages, since H and G - H take the coefficients of
+// three products.  Slots: X 0, Y 3, Z 6, x2 9, y2 12, xP 15, yP 16, th 17,
+// lm 20, C 23 (then F), D 26 (then G), E 29, H 32, G - H 35, and the raw
+// base products of the level in flight from kAddRaw (30 slots).
+constexpr int kAddLanes = 4;
+constexpr int kAddTeam = 30;
+constexpr int kAddRaw = 38;
+constexpr int kAddSlots = kAddRaw + 30;
+
+__constant__ Prod kAddProds[84] = {
+    // P1
+    F3_PRODS(12, 6, kAddRaw), F3_PRODS(9, 6, kAddRaw + 6),
+    // P2
+    F3_SCAL(20, 16, kAddRaw), F3_SCAL(17, 15, kAddRaw + 3),
+    F3_PRODS(17, 9, kAddRaw + 6), F3_PRODS(12, 20, kAddRaw + 12),
+    F3_PRODS(17, 17, kAddRaw + 18), F3_PRODS(20, 20, kAddRaw + 24),
+    // P3
+    F3_PRODS(20, 26, kAddRaw), F3_PRODS(6, 23, kAddRaw + 6),
+    F3_PRODS(0, 26, kAddRaw + 12),
+    // P4
+    F3_PRODS(20, 32, kAddRaw), F3_PRODS(17, 35, kAddRaw + 6),
+    F3_PRODS(29, 3, kAddRaw + 12), F3_PRODS(6, 29, kAddRaw + 18)};
+__constant__ int kAddLevel[5] = {0, 12, 42, 60, 84};   // P1-P4 in kAddProds
+
+template <int N, int G>
+__device__ __forceinline__ void add_combine(const Field<N>& f,
+                                            const Slots<N, G>& s, int level,
+                                            uint32_t* __restrict__ out,
+                                            int64_t base, int64_t n) {
+  constexpr int r = kAddRaw;
+  switch (level) {
+    case 0:
+      team_for<G>(6, base, n, [&](int c, int g) {   // th = y2Z - Y, lm = x2Z - X
+        const int k = c % 3;
+        s.put(17 + c, g, sub(f, f3_coef<N, G>(f, s, r + 6 * (c / 3), k, g),
+                             s.get((c < 3 ? 3 : 0) + k, g)));
+      });
+      break;
+    case 1:
+      team_for<G>(6, base, n, [&](int c, int g) {   // C = th th, D = lm lm
+        s.put(23 + c, g, f3_coef<N, G>(f, s, r + 18 + 6 * (c / 3), c % 3, g));
+      });
+      team_for<G>(3, base, n, [&](int k, int g) {   // a0 = v^2 (lm yP)
+        const Fe<N> t = s.get(r + (k + 1) % 3, g);
+        st<N>(out, k, n, base + g, select(k == 2, t, mul_small(f, t, kNR)));
+      }, kWarp);
+      team_for<G>(3, base, n, [&](int k, int g) {   // b = th x2 - (y2 lm + v th xP)
+        // the sum first: one coefficient live at a time keeps the kernel
+        // from spilling
+        Fe<N> y = f3_coef<N, G>(f, s, r + 12, k, g);
+        const Fe<N> t = s.get(r + 3 + (k + 2) % 3, g);
+        y = add(f, y, select(k == 0, mul_small(f, t, kNR), t));
+        st<N>(out, 3 + k, n, base + g,
+              sub(f, f3_coef<N, G>(f, s, r + 6, k, g), y));
+      }, 2 * kWarp);
+      break;
+    case 2:
+      team_for<G>(9, base, n, [&](int c, int g) {   // E, F over C, G over D
+        const int i = c / 3;
+        s.put((i == 0 ? 29 : 20 + 3 * i) + c % 3, g,
+              f3_coef<N, G>(f, s, r + 6 * i, c % 3, g));
+      });
+      __syncthreads();
+      team_for<G>(6, base, n, [&](int c, int g) {   // H = F - 2G - E, G - H
+        const int k = c % 3;
+        const Fe<N> gk = s.get(26 + k, g);
+        const Fe<N> h = sub(f, sub(f, s.get(23 + k, g), add(f, gk, gk)),
+                            s.get(29 + k, g));
+        s.put(32 + c, g, select(c < 3, h, sub(f, gk, h)));
+      });
+      break;
+    default:
+      team_for<G>(6, base, n, [&](int c, int g) {   // X' = lm H, Z' = Z E
+        const int i = c / 3;
+        st<N>(out, 6 + 6 * i + c % 3, n, base + g,
+              f3_coef<N, G>(f, s, r + 18 * i, c % 3, g));
+      });
+      team_for<G>(3, base, n, [&](int k, int g) {   // Y' = th (G - H) - E Y
+        st<N>(out, 9 + k, n, base + g,
+              sub(f, f3_coef<N, G>(f, s, r + 6, k, g),
+                  f3_coef<N, G>(f, s, r + 12, k, g)));
+      }, kWarp);
+  }
+}
+
 template <int N>
-__global__ void __launch_bounds__(kMntThreads)
+__global__ void __launch_bounds__(kAddLanes * kAddTeam)
     mnt_miller_add_kernel(Field<N> f, const uint32_t* __restrict__ xyz,
                           const uint32_t* __restrict__ q,
                           const uint32_t* __restrict__ p,
                           uint32_t* __restrict__ out, int64_t n) {
-  LANE_LOOP(i, n) {
-    F3<N> Z = ld3<N>(xyz, 6, n, i);
-    F3<N> x2 = ld3<N>(q, 0, n, i), y2 = ld3<N>(q, 3, n, i);
-    F3<N> th = f3_sub(f, f3_mul(f, y2, Z), ld3<N>(xyz, 3, n, i));
-    F3<N> lm = f3_sub(f, f3_mul(f, x2, Z), ld3<N>(xyz, 0, n, i));
-    st3<N>(out, 0, n, i, f3_mulv2(f, f3_scal(f, lm, ld<N>(p, 1, n, i))));
-    st3<N>(out, 3, n, i,
-           f3_sub(f, f3_mul(f, th, x2),
-                  f3_add(f, f3_mul(f, y2, lm),
-                         f3_mulv(f, f3_scal(f, th, ld<N>(p, 0, n, i))))));
-    F3<N> C = f3_mul(f, th, th), D = f3_mul(f, lm, lm);
-    F3<N> E = f3_mul(f, lm, D);
-    F3<N> Fv = f3_mul(f, Z, C);
-    F3<N> G = f3_mul(f, ld3<N>(xyz, 0, n, i), D);
-    F3<N> H = f3_sub(f, f3_sub(f, Fv, f3_small(f, G, 2)), E);
-    st3<N>(out, 6, n, i, f3_mul(f, lm, H));
-    st3<N>(out, 9, n, i,
-           f3_sub(f, f3_mul(f, th, f3_sub(f, G, H)),
-                  f3_mul(f, E, ld3<N>(xyz, 3, n, i))));
-    st3<N>(out, 12, n, i, f3_mul(f, Z, E));
+  constexpr int G = kAddLanes;
+  __shared__ uint32_t sm[kAddSlots * Slots<N, G>::kStride];
+  const Slots<N, G> s{sm};
+  for (int64_t base = (int64_t)blockIdx.x * G; base < n;
+       base += (int64_t)gridDim.x * G) {
+    team_for<G>(17, base, n, [&](int c, int g) {   // X, Y, Z, x2, y2, xP, yP
+      const uint32_t* src = c < 9 ? xyz : c < 15 ? q : p;
+      s.put(c, g, ld<N>(src, c < 9 ? c : c < 15 ? c - 9 : c - 15, n,
+                        base + g));
+    });
+    __syncthreads();
+#pragma unroll 1
+    for (int level = 0; level < 4; ++level) {
+      prod_stage<N, G>(f, s, kAddProds + kAddLevel[level],
+                       kAddLevel[level + 1] - kAddLevel[level], base, n);
+      __syncthreads();
+      add_combine<N, G>(f, s, level, out, base, n);
+      __syncthreads();
+    }
   }
 }
 
@@ -508,7 +582,8 @@ int k14_mnt_miller_add(const void* xyz, const void* q, const void* p,
   if (n == 0) return 0;
   Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
   mnt_miller_add_kernel<kN>
-      <<<mnt_grid(n), kMntThreads, 0, (cudaStream_t)stream>>>(
+      <<<team_grid(n, kAddLanes), kAddLanes * kAddTeam, 0,
+         (cudaStream_t)stream>>>(
           f, (const uint32_t*)xyz, (const uint32_t*)q, (const uint32_t*)p,
           (uint32_t*)out, n);
   return (int)cudaGetLastError();
@@ -519,7 +594,7 @@ int k14_mnt_miller_add(const void* xyz, const void* q, const void* p,
 // k14_mnt_miller_add): the occupancy report of chip_cios_unroll.py.
 void mnt_block_threads(int* threads) {
   const int t[5] = {kK12Lanes * kK12Team, kMntThreads, kMntThreads,
-                    kDblLanes * kDblTeam, kMntThreads};
+                    kDblLanes * kDblTeam, kAddLanes * kAddTeam};
   for (int k = 0; k < 5; ++k) threads[k] = t[k];
 }
 

@@ -38,15 +38,19 @@
 // but one thread per lane at up to 255 registers leaves ~8 warps per SM, so
 // the kernels are expected to wait on each thread's chain of dependent
 // multiplies rather than on memory (at N = 8 they reach 11-17 % of the
-// byte bound).  Design now: one thread per lane, as K1-K7.  One F12 operand
-// is 12N words, so K8 reads operand halves from device memory where a
-// Karatsuba term needs them instead of keeping both operands in registers,
-// and the F2 and F6 products are __noinline__ functions, which keeps the
-// build in seconds; their call boundaries cost spills that -Xptxas -v
-// reports (the build log).  Splitting one product over several threads is
-// later work.
+// byte bound).  K8, K10 and K11 run one thread per lane, as K1-K7.  One F12
+// operand is 12N words, so K8 reads operand halves from device memory where
+// a Karatsuba term needs them instead of keeping both operands in
+// registers, and the F2 and F6 products are __noinline__ functions, which
+// keeps the build in seconds; their call boundaries cost spills that
+// -Xptxas -v reports (the build log).  K9 runs on 1,024 lanes in every
+// pairing, where one thread per lane fills 16 of the 132 SMs and waits on
+// its chain of 18 base products: it runs a team of threads per lane
+// (team.cuh), the lane's values in shared memory and its 18 base products
+// in one round, one a thread.  This source defines no FP_CIOS_ROLLED, so
+// fp.cuh's and team.cuh's CIOS loops are unrolled here.
 
-#include "fp.cuh"
+#include "team.cuh"
 
 namespace {
 
@@ -228,33 +232,96 @@ __global__ void __launch_bounds__(kTowerThreads)
 // -- K9 --------------------------------------------------------------------------
 
 // Components of f = ((a0, a1, a2), (b0, b1, b2)) at F2 slots 0, 2, 4 (a) and
-// 6, 8, 10 (b).  sq2(x, y) = (x^2, y^2, 2xy) with the cross term from one
-// squaring; t0 = xi b1^2 + a0^2, t2 = xi a2^2 + b0^2, t4 = xi b2^2 + a1^2,
-// t8 = xi 2 a1 b2; a_k' = 3 t - 2 a_k, b_k' = 3 t + 2 b_k.
+// 6, 8, 10 (b).  For the pairs (x, y) = (b1, a0), (a2, b0), (b2, a1), k = 0,
+// 1, 2: sx = x^2, sy = y^2 and the cross term c = (x + y)^2 - sx - sy from
+// three F2 squarings, t = xi sx + sy; the pair's a side a_k' = 3 t - 2 a_k,
+// its b side (b1', b2', b0') = 3 c + 2 b, c times xi for k = 2.
+//
+// By a team of kK9Team threads per lane over kK9Lanes lanes a block, in one
+// round of base products.  An F2 square u^2 = ((u0 + u1)(u0 - u1), 2 u0 u1)
+// takes two, and (x + y)^2 the two of ((x0 + y0), (x1 + y1)), whose
+// difference is dx + dy.  So the load stage writes each F2 input's
+// difference d = u0 - u1 to a slot of its own, and every base product is a
+// product of slot sums (team.cuh Prod): 18 of them, 6 a pair.  Slots: the 12
+// input components 0-11, the difference of the F2 value at 2j at 12 + j,
+// pair k's products at 18 + 6k: x0 x1, (x0 + x1) dx, y0 y1, (y0 + y1) dy,
+// (x0 + y0)(x1 + y1), (x0 + x1 + y0 + y1)(dx + dy).  Stages: load 12 slots
+// and 6 differences, 18 products, 6 a-side and 6 b-side outputs.
+constexpr int kK9Lanes = 8;
+constexpr int kK9Team = 18;
+constexpr int kK9Slots = 36;
+
+#define K9_PAIR(x, y, o)                                                     \
+  {{x, kNoSlot, kNoSlot, kNoSlot}, {x + 1, kNoSlot, kNoSlot, kNoSlot}, o},   \
+  {{x, x + 1, kNoSlot, kNoSlot}, {12 + x / 2, kNoSlot, kNoSlot, kNoSlot},    \
+   o + 1},                                                                   \
+  {{y, kNoSlot, kNoSlot, kNoSlot}, {y + 1, kNoSlot, kNoSlot, kNoSlot},       \
+   o + 2},                                                                   \
+  {{y, y + 1, kNoSlot, kNoSlot}, {12 + y / 2, kNoSlot, kNoSlot, kNoSlot},    \
+   o + 3},                                                                   \
+  {{x, y, kNoSlot, kNoSlot}, {x + 1, y + 1, kNoSlot, kNoSlot}, o + 4},       \
+  {{x, x + 1, y, y + 1}, {12 + x / 2, 12 + y / 2, kNoSlot, kNoSlot}, o + 5}
+
+__constant__ Prod kK9Prods[18] = {K9_PAIR(8, 0, 18), K9_PAIR(4, 6, 24),
+                                  K9_PAIR(10, 2, 30)};
+// the components a_k (a side) and b_k (b side) of pair k
+__constant__ int8_t kK9Side[2][3] = {{0, 2, 4}, {8, 10, 6}};
+
+// Component c of xi (u0 + u1 u) as f2_mul_xi computes it, for either c
+// without a branch.
 template <int N>
-__global__ void __launch_bounds__(kTowerThreads)
+__device__ __forceinline__ Fe<N> xi_coef(const Field<N>& f, Xi xi,
+                                         const Fe<N>& u0, const Fe<N>& u1,
+                                         int c) {
+  const Fe<N> p = mul_small(f, u0, c ? xi.c1 : xi.c0);
+  const Fe<N> q = mul_small(f, u1, c ? xi.c0 : xi.c1);
+  return select(c == 0, sub(f, p, q), add(f, p, q));
+}
+
+template <int N>
+__global__ void __launch_bounds__(kK9Lanes * kK9Team)
     f12_cyc_sqr_kernel(Field<N> f, Xi xi, const uint32_t* __restrict__ a,
                        uint32_t* __restrict__ out, int64_t n) {
-  LANE_LOOP(i, n) {
-    // (x, y, slot of the new x-side component, slot of the y side):
-    // (b1, a0) -> a0', b1'; (a2, b0) -> a1', b2'; (b2, a1) -> a2', b0'
-    const int xs[3] = {8, 4, 10}, ys[3] = {0, 6, 2};
-    const int as[3] = {0, 2, 4}, bs[3] = {8, 10, 6};
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      F2<N> x = ld2<N>(a, xs[k], n, i), y = ld2<N>(a, ys[k], n, i);
-      F2<N> sx = f2_sqr(f, x), sy = f2_sqr(f, y);
-      F2<N> cross = f2_sub(f, f2_sub(f, f2_sqr(f, f2_add(f, x, y)), sx), sy);
-      F2<N> t = f2_add(f, f2_mul_xi(f, xi, sx), sy);
-      F2<N> ak = ld2<N>(a, as[k], n, i);
-      st2<N>(out, as[k], n, i,
-             f2_sub(f, f2_add(f, f2_add(f, t, t), t), f2_add(f, ak, ak)));
-      // the b side takes the cross term, times xi for (b2, a1) -> b0'
-      F2<N> c = k == 2 ? f2_mul_xi(f, xi, cross) : cross;
-      F2<N> bk = ld2<N>(a, bs[k], n, i);
-      st2<N>(out, bs[k], n, i,
-             f2_add(f, f2_add(f, f2_add(f, c, c), c), f2_add(f, bk, bk)));
-    }
+  constexpr int G = kK9Lanes;
+  __shared__ uint32_t sm[kK9Slots * Slots<N, G>::kStride];
+  const Slots<N, G> s{sm};
+  for (int64_t base = (int64_t)blockIdx.x * G; base < n;
+       base += (int64_t)gridDim.x * G) {
+    team_for<G>(12, base, n, [&](int c, int g) {
+      s.put(c, g, ld<N>(a, c, n, base + g));
+    });
+    team_for<G>(6, base, n, [&](int j, int g) {
+      s.put(12 + j, g, sub(f, ld<N>(a, 2 * j, n, base + g),
+                           ld<N>(a, 2 * j + 1, n, base + g)));
+    }, 3 * kWarp);
+    __syncthreads();
+    prod_stage<N, G>(f, s, kK9Prods, 18, base, n);
+    __syncthreads();
+    team_for<G>(6, base, n, [&](int i, int g) {   // a_k' = 3 t - 2 a_k
+      const int k = i / 2, c = i % 2, o = 18 + 6 * k;
+      const Fe<N> p1x = s.get(o, g), p1y = s.get(o + 2, g);
+      const Fe<N> sy = select(c == 0, s.get(o + 3, g), add(f, p1y, p1y));
+      const Fe<N> t = add(f, xi_coef(f, xi, s.get(o + 1, g),
+                                     add(f, p1x, p1x), c), sy);
+      const Fe<N> ak = s.get(kK9Side[0][k] + c, g);
+      st<N>(out, kK9Side[0][k] + c, n, base + g,
+            sub(f, add(f, add(f, t, t), t), add(f, ak, ak)));
+    });
+    team_for<G>(6, base, n, [&](int i, int g) {   // b' = 3 c + 2 b
+      const int k = i / 2, c = i % 2, o = 18 + 6 * k;
+      const Fe<N> p1x = s.get(o, g), p1y = s.get(o + 2, g);
+      const Fe<N> p1s = s.get(o + 4, g);
+      const Fe<N> cr0 = sub(f, sub(f, s.get(o + 5, g), s.get(o + 1, g)),
+                            s.get(o + 3, g));
+      const Fe<N> cr1 = sub(f, sub(f, add(f, p1s, p1s), add(f, p1x, p1x)),
+                            add(f, p1y, p1y));
+      const Fe<N> cr = select(k == 2, xi_coef(f, xi, cr0, cr1, c),
+                              select(c == 0, cr0, cr1));
+      const Fe<N> bk = s.get(kK9Side[1][k] + c, g);
+      st<N>(out, kK9Side[1][k] + c, n, base + g,
+            add(f, add(f, add(f, cr, cr), cr), add(f, bk, bk)));
+    }, 2 * kWarp);
+    __syncthreads();
   }
 }
 
@@ -264,7 +331,7 @@ __global__ void __launch_bounds__(kTowerThreads)
 // (a0, b0, b1) = (c_y yP, c_x xP, c_0); the M twist (BLS12-381, K11) writes
 // (a0, b1, b2) = (xi c_y yP, c_0, c_x xP).
 template <bool kMTwist>
-struct Slots {
+struct LineSlots {
   static constexpr int kX = kMTwist ? 4 : 2;   // c_x xP
   static constexpr int k0 = kMTwist ? 2 : 4;   // c_0
 };
@@ -278,7 +345,7 @@ __global__ void __launch_bounds__(kTowerThreads)
     miller_dbl_kernel(Field<N> f, Xi xi, const uint32_t* __restrict__ xyz,
                       const uint32_t* __restrict__ p,
                       uint32_t* __restrict__ out, int64_t n) {
-  using S = Slots<kMTwist>;
+  using S = LineSlots<kMTwist>;
   LANE_LOOP(i, n) {
     F2<N> X = ld2<N>(xyz, 0, n, i), Y = ld2<N>(xyz, 2, n, i),
           Z = ld2<N>(xyz, 4, n, i);
@@ -317,7 +384,7 @@ __global__ void __launch_bounds__(kTowerThreads)
                       const uint32_t* __restrict__ q,
                       const uint32_t* __restrict__ p,
                       uint32_t* __restrict__ out, int64_t n) {
-  using S = Slots<kMTwist>;
+  using S = LineSlots<kMTwist>;
   LANE_LOOP(i, n) {
     F2<N> X = ld2<N>(xyz, 0, n, i), Y = ld2<N>(xyz, 2, n, i),
           Z = ld2<N>(xyz, 4, n, i);
@@ -409,7 +476,8 @@ int k9_f12_cyc_sqr(const void* a, void* out, long long n, long long xi0,
   if (n == 0) return 0;
   Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
   f12_cyc_sqr_kernel<kN>
-      <<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
+      <<<team_grid(n, kK9Lanes), kK9Lanes * kK9Team, 0,
+         (cudaStream_t)stream>>>(
           f, Xi{(int)xi0, (int)xi1}, (const uint32_t*)a, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
@@ -455,6 +523,15 @@ int k11_miller_add_mtwist(const void* xyz, const void* q, const void* p,
 #else
   return (int)cudaErrorInvalidValue;
 #endif
+}
+
+// Threads a block of the kernels above, in the order of their entry points
+// (k8_f12_mul, k8_f12_sqr, k9_f12_cyc_sqr, the Miller doubling, the Miller
+// add): the occupancy report of chip_cios_unroll.py.
+void tower_block_threads(int* threads) {
+  const int t[5] = {kTowerThreads, kTowerThreads, kK9Lanes * kK9Team,
+                    kTowerThreads, kTowerThreads};
+  for (int k = 0; k < 5; ++k) threads[k] = t[k];
 }
 
 }  // extern "C"
