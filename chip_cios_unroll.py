@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Experiment on one NVIDIA card: variants of the tower libraries, built
-side by side and timed in turns.
+"""Experiment on one NVIDIA card: variants of the field and tower
+libraries, built side by side and timed in turns.
 
     python3 chip_cios_unroll.py [--baseline DIR] [--unrolled]
-                                [--pairings R] [--batches R]
+                                [--variant NAME:DEFINE[,DEFINE...]]
+                                [--field-only] [--pairings R] [--batches R]
 
 Run from the root of a checkout on a machine with the CUDA toolkit and a
-card.  Each variant is the MNT6753 library `mnt_kernels.cu` (24 words)
-and the BN128 / BLS12-381 library `tower_kernels.cu` (8 and 12 words):
+card.  Each variant is the field library `fp_kernels.cu` (8, 12 and 24
+words), the MNT6753 library `mnt_kernels.cu` (24 words) and the BN128 /
+BLS12-381 library `tower_kernels.cu` (8 and 12 words):
 
   rolled    the committed sources (mnt_kernels.cu defines FP_CIOS_ROLLED,
             fp.cuh's CIOS outer loop rolled);
   unrolled  with --unrolled, the same with that define removed;
+  NAME      with --variant NAME:K1_TEAM_MAX_LANES=0 (say), the committed
+            sources built with those -D macros (repeatable);
   baseline  with --baseline DIR, the sources and headers of another
             checkout DIR (an older commit, unpacked with `git archive`),
             as committed there.
@@ -31,7 +35,11 @@ behind a ~1 ms device sleep; and the team kernels' C entry points alone
 between two events.  The variants run in one order and then in the
 reverse one, and every variant's results must equal the plain versions'
 at the smallest lane count and the first variant's at 2^16 lanes, bit for
-bit.
+bit.  K1 and K2 (the add-and-sub pair, as chip_smoke.py's row) are timed
+the same way at 24 words at FIELD_LANES[24] lanes (the MNT6753 paths' and
+2^16) and at 8 and 12 words at their paths' lane counts and 2^16, each
+checked against its plain version at every lane count.  With
+--field-only only the field library is built and only K1 and K2 timed.
 
 With --pairings R it then times chip_smoke.py's unprepared pairing
 batches (BN128 and BLS12-381 on 1,024 lanes, MNT6753 on 256 lanes and
@@ -42,8 +50,9 @@ time of one call of each under torch.profiler; every batch must equal the
 host oracle's value.  With --batches R it times chip_smoke.py's steady
 MNT6753 verify batch (256 lanes, the wall time of
 bowe_gabizon_verify_batch, and its group-map-and-pairing stage alone) the
-same way; every batch must return its expected list.  Only the tower
-libraries differ between the turns.
+same way, then the card's kernel time of one call of that stage under
+torch.profiler; every batch must return its expected list.  Only the
+field and tower libraries differ between the turns.
 
 The last line is one JSON object of all of it.
 """
@@ -61,12 +70,22 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROLLED = "#define FP_CIOS_ROLLED\n"
 # library -> (source, words)
-LIBS = {"mnt_kernels_w24": ("mnt_kernels.cu", 24),
+LIBS = {"fp_kernels_w8": ("fp_kernels.cu", 8),
+        "fp_kernels_w12": ("fp_kernels.cu", 12),
+        "fp_kernels_w24": ("fp_kernels.cu", 24),
+        "mnt_kernels_w24": ("mnt_kernels.cu", 24),
         "tower_kernels_w8": ("tower_kernels.cu", 8),
         "tower_kernels_w12": ("tower_kernels.cu", 12)}
 BIG = 1 << 16                    # the lane count of the cross-variant check
 MNT_LANES = (256, 512, BIG)
 K9_LANES = (1024, BIG)
+# K1 and K2 per word count: the lane counts their paths launch them with
+# most (PERF.md §6: the MNT6753 verify batch's at 24 words, the prove's at
+# 8 and 12) and 2^16; at 24 words also those around K1's switch between
+# its team product and one thread a lane
+FIELD_LANES = {24: (255, 256, 510, 1024, 1530, 2048, 3072, 4096, 6120, BIG),
+               8: (2, 3, 6, 1024, 2048, BIG),
+               12: (2, 3, 6, 1024, 2048, BIG)}
 DEVICE = "cuda"                  # the card (a host rehearsal sets "cpu")
 # H100 SM limits for the occupancy estimate
 SM_REGS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 228 * 1024, 2048, 32
@@ -124,28 +143,30 @@ def ptxas(log_path, threads):
     return out
 
 
-def build_variants(variants, cuda_lib):
-    """Every library of every variant, compiled at once; returns (variant
-    -> library -> bound CDLL, result dict with build seconds and ptxas)."""
+def build_variants(variants, cuda_lib, built=LIBS):
+    """Every library of `built` (library -> (source, words)) of every
+    variant, compiled at once; returns (variant -> library -> bound CDLL,
+    result dict with build seconds and ptxas)."""
     out = os.path.join(cuda_lib.BUILD_ROOT, "cios_unroll")
     shutil.rmtree(out, ignore_errors=True)
     dirs, procs = {}, {}
     t0 = time.perf_counter()
-    for k, (name, (src, rolled)) in enumerate(variants.items()):
+    for k, (name, (src, rolled, defines)) in enumerate(variants.items()):
         d = dirs[name] = os.path.join(out, f"v{k}")
         os.makedirs(d)
         for f in os.listdir(src):
             if f.endswith(".cuh"):
                 shutil.copy(os.path.join(src, f), d)
-        for f in sorted({s for s, _ in LIBS.values()}):
+        for f in sorted({s for s, _ in built.values()}):
             with open(os.path.join(src, f)) as fh:
                 text = fh.read()
             if rolled is not None and f == "mnt_kernels.cu":
                 text = (ROLLED if rolled else "") + text.replace(ROLLED, "")
             with open(os.path.join(d, f), "w") as fh:
                 fh.write(text)
-        for lib, (f, w) in LIBS.items():
+        for lib, (f, w) in built.items():
             cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, f"-DWORDS={w}",
+                   *[f"-D{x}" for x in defines],
                    "-o", os.path.join(d, f"lib{lib}.so"), os.path.join(d, f)]
             log = open(os.path.join(d, f"{lib}.log"), "w")
             procs[name, lib] = subprocess.Popen(cmd, stdout=log,
@@ -164,11 +185,11 @@ def build_variants(variants, cuda_lib):
     libs = {}
     for name in variants:
         libs[name] = {lib: cuda_lib._bind(ctypes.CDLL(
-            os.path.join(dirs[name], f"lib{lib}.so"))) for lib in LIBS}
-        result["build_s"][name] = {lib: done[name, lib] for lib in LIBS}
+            os.path.join(dirs[name], f"lib{lib}.so"))) for lib in built}
+        result["build_s"][name] = {lib: done[name, lib] for lib in built}
         result["ptxas"][name] = {
             lib: ptxas(os.path.join(dirs[name], f"{lib}.log"),
-                       block_threads(libs[name][lib])) for lib in LIBS}
+                       block_threads(libs[name][lib])) for lib in built}
         print(f"build {name}: " + json.dumps(result["build_s"][name]) + "; "
               + json.dumps(result["ptxas"][name]), flush=True)
     return libs, result
@@ -179,6 +200,11 @@ def main() -> int:
     ap.add_argument("--baseline", help="root of another checkout")
     ap.add_argument("--unrolled", action="store_true",
                     help="also the committed source with the loop unrolled")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="NAME:MACRO=VALUE[,...]: the committed sources "
+                         "built with those macros")
+    ap.add_argument("--field-only", action="store_true",
+                    help="build and time the field library (K1, K2) only")
     ap.add_argument("--pairings", type=int, default=0,
                     help="rounds of the pairing batches per variant")
     ap.add_argument("--batches", type=int, default=0,
@@ -201,13 +227,19 @@ def main() -> int:
         timeout=60).stdout.strip()
     print(smi, flush=True)
     csrc = cuda_lib.CSRC
-    variants = {"rolled": (csrc, True)}
+    variants = {"rolled": (csrc, True, ())}
     if args.unrolled:
-        variants["unrolled"] = (csrc, False)
+        variants["unrolled"] = (csrc, False, ())
+    for v in args.variant:
+        name, defines = v.split(":", 1)
+        variants[name] = (csrc, True, tuple(defines.split(",")))
     if args.baseline:
         variants["baseline"] = (os.path.join(
-            args.baseline, "wasmsnark_tpu_torch", "csrc"), None)
-    libs, result = build_variants(variants, cuda_lib)
+            args.baseline, "wasmsnark_tpu_torch", "csrc"), None, ())
+    towers = not args.field_only
+    libs, result = build_variants(variants, cuda_lib, {
+        lib: sw for lib, sw in LIBS.items()
+        if towers or lib.startswith("fp_")})
     result = {"device": smi, **result, "ms": {}}
 
     import chip_smoke as smoke
@@ -232,15 +264,16 @@ def main() -> int:
            for w in (8, 12)}
     XI = {8: tk.XI, 12: tk.XI_BLS}
     ins = (A, B, X, Y, Z, xP, yP)
+    FX = {w: (rand(specs[w]), rand(specs[w])) for w in FIELD_LANES}
 
     def cut(t, k):
         return smoke.cut(t, k, n)
 
     def runs(k):
         """The wrappers timed at k lanes: K12-K14 at the MNT6753 lane
-        counts, K9 at its own."""
+        counts, K9 at its own, K1 and K2 at FIELD_LANES."""
         out = {}
-        if k in MNT_LANES:
+        if towers and k in MNT_LANES:
             A, B, X, Y, Z, xP, yP = cut(ins, k)
             out.update({
                 "K12 mul": lambda: tk.mnt_f6_mul(spec, A, B),
@@ -249,27 +282,45 @@ def main() -> int:
                 "K14 dbl": lambda: tk.mnt_miller_dbl(spec, X, Y, Z, xP, yP),
                 "K14 add": lambda: tk.mnt_miller_add(spec, X, Y, Z, Y, X,
                                                      xP, yP)})
-        if k in K9_LANES:
+        if towers and k in K9_LANES:
             for w in (8, 12):
                 a = cut(F12[w], k)
                 out[f"K9 @N{w}"] = (lambda a=a, w=w: tk.f12_cyc_sqr(
                     specs[w], a, XI[w]))
+        for w, ks in FIELD_LANES.items():
+            if k in ks:
+                x, y = cut(FX[w], k)
+                s = specs[w]
+                out[f"K1 @N{w}"] = lambda s=s, x=x, y=y: fp.mont_mul(s, x, y)
+                out[f"K2 @N{w}"] = lambda s=s, x=x, y=y: (
+                    fp.mod_add(s, x, y), fp.mod_sub(s, x, y))
+        return out
+
+    def field_plain(k):
+        """The plain versions of runs(k)'s K1 and K2 entries, in order."""
+        out = []
+        for w, ks in FIELD_LANES.items():
+            if k in ks:
+                x, y = cut(FX[w], k)
+                s = specs[w]
+                out += [fp.mont_mul_plain(s, x, y), fp.mod_add_plain(s, x, y),
+                        fp.mod_sub_plain(s, x, y)]
         return out
 
     def plain(k):
         """The plain versions of runs(k)'s wrappers, in its order."""
         out = []
-        if k in MNT_LANES:
+        if towers and k in MNT_LANES:
             A, B, X, Y, Z, xP, yP = cut(ins, k)
             out += [tk.mnt_f6_mul_plain(spec, A, B),
                     tk.mnt_f6_sqr_plain(spec, A),
                     tk.mnt_f6_cyc_sqr_plain(spec, A),
                     tk.mnt_miller_dbl_plain(spec, X, Y, Z, xP, yP),
                     tk.mnt_miller_add_plain(spec, X, Y, Z, Y, X, xP, yP)]
-        if k in K9_LANES:
+        if towers and k in K9_LANES:
             out += [tk.f12_cyc_sqr_plain(specs[w], cut(F12[w], k), XI[w])
                     for w in (8, 12)]
-        return _leaves(out)
+        return _leaves(out + field_plain(k))
 
     def raw(k):
         """The team kernels' C entry points alone on stacked operands, and
@@ -281,6 +332,9 @@ def main() -> int:
         out = {}
         if k in MNT_LANES:
             A, B, X, Y, Z, xP, yP = cut(ins, k)
+            out["K1"] = ("k1_mont_mul", spec,
+                         [A[0][0], B[0][0], torch.empty_like(A[0][0])], ())
+        if towers and k in MNT_LANES:
             pts = [torch.stack([*X, *Y, *Z]), torch.stack([xP, yP])]
             out.update({
                 "K12 mul": ("k12_f6_mul", spec, [
@@ -290,10 +344,8 @@ def main() -> int:
                             [*pts, empty(15, spec)], ()),
                 "K14 add": ("k14_mnt_miller_add", spec,
                             [pts[0], torch.stack([*Y, *X]), pts[1],
-                             empty(15, spec)], ()),
-                "K1": ("k1_mont_mul", spec,
-                       [A[0][0], B[0][0], torch.empty_like(A[0][0])], ())})
-        if k in K9_LANES:
+                             empty(15, spec)], ())})
+        if towers and k in K9_LANES:
             for w in (8, 12):
                 out[f"K9 @N{w}"] = ("k9_f12_cyc_sqr", specs[w], [
                     torch.stack(tk.flatten12(cut(F12[w], k))),
@@ -318,8 +370,8 @@ def main() -> int:
     cuda_lib._libs.update(libs[next(iter(variants))])
     if args.pairings or args.batches:
         cuda_lib.build()              # the field and curve libraries
-    lanes = sorted(set(MNT_LANES + K9_LANES))
-    small = {k: plain(k) for k in (MNT_LANES[0], K9_LANES[0])}
+    lanes = sorted(set(MNT_LANES + K9_LANES).union(*FIELD_LANES.values()))
+    small = {k: plain(k) for k in lanes if k != n}
     first = None
     order = list(variants) + list(variants)[::-1]
     for turn, name in enumerate(order):
@@ -460,7 +512,8 @@ def device_ms(run):
 def verify_batches(smoke, libs, cuda_lib, rounds):
     """Seconds of the steady MNT6753 verify batch and of its group map and
     pairing stage (rt._check) under each variant's libraries, in
-    alternating turns."""
+    alternating turns; then the stage's kernel time on the card in one
+    profiled call under each."""
     import random
     import torch
     import wasmsnark_tpu_torch
@@ -495,6 +548,12 @@ def verify_batches(smoke, libs, cuda_lib, rounds):
         if not warm:
             out[name]["batch"].append(batch_s)
             out[name]["pairing"].append(pairing_s)
+    for name in names:                # then one profiled call of the stage
+        cuda_lib._libs.update(libs[name])
+        out[name]["pairing_device"] = device_ms(lambda: rt._check(
+            tt, g1_4, g2_var, coeffs, expected, True))
+        print(f"verify batch {name}: group map and pairing on the card "
+              + json.dumps(out[name]["pairing_device"]), flush=True)
     return out
 
 

@@ -69,7 +69,13 @@ then, for every kernel row:
      with most (cuda_lib.lane_launches, read on each path of steps 5-11),
      on the same inputs cut to that many lanes, after the same
      bit-equality check, with the bound at that lane count: the record's
-     lanes_at_path, ms_at_path and bound_ms_at_path.
+     lanes_at_path, ms_at_path and bound_ms_at_path; and against the
+     floor of as many calls as it makes at its word count (K2 on one
+     lane, one call or the add-and-sub pair, timed the same way,
+     call_floor_ms among the phases): ms_above_floor_at_path.
+     K1 at 24 words runs one thread a lane at 2^16 lanes and its team
+     product at the MNT6753 paths' lane counts, so the two checks hold
+     both of its designs.
 
 Any failure prints its traceback and exits non-zero.  Without a CUDA
 device, or outside the repository, it exits non-zero and prints no
@@ -119,7 +125,8 @@ PATH_LANES = 3                   # lane counts each kernel row is also
 PROVE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
 CURVES = ("bn128", "bls12381")
 
-# the kernel function behind each C entry point (ptxas reports by kernel)
+# the kernel function behind each C entry point (ptxas reports by kernel);
+# K1 at 24 words also launches its team product, mont_mul_team_kernel
 ENTRY_KERNEL = {
     "k1_mont_mul": "mont_mul_kernel", "k2_mod_add": "addsub_kernel",
     "k2_mod_sub": "addsub_kernel", "k3_butterfly": "butterfly_kernel",
@@ -336,6 +343,43 @@ def at_path_lanes(kr):
         f"{kr['bound_ms_at_path'][k]:.4f})" for k in kr["lanes_at_path"])
         + f"; lost on its path {kr['path_loss_ms']:.1f} ms "
         f"({kr['path_loss_share']:.0%} of its launches timed)")
+
+
+def call_floors(dev):
+    """The floor of a call at each word count: K2 on one lane, timed as
+    every row is (time_cuda), after the same bit-equality check, as one
+    call (mod_add) and as two (mod_add and mod_sub, as the K2 rows time
+    them).  A row's ms above the floor of as many calls as it makes is
+    what a kernel design can still take off; the floor itself only fewer
+    launches remove.  Returns {words: {calls: ms}}."""
+    import numpy as np
+    import torch
+    from wasmsnark_tpu_torch.models.bls12381 import bls12381
+    from wasmsnark_tpu_torch.models.bn128 import bn128
+    from wasmsnark_tpu_torch.models.mnt6753 import mnt6753
+    from wasmsnark_tpu_torch.ops import fp
+
+    out = {}
+    for m in (bn128(), bls12381(), mnt6753()):
+        spec = m.fp_spec
+        x, y = (fp.planes(np.array([spec.limbs(v)], dtype=np.uint32).T, dev)
+                for v in (spec.q - 1, spec.q // 3))
+        runs = {1: (lambda: fp.mod_add(spec, x, y),
+                    lambda: fp.mod_add_plain(spec, x, y)),
+                2: (lambda: (fp.mod_add(spec, x, y), fp.mod_sub(spec, x, y)),
+                    lambda: (fp.mod_add_plain(spec, x, y),
+                             fp.mod_sub_plain(spec, x, y)))}
+        out[words(spec)] = {}
+        for calls, (run, plain) in runs.items():
+            got = run()
+            torch.cuda.synchronize()
+            if mismatch(got, plain())[0]:
+                raise AssertionError("K2 disagrees with its plain version "
+                                     "on one lane")
+            out[words(spec)][calls] = time_cuda(run, 50)
+    say("the floor of a call (K2 on one lane, one call / two): " + ", ".join(
+        f"{f[1]:.4f} / {f[2]:.4f} ms at {w} words" for w, f in out.items()))
+    return out
 
 
 def check_kernels(dev):
@@ -1421,11 +1465,18 @@ def main() -> int:
             raise AssertionError(f"{kr['name']} never launched")
         kr["ptxas"] = {fn: ptxas.get(f"{ENTRY_KERNEL[fn]}@N{kr['n_words']}")
                        for fn in kr["fns"]}
+        team = ptxas.get(f"mont_mul_team_kernel@N{kr['n_words']}")
+        if "k1_mont_mul" in kr["fns"] and team:
+            kr["ptxas"]["k1_mont_mul team"] = team
 
     say("kernels at the lane counts their paths launch them with")
     t = time.perf_counter()
+    floor = phases["call_floor_ms"] = call_floors(dev)
     for kr in kernels:
         at_path_lanes(kr)
+        f = floor[kr["n_words"]][len(kr["fns"])]
+        kr["ms_above_floor_at_path"] = {
+            k: ms - f for k, ms in kr["ms_at_path"].items()}
     phases["path_lanes_s"] = time.perf_counter() - t
 
     phases["wall_s"] = time.perf_counter() - _T0
@@ -1435,7 +1486,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "ms_at_path", "lanes_at_path", "bound_ms_at_path",
-            "path_loss_ms", "path_loss_share", "n_words",
+            "path_loss_ms", "path_loss_share", "ms_above_floor_at_path",
+            "n_words",
             "mismatched_lanes", "bytes", "launches_by_path",
             "lanes_by_path", "ptxas")
     print(json.dumps({"kernels": [{k_: kr[k_] for k_ in keys}

@@ -48,21 +48,29 @@ SHIM = pathlib.Path(__file__).resolve().parent / "cuda_host_shim"
 N = 96                                    # lanes
 
 
-def build_host_libs(out):
-    """Every library of cuda_lib.libraries(), compiled by g++ for the host
-    into the directory `out` and bound with the loader's argtypes."""
+def _gxx(out, lib, src, w, defines=(), extra=""):
+    """Start g++ on source `src` of csrc (its launch configurations removed,
+    `extra` appended) for word count w with -D `defines`, into
+    out/lib<lib>.so; the headers must be in out."""
+    text = (pathlib.Path(cuda_lib.CSRC) / src).read_text()
+    cpp = out / f"{lib}.cpp"
+    cpp.write_text(re.sub(r"<<<.*?>>>", "", text, flags=re.S) + extra)
+    return subprocess.Popen(
+        ["g++", "-O1", "-std=c++17", "-shared", "-fPIC", f"-DWORDS={w}",
+         *[f"-D{d}" for d in defines], f"-I{SHIM}", f"-I{out}", "-o",
+         str(out / f"lib{lib}.so"), str(cpp)], stderr=subprocess.PIPE)
+
+
+def build_host_libs(out, only=None, defines=(), extra=""):
+    """Every library of cuda_lib.libraries() (or those named in `only`),
+    compiled by g++ for the host into the directory `out` and bound with
+    the loader's argtypes; `defines` and `extra` as for _gxx."""
     out = pathlib.Path(out)
     for name in cuda_lib.HEADERS:
         shutil.copy(os.path.join(cuda_lib.CSRC, name), out / name)
-    procs = {}
-    for lib, (src, w) in cuda_lib.libraries().items():
-        text = (pathlib.Path(cuda_lib.CSRC) / src).read_text()
-        cpp = out / f"{lib}.cpp"
-        cpp.write_text(re.sub(r"<<<.*?>>>", "", text, flags=re.S))
-        procs[lib] = subprocess.Popen(
-            ["g++", "-O1", "-std=c++17", "-shared", "-fPIC", f"-DWORDS={w}",
-             f"-I{SHIM}", f"-I{out}", "-o", str(out / f"lib{lib}.so"),
-             str(cpp)], stderr=subprocess.PIPE)
+    procs = {lib: _gxx(out, lib, src, w, defines, extra)
+             for lib, (src, w) in cuda_lib.libraries().items()
+             if only is None or lib in only}
     for lib, p in procs.items():
         _, err = p.communicate()
         assert p.returncode == 0, (lib, err.decode()[-3000:])
@@ -129,6 +137,172 @@ def test_field_kernels(libs, curve_name, field):
     out = torch.empty_like(x)
     assert call(libs, "k4_cneg", spec, (flag, y, out)) == 0
     assert torch.equal(out, towers.mod_cneg_plain(spec, flag, y))
+
+
+def k1_team_max_lanes():
+    """kK1TeamMaxLanes of fp_kernels.cu: above it K1 @N24 runs one thread a
+    lane, up to it the team product."""
+    text = (pathlib.Path(cuda_lib.CSRC) / "fp_kernels.cu").read_text()
+    return int(re.search(r"#define K1_TEAM_MAX_LANES (\d+)", text).group(1))
+
+
+def _mnt_operands(n):
+    """x and y on n lanes of MNT6753's Fq (24 words): random canonical
+    values from a seed, with the edge values 0, 1, q - 1, R mod q and two
+    whose 32-bit words below the top one are all 0xFFFFFFFF (top word 0,
+    and q's top word - 1) on lanes 0..5 of x, rotated by two on y's, and
+    the same six squared on lanes 6..11."""
+    spec = mnt6753().fp_spec
+    q, W = spec.q, 32 * 23
+    ones = (1 << W) - 1
+    edge = [0, 1, q - 1, (1 << (W + 32)) % q, ones,
+            ((q >> W) - 1) << W | ones]
+    x, y = rand(spec, 150), rand(spec, 151).flip(1).contiguous()
+    for j in range(12):
+        x[:, j] = fp.planes(np.array(spec.limbs(edge[j % 6]),
+                                     dtype=np.uint32)[:, None], "cpu")[:, 0]
+        y[:, j] = fp.planes(np.array(spec.limbs(
+            edge[(j + 2) % 6 if j < 6 else j - 6]), dtype=np.uint32)[:, None],
+            "cpu")[:, 0]
+    return spec, x[:, :n].contiguous(), y[:, :n].contiguous()
+
+
+@pytest.fixture(scope="module")
+def k1_one_thread(tmp_path_factory):
+    """The 24-word field library built with K1_TEAM_MAX_LANES=0: K1 runs
+    one thread a lane at every lane count."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    return build_host_libs(tmp_path_factory.mktemp("k1_one_thread"),
+                           only=("fp_kernels_w24",),
+                           defines=("K1_TEAM_MAX_LANES=0",))
+
+
+@pytest.mark.parametrize("n", [1, 13, 30, 96])
+@pytest.mark.parametrize("design", ["team", "one_thread"])
+def test_k1_24_words(libs, k1_one_thread, design, n):
+    """K1 at 24 words on n lanes, in both of its designs: the team product
+    (the library as built, n below the switch: one lane, ragged lane
+    groups of its 4 lanes a block and full ones) and one thread a lane
+    (the library built without the team), bit-equal to mont_mul_plain,
+    with the edge values on the first lanes."""
+    assert n <= k1_team_max_lanes()
+    spec, x, y = _mnt_operands(n)
+    lib = libs if design == "team" else k1_one_thread
+    out = torch.empty_like(x)
+    assert call(lib, "k1_mont_mul", spec, (x, y, out), n=n) == 0
+    assert torch.equal(out, fp.mont_mul_plain(spec, x, y))
+
+
+def test_k1_24_words_above_switch(libs):
+    """K1 at 24 words on one lane more than the switch, where the library
+    as built runs one thread a lane: the 96 lanes of the other cases
+    tiled, against their plain products tiled the same way."""
+    n = k1_team_max_lanes() + 1
+    spec, x, y = _mnt_operands(N)
+    idx = torch.arange(n) % N
+    out = torch.empty((spec.n_limbs, n), dtype=x.dtype)
+    assert call(libs, "k1_mont_mul", spec, (x[:, idx].contiguous(),
+                                            y[:, idx].contiguous(), out),
+                n=n) == 0
+    assert torch.equal(out, fp.mont_mul_plain(spec, x, y)[:, idx])
+
+
+@pytest.mark.parametrize("n", [1, 13, 30, 96, None])
+def test_k2_24_words(libs, n):
+    """K2 (add and sub) at 24 words on the lane counts of K1's tests (None:
+    one more than K1's switch, the 96 lanes tiled), bit-equal to the plain
+    versions, with the edge values on the first lanes."""
+    spec, x, y = _mnt_operands(n or N)
+    if n is None:
+        n = k1_team_max_lanes() + 1
+        idx = torch.arange(n) % N
+        x, y = x[:, idx].contiguous(), y[:, idx].contiguous()
+    for fn, plain in (("k2_mod_add", fp.mod_add_plain),
+                      ("k2_mod_sub", fp.mod_sub_plain)):
+        out = torch.empty_like(x)
+        assert call(libs, fn, spec, (x, y, out), n=n) == 0
+        assert torch.equal(out, plain(spec, x, y)), fn
+
+
+_PROBE = """
+extern "C" {
+void probe_mul_add(uint32_t lo, uint64_t hi, uint64_t v, uint32_t w,
+                   uint32_t* lo_out, uint64_t* hi_out) {
+  Col c{lo, hi};
+  mul_add(c, v, w);
+  *lo_out = c.lo;
+  *hi_out = c.hi;
+}
+uint64_t probe_carries48(const uint32_t* flags) { return carries<48>(flags); }
+void probe_reduce_3q(const uint32_t* h, const uint32_t* q,
+                     const uint32_t* q2, uint32_t* out) {
+  uint32_t f1[6], f2[6];
+  for (int k = 0; k < 24; ++k) {
+    reinterpret_cast<uint8_t*>(f1)[k] = borrow_flag(h[k], q[k]);
+    reinterpret_cast<uint8_t*>(f2)[k] = borrow_flag(h[k], q2[k]);
+  }
+  const uint64_t b1 = carries<24>(f1), b2 = carries<24>(f2);
+  for (int k = 0; k < 24; ++k)
+    out[k] = reduce_3q<24>(h[k], q[k], q2[k], b1, b2, k);
+}
+}
+"""
+
+
+def test_k1_team_building_blocks(tmp_path):
+    """The parts of K1's team product that random operands almost never
+    reach, on the host build of its device functions: a 33-bit word (2^32
+    and 2^32 + 1) times a word into a column, the carry lookahead over
+    48 words against a ripple, and the final H - 2q, H - q or H for H
+    across [0, 3q), its edges included."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    build_host_libs(tmp_path, only=("fp_kernels_w24",), extra=_PROBE)
+    lib = ctypes.CDLL(str(tmp_path / "libfp_kernels_w24.so"))
+    u32, u64 = ctypes.c_uint32, ctypes.c_uint64
+    lib.probe_mul_add.argtypes = [u32, u64, u64, u32, ctypes.c_void_p,
+                                  ctypes.c_void_p]
+    lib.probe_carries48.restype = u64
+    lib.probe_carries48.argtypes = [ctypes.c_void_p]
+    lib.probe_reduce_3q.argtypes = [ctypes.c_void_p] * 4
+    rng = np.random.default_rng(17)
+    lo_out, hi_out = u32(), u64()
+    for v in (0, 1, (1 << 32) - 1, 1 << 32, (1 << 32) + 1):
+        for w in (0, 1, (1 << 32) - 1, int(rng.integers(1 << 32))):
+            lo, hi = int(rng.integers(1 << 32)), int(rng.integers(1 << 40))
+            lib.probe_mul_add(lo, hi, v, w, ctypes.byref(lo_out),
+                              ctypes.byref(hi_out))
+            assert lo_out.value + (hi_out.value << 32) == \
+                lo + (hi << 32) + v * w, (v, w)
+    for trial in range(200):
+        kind = rng.integers(0, 3, size=48)    # 0 kill, 1 generate, 2 pass
+        if trial % 2:
+            kind[rng.integers(0, 48):] = 2    # long propagate runs
+        flags = np.where(kind == 1, 1, np.where(kind == 2, 2, 0)).astype(
+            np.uint8)
+        got = int(lib.probe_carries48(flags.ctypes.data))
+        c, want = 0, 0
+        for k in range(48):
+            want |= c << k
+            c = int(kind[k] == 1 or (kind[k] == 2 and c))
+        assert got == want | c << 48, trial
+    q = mnt6753().fp_spec.q
+
+    def words(v):
+        return np.array([(v >> (32 * k)) & 0xFFFFFFFF for k in range(24)],
+                        dtype=np.uint32)
+
+    out = np.zeros(24, dtype=np.uint32)
+    qw, q2w = words(q), words(2 * q)
+    hs = [0, 1, q - 1, q, q + 1, 2 * q - 1, 2 * q, 2 * q + 1, 3 * q - 1]
+    hs += [int.from_bytes(rng.bytes(96), "little") % (3 * q)
+           for _ in range(30)]
+    for h in hs:
+        hw = words(h)
+        lib.probe_reduce_3q(hw.ctypes.data, qw.ctypes.data, q2w.ctypes.data,
+                            out.ctypes.data)
+        assert sum(int(v) << (32 * k) for k, v in enumerate(out)) == h % q, h
 
 
 @pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])

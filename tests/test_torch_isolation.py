@@ -259,14 +259,17 @@ def test_loader_builds_only_on_demand_and_matches_sources(tmp_path,
                 ctype[re.sub(r"\s+\w+$", "", a.strip())]
                 for a in mt.group(1).split(","))
             assert kinds == "p" * n_ptr + "q" * n_int + "ipp", (fn, kinds)
-    # the kernels' field constants: q and R mod q words, -q^-1 mod 2^32
+    # the kernels' field constants: q and R mod q words, -q^-1 mod 2^32,
+    # then -q^-1 mod R (K1's team product)
     for spec in (bn128().fp_spec, bn128().fr_spec):
         w = cuda_lib.field_words(spec)
-        assert w.dtype == np.uint32 and len(w) == 17
+        assert w.dtype == np.uint32 and len(w) == 25
         q = sum(int(v) << (32 * k) for k, v in enumerate(w[:8]))
         one = sum(int(v) << (32 * k) for k, v in enumerate(w[8:16]))
+        inv = sum(int(v) << (32 * k) for k, v in enumerate(w[17:]))
         assert q == spec.q and one == spec.one_mont
         assert (q * int(w[16]) + 1) % (1 << 32) == 0
+        assert (q * inv + 1) % (1 << 256) == 0 and int(w[16]) == int(w[17])
     before = cuda_lib.source_hash()
     names = cuda_lib.HEADERS + tuple(src for src, _ in
                                      cuda_lib.SOURCES.values())

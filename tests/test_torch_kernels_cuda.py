@@ -1,8 +1,8 @@
 """The CUDA kernels K1-K14 against their plain versions on the card: K1-K10
 at BN128's 8 words, K1-K3 over BLS12-381's Fr (8 words), K1, K2, K4-K9
 and K11 over BLS12-381's Fq (12 words), and K1, K2, K4 and K12-K14 over
-MNT6753's Fq (24 words); the team kernels of K9, K12 and K14 also at the
-lane counts of their paths.
+MNT6753's Fq (24 words); the team kernels of K9, K12 and K14, and K1
+and K2 at 24 words, also at the lane counts of their paths.
 
 Marked `cuda`: they need an NVIDIA card and nvcc, and skip elsewhere.  On
 the card, where jax is not installed and tests/conftest.py would import
@@ -63,6 +63,20 @@ def test_field_kernels_match_plain(dev, which):
     f = torch.arange(4099, device=dev) % 3 == 0
     assert torch.equal(towers.mod_cneg(spec, f, x),
                        towers.mod_cneg_plain(spec, f, x))
+
+
+@pytest.mark.parametrize("n", [255, 256, 510])
+def test_k1_k2_24_words_at_path_lanes(dev, n):
+    """K1 and K2 over MNT6753's Fq at the lane counts of its verify batch:
+    K1's team product (below its switch) and K2's spread blocks, with the
+    edge values and squares on the first lanes."""
+    spec = SPECS["mnt_fq"]()
+    x, y = _rand(spec, n, 20, dev), _rand(spec, n, 21, dev)
+    y[:, 4:8] = x[:, 4:8]
+    for k, p in ((fp.mont_mul, fp.mont_mul_plain),
+                 (fp.mod_add, fp.mod_add_plain),
+                 (fp.mod_sub, fp.mod_sub_plain)):
+        assert torch.equal(k(spec, x, y), p(spec, x, y)), k.__name__
 
 
 @pytest.mark.parametrize("which", ["fp", "bls_fq"])

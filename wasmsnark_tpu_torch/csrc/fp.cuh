@@ -42,7 +42,9 @@ struct Fe {
   uint32_t w[N];
 };
 
-// Field constants arrive from Python as 2N + 1 uint32 words: q, one, np.
+// Field constants arrive from Python as 3N + 1 uint32 words: q, one, np,
+// then -q^-1 mod 2^(32N) (fp_kernels.cu's K1 team product); this reads
+// the first 2N + 1.
 template <int N>
 inline Field<N> field_from_words(const uint32_t* words) {
   Field<N> f;
@@ -244,11 +246,32 @@ __device__ __forceinline__ void st(uint32_t* __restrict__ p, int c, int64_t n,
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < (n); \
        i += (int64_t)gridDim.x * blockDim.x)
 
+// The launch of the one-thread-a-lane kernels: blocks of kThreads threads,
+// one lane each, as many blocks as the lanes need (capped; the lane loop
+// covers the rest).  That suits a batch that fills the card, but it puts a
+// small one on a few SMs: 255 lanes are one block on one of the H100's 132
+// SMs, whose loads, stores and integer pipes then set the pace of the
+// whole launch.  So the field kernels K1 and K2 take spread_threads(n)
+// threads a block instead: the fewest whole warps that cover n lanes in at
+// most kSMs blocks, at most kThreads.  255 lanes run as 8 one-warp blocks
+// on 8 SMs, 6,120 lanes as 96 blocks of 64, and from kSMs * kThreads =
+// 33,792 lanes on this is grid_for's shape again.  K3 and K4 keep
+// grid_for's shape: their paths launch them on 2^16 lanes and more.
 constexpr int kThreads = 256;
+constexpr int kSMs = 132;                       // H100 SXM
+constexpr int kWarp = 32;
 
-inline unsigned grid_for(int64_t n) {
-  int64_t blocks = (n + kThreads - 1) / kThreads;
+inline unsigned grid_for(int64_t n, int threads = kThreads) {
+  int64_t blocks = (n + threads - 1) / threads;
   if (blocks < 1) blocks = 1;
   if (blocks > 65535LL * 8) blocks = 65535LL * 8;
   return (unsigned)blocks;
+}
+
+inline int spread_threads(int64_t n) {
+  int64_t warps = (n + (int64_t)kSMs * kWarp - 1) /
+                  ((int64_t)kSMs * kWarp);
+  if (warps < 1) warps = 1;
+  if (warps > kThreads / kWarp) warps = kThreads / kWarp;
+  return (int)warps * kWarp;
 }

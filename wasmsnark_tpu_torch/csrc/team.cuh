@@ -30,7 +30,6 @@
 #include "fp.cuh"
 
 constexpr uint8_t kNoSlot = 0xFF;
-constexpr int kWarp = 32;
 
 // One base product of a product stage: the sum of the slots a times the
 // sum of the slots b, into slot out (kNoSlot ends a list).

@@ -187,12 +187,16 @@ def _bind(lib):
 
 def field_words(spec) -> np.ndarray:
     """A FieldSpec's constants as the kernels take them: q and R mod q as
-    32-bit words, then -q^{-1} mod 2^32."""
+    32-bit words, then -q^{-1} mod 2^32, then -q^{-1} mod R as 32-bit
+    words (R = 2^(32 n), read by K1's team product only; every other entry
+    point reads the first 2n + 1 words)."""
     n = spec.n_limbs // 2
     q, one = spec.q, spec.one_mont
+    inv = -pow(q, -1, 1 << (32 * n)) % (1 << (32 * n))
     words = [(q >> (32 * k)) & 0xFFFFFFFF for k in range(n)]
     words += [(one >> (32 * k)) & 0xFFFFFFFF for k in range(n)]
-    words.append((-pow(q, -1, 1 << 32)) % (1 << 32))
+    words.append(inv & 0xFFFFFFFF)
+    words += [(inv >> (32 * k)) & 0xFFFFFFFF for k in range(n)]
     return np.array(words, dtype=np.uint32)
 
 
