@@ -4,7 +4,8 @@ libraries, built side by side and timed in turns.
 
     python3 chip_cios_unroll.py [--baseline DIR] [--unrolled]
                                 [--variant NAME:DEFINE[,DEFINE...]]
-                                [--field-only] [--pairings R] [--batches R]
+                                [--field-only | --tower-only] [--sass]
+                                [--pairings R] [--batches R]
 
 Run from the root of a checkout on a machine with the CUDA toolkit and a
 card.  Each variant is the field library `fp_kernels.cu` (8, 12 and 24
@@ -15,7 +16,8 @@ BLS12-381 library `tower_kernels.cu` (8 and 12 words):
             fp.cuh's CIOS outer loop rolled);
   unrolled  with --unrolled, the same with that define removed;
   NAME      with --variant NAME:K1_TEAM_MAX_LANES=0 (say), the committed
-            sources built with those -D macros (repeatable);
+            sources built with those -D macros (repeatable; the name
+            UNROLLED among them stands for --unrolled's edit);
   baseline  with --baseline DIR, the sources and headers of another
             checkout DIR (an older commit, unpacked with `git archive`),
             as committed there.
@@ -24,22 +26,26 @@ It compiles every library of every variant at once (one nvcc each) into
 the ignored wasmsnark_tpu_torch/_build/cios_unroll/, prints each build's
 seconds and each kernel's registers, stack, spill stores, static shared
 memory and, where the library reports its blocks' threads
-(`mnt_block_threads`, `tower_block_threads`), the blocks an SM can hold by
-those (H100 limits: 64 K registers, 228 KB of shared memory with 1 KB
+(`mnt_block_threads`, `tower_block_threads`), the blocks an SM can hold
+by those (H100 limits: 64 K registers, 228 KB of shared memory with 1 KB
 reserved per block, 2,048 threads and 32 blocks).  Then it binds each
-variant in turn and times K12 (product and square), K13 and K14 (doubling
-and add) at 256, 512 and 2^16 lanes and K9 at 8 and 12 words at 1,024 and
-2^16 lanes: the median of CUDA events around each wrapper call, each
-behind a ~1 ms device sleep; and the team kernels' C entry points alone
-(and K1's, one product a thread), as the mean of 20 launches in a row
-between two events.  The variants run in one order and then in the
-reverse one, and every variant's results must equal the plain versions'
-at the smallest lane count and the first variant's at 2^16 lanes, bit for
-bit.  K1 and K2 (the add-and-sub pair, as chip_smoke.py's row) are timed
-the same way at 24 words at FIELD_LANES[24] lanes (the MNT6753 paths' and
-2^16) and at 8 and 12 words at their paths' lane counts and 2^16, each
-checked against its plain version at every lane count.  With
---field-only only the field library is built and only K1 and K2 timed.
+variant in turn and times K12 (product and square), K13 and K14
+(doubling and add) at 255, 256, 512 and 2^16 lanes and K8's product and
+K9 at 8 and 12 words at TOWER_LANES (1,024 to 2^16): the median
+of CUDA events around each wrapper call, each behind a ~1 ms device
+sleep; and the team kernels' C entry points alone (and K1's, one product
+a thread), as the mean of 20 launches in a row between two events.  The
+variants run in one order and then in the reverse one, and every
+variant's results must equal the plain versions' at the smallest lane
+count and the first variant's at 2^16 lanes, bit for bit.  K1 and K2
+(the add-and-sub pair, as chip_smoke.py's row) are timed the same way at
+24 words at FIELD_LANES[24] lanes (the MNT6753 paths' and 2^16) and at 8
+and 12 words at their paths' lane counts and 2^16, each checked against
+its plain version at every lane count.  With --field-only only the field
+library is built and only K1 and K2 timed, with --tower-only only
+tower_kernels.cu and only K8's product and K9.  With --sass it prints,
+per variant and kernel, the instructions of its SASS (cuobjdump) and the
+most frequent opcodes.
 
 With --pairings R it then times chip_smoke.py's unprepared pairing
 batches (BN128 and BLS12-381 on 1,024 lanes, MNT6753 on 256 lanes and
@@ -49,10 +55,14 @@ in the reverse one, after one warm-up round, and then the card's kernel
 time of one call of each under torch.profiler; every batch must equal the
 host oracle's value.  With --batches R it times chip_smoke.py's steady
 MNT6753 verify batch (256 lanes, the wall time of
-bowe_gabizon_verify_batch, and its group-map-and-pairing stage alone) the
-same way, then the card's kernel time of one call of that stage under
-torch.profiler; every batch must return its expected list.  Only the
-field and tower libraries differ between the turns.
+bowe_gabizon_verify_batch, and its group-map-and-pairing stage alone) and
+its steady BLS12-381 verify batch (N_VERIFY = 1,024 lanes of one key, the
+wall time of groth16_verify_batch; the proof is of a 62-constraint
+square chain, since a batch's work depends on the public inputs and not
+on the circuit) the same way, then the card's kernel time of one call of
+the MNT6753 stage and of the BLS12-381 batch under torch.profiler; every
+batch must return its expected list.  Only the field and tower libraries
+differ between the turns.
 
 The last line is one JSON object of all of it.
 """
@@ -77,8 +87,10 @@ LIBS = {"fp_kernels_w8": ("fp_kernels.cu", 8),
         "tower_kernels_w8": ("tower_kernels.cu", 8),
         "tower_kernels_w12": ("tower_kernels.cu", 12)}
 BIG = 1 << 16                    # the lane count of the cross-variant check
-MNT_LANES = (256, 512, BIG)
-K9_LANES = (1024, BIG)
+MNT_LANES = (255, 256, 512, BIG)
+# K8's product and K9: the pairing and verify batches' lane counts, and
+# more up to 2^16 for where a team kernel stops paying
+TOWER_LANES = (1024, 2048, 4096, 8192, 16384, 32768, BIG)
 # K1 and K2 per word count: the lane counts their paths launch them with
 # most (PERF.md §6: the MNT6753 verify batch's at 24 words, the prove's at
 # 8 and 12) and 2^16; at 24 words also those around K1's switch between
@@ -143,10 +155,32 @@ def ptxas(log_path, threads):
     return out
 
 
-def build_variants(variants, cuda_lib, built=LIBS):
+def sass_counts(so_path, cuda_lib, top=8):
+    """Per kernel of a library: its SASS instructions (cuobjdump -sass) and
+    the `top` most frequent opcodes, with their modifiers."""
+    tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    from chip_smoke import kernel_name
+    text = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True, timeout=300).stdout
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name = kernel_name(block.split()[0])
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)", block)
+        if name:
+            counts = {}
+            for op in ops:
+                counts[op] = counts.get(op, 0) + 1
+            out[name] = {"instructions": len(ops), "top": dict(sorted(
+                counts.items(), key=lambda kv: -kv[1])[:top])}
+    return out
+
+
+def build_variants(variants, cuda_lib, built=LIBS, sass=False):
     """Every library of `built` (library -> (source, words)) of every
     variant, compiled at once; returns (variant -> library -> bound CDLL,
-    result dict with build seconds and ptxas)."""
+    result dict with build seconds, ptxas and with `sass` the SASS
+    counts)."""
     out = os.path.join(cuda_lib.BUILD_ROOT, "cios_unroll")
     shutil.rmtree(out, ignore_errors=True)
     dirs, procs = {}, {}
@@ -192,6 +226,12 @@ def build_variants(variants, cuda_lib, built=LIBS):
                        block_threads(libs[name][lib])) for lib in built}
         print(f"build {name}: " + json.dumps(result["build_s"][name]) + "; "
               + json.dumps(result["ptxas"][name]), flush=True)
+        if sass:
+            result.setdefault("sass", {})[name] = {
+                lib: sass_counts(os.path.join(dirs[name], f"lib{lib}.so"),
+                                 cuda_lib) for lib in built}
+            print(f"sass {name}: " + json.dumps(result["sass"][name]),
+                  flush=True)
     return libs, result
 
 
@@ -203,8 +243,13 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME:MACRO=VALUE[,...]: the committed sources "
                          "built with those macros")
-    ap.add_argument("--field-only", action="store_true",
-                    help="build and time the field library (K1, K2) only")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--field-only", action="store_true",
+                      help="build and time the field library (K1, K2) only")
+    only.add_argument("--tower-only", action="store_true",
+                      help="build tower_kernels.cu only, time K8 and K9")
+    ap.add_argument("--sass", action="store_true",
+                    help="print each kernel's SASS instruction counts")
     ap.add_argument("--pairings", type=int, default=0,
                     help="rounds of the pairing batches per variant")
     ap.add_argument("--batches", type=int, default=0,
@@ -232,14 +277,19 @@ def main() -> int:
         variants["unrolled"] = (csrc, False, ())
     for v in args.variant:
         name, defines = v.split(":", 1)
-        variants[name] = (csrc, True, tuple(defines.split(",")))
+        defines = defines.split(",")
+        variants[name] = (csrc, "UNROLLED" not in defines,
+                          tuple(d for d in defines if d != "UNROLLED"))
     if args.baseline:
         variants["baseline"] = (os.path.join(
             args.baseline, "wasmsnark_tpu_torch", "csrc"), None, ())
-    towers = not args.field_only
+    towers = not args.field_only            # tower_kernels.cu, K8 and K9
+    mnt = towers and not args.tower_only    # mnt_kernels.cu, K12-K14
+    field = not args.tower_only             # fp_kernels.cu, K1 and K2
     libs, result = build_variants(variants, cuda_lib, {
         lib: sw for lib, sw in LIBS.items()
-        if towers or lib.startswith("fp_")})
+        if (field and lib.startswith("fp_")) or (mnt and lib.startswith(
+            "mnt_")) or (towers and lib.startswith("tower_"))}, args.sass)
     result = {"device": smi, **result, "ms": {}}
 
     import chip_smoke as smoke
@@ -262,6 +312,8 @@ def main() -> int:
     xP, yP = rand(spec), rand(spec)
     F12 = {w: tk.unflatten12([rand(specs[w]) for _ in range(12)])
            for w in (8, 12)}
+    G12 = {w: tk.unflatten12([rand(specs[w]) for _ in range(12)])
+           for w in (8, 12)}
     XI = {8: tk.XI, 12: tk.XI_BLS}
     ins = (A, B, X, Y, Z, xP, yP)
     FX = {w: (rand(specs[w]), rand(specs[w])) for w in FIELD_LANES}
@@ -271,9 +323,10 @@ def main() -> int:
 
     def runs(k):
         """The wrappers timed at k lanes: K12-K14 at the MNT6753 lane
-        counts, K9 at its own, K1 and K2 at FIELD_LANES."""
+        counts, K8's product and K9 at TOWER_LANES, K1 and K2 at
+        FIELD_LANES."""
         out = {}
-        if towers and k in MNT_LANES:
+        if mnt and k in MNT_LANES:
             A, B, X, Y, Z, xP, yP = cut(ins, k)
             out.update({
                 "K12 mul": lambda: tk.mnt_f6_mul(spec, A, B),
@@ -282,13 +335,15 @@ def main() -> int:
                 "K14 dbl": lambda: tk.mnt_miller_dbl(spec, X, Y, Z, xP, yP),
                 "K14 add": lambda: tk.mnt_miller_add(spec, X, Y, Z, Y, X,
                                                      xP, yP)})
-        if towers and k in K9_LANES:
+        if towers and k in TOWER_LANES:
             for w in (8, 12):
-                a = cut(F12[w], k)
+                a, b = cut(F12[w], k), cut(G12[w], k)
+                out[f"K8 mul @N{w}"] = (lambda a=a, b=b, w=w: tk.f12_mul(
+                    specs[w], a, b, XI[w]))
                 out[f"K9 @N{w}"] = (lambda a=a, w=w: tk.f12_cyc_sqr(
                     specs[w], a, XI[w]))
         for w, ks in FIELD_LANES.items():
-            if k in ks:
+            if field and k in ks:
                 x, y = cut(FX[w], k)
                 s = specs[w]
                 out[f"K1 @N{w}"] = lambda s=s, x=x, y=y: fp.mont_mul(s, x, y)
@@ -300,7 +355,7 @@ def main() -> int:
         """The plain versions of runs(k)'s K1 and K2 entries, in order."""
         out = []
         for w, ks in FIELD_LANES.items():
-            if k in ks:
+            if field and k in ks:
                 x, y = cut(FX[w], k)
                 s = specs[w]
                 out += [fp.mont_mul_plain(s, x, y), fp.mod_add_plain(s, x, y),
@@ -310,16 +365,18 @@ def main() -> int:
     def plain(k):
         """The plain versions of runs(k)'s wrappers, in its order."""
         out = []
-        if towers and k in MNT_LANES:
+        if mnt and k in MNT_LANES:
             A, B, X, Y, Z, xP, yP = cut(ins, k)
             out += [tk.mnt_f6_mul_plain(spec, A, B),
                     tk.mnt_f6_sqr_plain(spec, A),
                     tk.mnt_f6_cyc_sqr_plain(spec, A),
                     tk.mnt_miller_dbl_plain(spec, X, Y, Z, xP, yP),
                     tk.mnt_miller_add_plain(spec, X, Y, Z, Y, X, xP, yP)]
-        if towers and k in K9_LANES:
-            out += [tk.f12_cyc_sqr_plain(specs[w], cut(F12[w], k), XI[w])
-                    for w in (8, 12)]
+        if towers and k in TOWER_LANES:
+            for w in (8, 12):
+                a, b = cut(F12[w], k), cut(G12[w], k)
+                out += [tk.f12_mul_plain(specs[w], a, b, XI[w]),
+                        tk.f12_cyc_sqr_plain(specs[w], a, XI[w])]
         return _leaves(out + field_plain(k))
 
     def raw(k):
@@ -330,26 +387,31 @@ def main() -> int:
                                device=DEVICE)
 
         out = {}
-        if k in MNT_LANES:
+        if field and k in MNT_LANES:
             A, B, X, Y, Z, xP, yP = cut(ins, k)
             out["K1"] = ("k1_mont_mul", spec,
                          [A[0][0], B[0][0], torch.empty_like(A[0][0])], ())
-        if towers and k in MNT_LANES:
+        if mnt and k in MNT_LANES:
             pts = [torch.stack([*X, *Y, *Z]), torch.stack([xP, yP])]
             out.update({
                 "K12 mul": ("k12_f6_mul", spec, [
                     torch.stack(tk.flatten6(A)), torch.stack(tk.flatten6(B)),
                     empty(6, spec)], ()),
+                "K12 sqr": ("k12_f6_sqr", spec, [
+                    torch.stack(tk.flatten6(A)), empty(6, spec)], ()),
                 "K14 dbl": ("k14_mnt_miller_dbl", spec,
                             [*pts, empty(15, spec)], ()),
                 "K14 add": ("k14_mnt_miller_add", spec,
                             [pts[0], torch.stack([*Y, *X]), pts[1],
                              empty(15, spec)], ())})
-        if towers and k in K9_LANES:
+        if towers and k in TOWER_LANES:
             for w in (8, 12):
-                out[f"K9 @N{w}"] = ("k9_f12_cyc_sqr", specs[w], [
-                    torch.stack(tk.flatten12(cut(F12[w], k))),
+                a = torch.stack(tk.flatten12(cut(F12[w], k)))
+                out[f"K8 mul @N{w}"] = ("k8_f12_mul", specs[w], [
+                    a, torch.stack(tk.flatten12(cut(G12[w], k))),
                     empty(12, specs[w])], XI[w])
+                out[f"K9 @N{w}"] = ("k9_f12_cyc_sqr", specs[w], [
+                    a, empty(12, specs[w])], XI[w])
         return out
 
     def stream_ms(fn, s, tensors, k, ints, reps=20):
@@ -370,7 +432,8 @@ def main() -> int:
     cuda_lib._libs.update(libs[next(iter(variants))])
     if args.pairings or args.batches:
         cuda_lib.build()              # the field and curve libraries
-    lanes = sorted(set(MNT_LANES + K9_LANES).union(*FIELD_LANES.values()))
+    lanes = sorted(set(MNT_LANES + TOWER_LANES).union(
+        *FIELD_LANES.values()))
     small = {k: plain(k) for k in lanes if k != n}
     first = None
     order = list(variants) + list(variants)[::-1]
@@ -509,11 +572,32 @@ def device_ms(run):
                        for e in top}}
 
 
+def bls_verify_lanes(smoke):
+    """A BLS12-381 runtime, key and chip_smoke.py's N_VERIFY verify lanes
+    (re-randomised copies of one proof, bad lanes at fixed places) for a
+    62-constraint square chain set up and proved on the card."""
+    import wasmsnark_tpu_torch
+    from wasmsnark_tpu_torch.groth16.pkey import write_witness
+    from wasmsnark_tpu_torch.groth16.setup import (
+        setup, square_chain_circuit, square_chain_witness)
+    from wasmsnark_tpu_torch.models import curve_module
+
+    m = curve_module("bls12381")
+    pkey, vk, _ = setup(square_chain_circuit(62), seed=smoke.SEED % 1000,
+                        module=m)
+    wit = square_chain_witness(62, 3, r=m.Fr.q)
+    rt = wasmsnark_tpu_torch.build_bls12381()
+    proof = rt.groth16_gen_proof(write_witness(wit, m.fr_spec), pkey, rng=7)
+    return rt, vk, smoke.verify_lanes(m, [str(wit[1])], proof,
+                                      smoke.N_VERIFY)
+
+
 def verify_batches(smoke, libs, cuda_lib, rounds):
     """Seconds of the steady MNT6753 verify batch and of its group map and
-    pairing stage (rt._check) under each variant's libraries, in
-    alternating turns; then the stage's kernel time on the card in one
-    profiled call under each."""
+    pairing stage (rt._check), and of the steady BLS12-381 verify batch,
+    under each variant's libraries, in alternating turns; then the card's
+    kernel time in one profiled call of the MNT6753 stage and of the
+    BLS12-381 batch under each."""
     import random
     import torch
     import wasmsnark_tpu_torch
@@ -527,8 +611,10 @@ def verify_batches(smoke, libs, cuda_lib, rounds):
     tt = rt._hash_to_t(batch)
     coeffs = rt._fixed_coeffs(batch[0]["delta"])
     want_ok = [w for w, mm in zip(want, ms) if mm is not None]
+    bls, bvk, (bins, bprs, bwant) = bls_verify_lanes(smoke)
     names = list(libs)
-    out = {name: {"batch": [], "pairing": []} for name in names}
+    out = {name: {"batch": [], "pairing": [], "bls_batch": []}
+           for name in names}
     for turn, (warm, name) in enumerate(turns(names, rounds)):
         cuda_lib._libs.update(libs[name])
         torch.cuda.synchronize()
@@ -541,19 +627,29 @@ def verify_batches(smoke, libs, cuda_lib, rounds):
         ok = rt._check(tt, g1_4, g2_var, coeffs, expected, True).tolist()
         torch.cuda.synchronize()
         pairing_s = time.perf_counter() - t
-        if got != want or ok != want_ok:
+        t = time.perf_counter()
+        bgot = bls.groth16_verify_batch(bvk, bins, bprs)
+        torch.cuda.synchronize()
+        bls_s = time.perf_counter() - t
+        if got != want or ok != want_ok or bgot != bwant:
             raise AssertionError(f"verify batch wrong under {name}")
         print(f"verify batch turn {turn} {name}: batch {batch_s:.3f} s, "
-              f"group map and pairing {pairing_s:.3f} s", flush=True)
+              f"group map and pairing {pairing_s:.3f} s, BLS12-381 batch "
+              f"{bls_s:.3f} s", flush=True)
         if not warm:
             out[name]["batch"].append(batch_s)
             out[name]["pairing"].append(pairing_s)
-    for name in names:                # then one profiled call of the stage
+            out[name]["bls_batch"].append(bls_s)
+    for name in names:                # then one profiled call of each
         cuda_lib._libs.update(libs[name])
         out[name]["pairing_device"] = device_ms(lambda: rt._check(
             tt, g1_4, g2_var, coeffs, expected, True))
+        out[name]["bls_batch_device"] = device_ms(
+            lambda: bls.groth16_verify_batch(bvk, bins, bprs))
         print(f"verify batch {name}: group map and pairing on the card "
-              + json.dumps(out[name]["pairing_device"]), flush=True)
+              + json.dumps(out[name]["pairing_device"])
+              + "; BLS12-381 batch on the card "
+              + json.dumps(out[name]["bls_batch_device"]), flush=True)
     return out
 
 

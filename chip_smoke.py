@@ -74,8 +74,9 @@ then, for every kernel row:
      lane, one call or the add-and-sub pair, timed the same way,
      call_floor_ms among the phases): ms_above_floor_at_path.
      K1 at 24 words runs one thread a lane at 2^16 lanes and its team
-     product at the MNT6753 paths' lane counts, so the two checks hold
-     both of its designs.
+     product at the MNT6753 paths' lane counts, and K8's product at 8
+     words one thread a lane at 2^16 and a team kernel at the BN128
+     paths' lane counts, so the two checks hold both of their designs.
 
 Any failure prints its traceback and exits non-zero.  Without a CUDA
 device, or outside the repository, it exits non-zero and prints no
@@ -126,7 +127,10 @@ PROVE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
 CURVES = ("bn128", "bls12381")
 
 # the kernel function behind each C entry point (ptxas reports by kernel);
-# K1 at 24 words also launches its team product, mont_mul_team_kernel
+# K1 at 24 words also launches its team product, mont_mul_team_kernel, and
+# K8's product above its switch one thread a lane, f12_mul_thread_kernel
+OTHER_DESIGN = {"k1_mont_mul": "mont_mul_team_kernel",
+                "k8_f12_mul": "f12_mul_thread_kernel"}
 ENTRY_KERNEL = {
     "k1_mont_mul": "mont_mul_kernel", "k2_mod_add": "addsub_kernel",
     "k2_mod_sub": "addsub_kernel", "k3_butterfly": "butterfly_kernel",
@@ -1465,9 +1469,10 @@ def main() -> int:
             raise AssertionError(f"{kr['name']} never launched")
         kr["ptxas"] = {fn: ptxas.get(f"{ENTRY_KERNEL[fn]}@N{kr['n_words']}")
                        for fn in kr["fns"]}
-        team = ptxas.get(f"mont_mul_team_kernel@N{kr['n_words']}")
-        if "k1_mont_mul" in kr["fns"] and team:
-            kr["ptxas"]["k1_mont_mul team"] = team
+        for fn, kernel in OTHER_DESIGN.items():
+            other = ptxas.get(f"{kernel}@N{kr['n_words']}")
+            if fn in kr["fns"] and other:
+                kr["ptxas"][f"{fn} {kernel}"] = other
 
     say("kernels at the lane counts their paths launch them with")
     t = time.perf_counter()

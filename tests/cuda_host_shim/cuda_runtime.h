@@ -16,7 +16,7 @@
 #define __shared__ static
 #define __forceinline__ inline
 #define __noinline__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }

@@ -479,6 +479,71 @@ def test_k9_team_kernel(libs, curve_name, n):
         assert torch.equal(x[:, on], y[:, on])
 
 
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+@pytest.mark.parametrize("n", [1, 13, 30, 96])
+def test_k8_mul_team_kernel(libs, curve_name, n):
+    """K8's product as a team kernel at 8 (BN128, xi = 9 + u) and 12
+    (BLS12-381, xi = 1 + u) words on n lanes: one lane, ragged lane groups
+    (13 and 30 are not multiples of its 8 lanes a block) and full ones; the
+    edge values 0, 1, q - 1, q - 2 on lanes 0..3 of every component of
+    both operands from 13 lanes on, and on lanes 4..7 b = a (a square)."""
+    m = CURVES[curve_name]()
+    spec = m.fp_spec
+    xi = tk.XI if curve_name == "bn128" else tk.XI_BLS
+    pa = [rand(spec, 160 + k) for k in range(12)]
+    pb = [rand(spec, 180 + k) for k in range(12)]
+    for x, y in zip(pa, pb):
+        y[:, 4:8] = x[:, 4:8]
+    a = _cut(tk.unflatten12(pa), n)
+    b = _cut(tk.unflatten12(pb), n)
+    rc, out = _tower(libs, "k8_f12_mul", spec,
+                     [tk.flatten12(a), tk.flatten12(b)], xi, n)
+    assert rc == 0
+    assert_equal(tk.unflatten12(out), tk.f12_mul_plain(spec, a, b, xi))
+
+
+def k8_team_max_lanes():
+    """K8_TEAM_MAX_LANES of tower_kernels.cu at 8 words: above it K8's
+    product runs one thread a lane there, up to it the team kernel."""
+    text = (pathlib.Path(cuda_lib.CSRC) / "tower_kernels.cu").read_text()
+    return int(re.search(r"#define K8_TEAM_MAX_LANES \(WORDS == 8 \? (\d+)",
+                         text).group(1))
+
+
+def test_k8_mul_above_switch(libs):
+    """K8's product at 8 words (BN128) on one lane more than the switch,
+    where the library as built runs one thread a lane: 96 lanes with the
+    edge values tiled, against their plain products tiled the same way."""
+    m = bn128()
+    spec = m.fp_spec
+    n = k8_team_max_lanes() + 1
+    a = tk.unflatten12([rand(spec, 200 + k) for k in range(12)])
+    b = tk.unflatten12([rand(spec, 220 + k) for k in range(12)])
+    idx = torch.arange(n) % N
+    ops = [torch.stack(tk.flatten12(x))[..., idx].contiguous() for x in (a, b)]
+    out = torch.empty((tk.N12, spec.n_limbs, n), dtype=torch.int32)
+    assert call(libs, "k8_f12_mul", spec, (*ops, out), tk.XI, n) == 0
+    want = tk.f12_mul_plain(spec, a, b, tk.XI)
+    for x, y in zip(tk.flatten12(tk.unflatten12(list(out.unbind(0)))),
+                    tk.flatten12(want), strict=True):
+        assert torch.equal(x, y[:, idx])
+
+
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+def test_k8_mul_other_xi(libs, curve_name):
+    """K8's product with an xi other than its build's curve's (the team
+    kernel is compiled for that one): 30 lanes run one thread a lane, and
+    still equal the plain product at that xi."""
+    spec = CURVES[curve_name]().fp_spec
+    a = _cut(tk.unflatten12([rand(spec, 240 + k) for k in range(12)]), 30)
+    b = _cut(tk.unflatten12([rand(spec, 260 + k) for k in range(12)]), 30)
+    for xi in ((2, 1), (9, 3)):
+        rc, out = _tower(libs, "k8_f12_mul", spec,
+                         [tk.flatten12(a), tk.flatten12(b)], xi, 30)
+        assert rc == 0
+        assert_equal(tk.unflatten12(out), tk.f12_mul_plain(spec, a, b, xi))
+
+
 def _mnt(libs, fn, spec, groups, n_out, n=N):
     ops = [torch.stack(g)[..., :n].contiguous() for g in groups]
     out = torch.empty((n_out, spec.n_limbs, n), dtype=torch.int32)
@@ -521,11 +586,11 @@ def _cut(t, n):
 
 @pytest.mark.parametrize("n", [1, 13, 30, 96])
 def test_mnt_team_kernels(libs, n):
-    """The MNT6753 team kernels, K12's F6 product and K14's doubling and
-    mixed add, on n lanes: one lane, ragged lane groups (13 and 30 are
-    multiples of neither K12's 8 nor K14's 4 lanes a block) and full ones,
-    with the edge values, the Z = 0 lanes 4..7 and the x2 = X/Z lanes
-    8..11 from 13 lanes on."""
+    """The MNT6753 team kernels, K12's F6 product and square and K14's
+    doubling and mixed add, on n lanes: one lane, ragged lane groups (13
+    and 30 are multiples of neither K12's 8 nor K14's 4 lanes a block) and
+    full ones, with the edge values, the Z = 0 lanes 4..7 and the x2 = X/Z
+    lanes 8..11 from 13 lanes on."""
     m = mnt6753()
     spec = m.fp_spec
     a = _cut(tk.unflatten6([rand(spec, 70 + k) for k in range(6)]), n)
@@ -534,6 +599,9 @@ def test_mnt_team_kernels(libs, n):
                    tk.N6, n)
     assert rc == 0
     assert_equal(tk.unflatten6(out), tk.mnt_f6_mul_plain(spec, a, b))
+    rc, out = _mnt(libs, "k12_f6_sqr", spec, [tk.flatten6(a)], tk.N6, n)
+    assert rc == 0
+    assert_equal(tk.unflatten6(out), tk.mnt_f6_sqr_plain(spec, a))
     X, Y, Z, x2, y2, xP, yP = _cut(_mnt_points(m), n)
     plains = (tk.mnt_miller_dbl_plain(spec, X, Y, Z, xP, yP),
               tk.mnt_miller_add_plain(spec, X, Y, Z, x2, y2, xP, yP))

@@ -1,8 +1,8 @@
 """The CUDA kernels K1-K14 against their plain versions on the card: K1-K10
 at BN128's 8 words, K1-K3 over BLS12-381's Fr (8 words), K1, K2, K4-K9
 and K11 over BLS12-381's Fq (12 words), and K1, K2, K4 and K12-K14 over
-MNT6753's Fq (24 words); the team kernels of K9, K12 and K14, and K1
-and K2 at 24 words, also at the lane counts of their paths.
+MNT6753's Fq (24 words); the team kernels of K8's product, K9, K12 and
+K14, and K1 and K2 at 24 words, also at the lane counts of their paths.
 
 Marked `cuda`: they need an NVIDIA card and nvcc, and skip elsewhere.  On
 the card, where jax is not installed and tests/conftest.py would import
@@ -106,10 +106,13 @@ def _assert_equal(a, b):
 
 
 @pytest.mark.parametrize("which", ["fp", "bls_fq"])
-def test_tower_kernels_match_plain(dev, which):
+@pytest.mark.parametrize("n", [777, 1024, 2048, 4096])
+def test_tower_kernels_match_plain(dev, which, n):
+    """K8-K11 at 8 and 12 words, at the verify and pairing batches' lane
+    counts (1,024 and their prepared ladder's 2,048 and 4,096) and a ragged
+    count, with Z = 0 lanes."""
     spec = SPECS[which]()
     xi = tk.XI if which == "fp" else tk.XI_BLS
-    n = 777
     a = tk.unflatten12([_rand(spec, n, s, dev) for s in range(10, 22)])
     b = tk.unflatten12([_rand(spec, n, s, dev) for s in range(22, 34)])
     _assert_equal(tk.f12_mul(spec, a, b, xi),
@@ -139,10 +142,10 @@ def test_tower_kernels_match_plain(dev, which):
 
 @pytest.mark.parametrize("n", [1, 255, 256, 512, 1280, 1 << 16])
 def test_mnt_team_kernels_match_plain(dev, n):
-    """The MNT6753 team kernels, K12's F6 product and K14's doubling and
-    mixed add, at the lane counts of the MNT6753 paths (255, 256, 512,
-    1,280), one lane and 2^16, with Z = 0 lanes; one lane takes a random
-    lane, not an edge value."""
+    """The MNT6753 team kernels, K12's F6 product and square and K14's
+    doubling and mixed add, at the lane counts of the MNT6753 paths (255,
+    256, 512, 1,280), one lane and 2^16, with Z = 0 lanes; one lane takes
+    a random lane, not an edge value."""
     spec = SPECS["mnt_fq"]()
     m = max(n, 64)
     lo = 0 if n >= 12 else m - n
@@ -153,6 +156,7 @@ def test_mnt_team_kernels_match_plain(dev, n):
     a = tk.unflatten6([rand(s) for s in range(50, 56)])
     b = tk.unflatten6([rand(s) for s in range(56, 62)])
     _assert_equal(tk.mnt_f6_mul(spec, a, b), tk.mnt_f6_mul_plain(spec, a, b))
+    _assert_equal(tk.mnt_f6_sqr(spec, a), tk.mnt_f6_sqr_plain(spec, a))
     X, Y, Z, x2, y2 = [tuple(rand(s + j) for j in range(3))
                        for s in (70, 73, 76, 79, 82)]
     xP, yP = rand(85), rand(86)
@@ -168,15 +172,18 @@ def test_mnt_team_kernels_match_plain(dev, n):
 @pytest.mark.parametrize("n", [1, 1000, 1024, 1 << 16])
 def test_k9_team_kernel_match_plain(dev, which, n):
     """K9's team kernel at 8 and 12 words, at the pairing batches' 1,024
-    lanes, a ragged count, one lane and 2^16."""
+    lanes, a ragged count, one lane and 2^16; and K8's product, a team
+    kernel too, there."""
     spec = SPECS[which]()
     xi = tk.XI if which == "fp" else tk.XI_BLS
     m = max(n, 64)
     lo = 0 if n >= 12 else m - n
-    a = tk.unflatten12([_rand(spec, m, s, dev)[:, lo:lo + n].contiguous()
-                        for s in range(20, 32)])
+    a, b = [tk.unflatten12([_rand(spec, m, s, dev)[:, lo:lo + n].contiguous()
+                            for s in range(s0, s0 + 12)]) for s0 in (20, 32)]
     _assert_equal(tk.f12_cyc_sqr(spec, a, xi),
                   tk.f12_cyc_sqr_plain(spec, a, xi))
+    _assert_equal(tk.f12_mul(spec, a, b, xi),
+                  tk.f12_mul_plain(spec, a, b, xi))
 
 
 def test_mnt_kernels_match_plain(dev):

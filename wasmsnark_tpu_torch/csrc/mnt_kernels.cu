@@ -32,30 +32,28 @@
 // write 15 planes (a0, b, X', Y', Z').
 //
 // What bounds them on the H100: counted against the card's peaks, K14's
-// steps (84-90 Montgomery products of ~2N^2 = 1,152 wide multiply-adds)
-// need more time for their operations than for their 26-32 planes of 2N
-// words per lane, and K12's product about as much for both.  But the
-// MNT6753 paths launch them on 255-512 lanes, where one thread per lane
-// fills 4-8 of the 132 SMs and the time is one thread's serial chain of
-// products (18 in K12's product, 84-108 in a one-thread Miller step): the
-// latency of a thread bounds them, not the card's throughput.  So K12's
-// product and both Miller steps run a team of threads per lane (team.cuh):
-// the lane's values in shared memory, one base product per thread per
-// round, which shortens the chain to one round of products (K12) and four
-// (each K14 step) plus their combines.  K12's square and K13 still run one
-// thread per lane: an F6 operand is 6N = 144 words, more than fits the 255
-// registers of a thread beside the CIOS state, so their base product is one
-// __noinline__ copy of the CIOS body, the F3 product is __noinline__ too,
-// and they read their inputs from device memory where a formula needs
-// them again instead of keeping them live; the call boundaries cost spills
-// that -Xptxas -v reports (the build log).
+// steps (84-90 Montgomery products of ~2N^2 = 1,152 wide multiply-adds) need
+// more time for their operations than for their 26-32 planes of 2N words per
+// lane, and K12's product about as much for both.  But the MNT6753 paths
+// launch them on 255-512 lanes, where one thread per lane fills 4-8 of the
+// 132 SMs and the time is one thread's serial chain of products (18 in K12's
+// product, 12 in its square, 84-108 in a Miller step): the latency of a
+// thread bounds them, not the card's throughput.  So K12's product and
+// square and both Miller steps run a team of threads per lane (team.cuh):
+// the lane's values in shared memory, one base product per thread per round,
+// which shortens the chain to one round of products (K12) and four (each K14
+// step) plus their combines.  K13 still runs one thread per lane: an F6
+// operand is 6N = 144 words, more than fits the 255 registers of a thread
+// beside the CIOS state, so its base product is one __noinline__ copy of the
+// CIOS body, and it reads its inputs from device memory where a formula
+// needs them again instead of keeping them live.
 
 // Both CIOS products here, fmul's and the team kernels' (team.cuh
 // mont_mul_nc), keep their outer loop rolled: on the H100 that builds this
 // library ~11 s faster, and the team kernels run faster rolled at every
-// lane count; the one-thread kernels (K12's square, K13) would run 15-24 %
-// faster unrolled at the paths' 256 lanes (chip_cios_unroll.py, PERF.md
-// §6), which is left to their redesign.
+// lane count; the one-thread K13 would run 18 % faster unrolled at the
+// paths' 256 lanes (chip_cios_unroll.py, PERF.md §6), which is left to its
+// redesign.
 #define FP_CIOS_ROLLED
 #include "team.cuh"
 
@@ -63,11 +61,6 @@ namespace {
 
 constexpr int kMntThreads = 64;
 constexpr int kNR = 11;            // F3 non-residue, G1's a, G2's a2 / v^2
-
-template <int N>
-struct F3 {
-  Fe<N> c0, c1, c2;
-};
 
 // -- base field ------------------------------------------------------------------
 
@@ -79,85 +72,20 @@ __device__ __noinline__ Fe<N> fmul(const Field<N>& f, const Fe<N>& a,
 
 // -- F3 --------------------------------------------------------------------------
 
-template <int N>
-__device__ __forceinline__ F3<N> f3_add(const Field<N>& f, const F3<N>& a,
-                                        const F3<N>& b) {
-  return {add(f, a.c0, b.c0), add(f, a.c1, b.c1), add(f, a.c2, b.c2)};
-}
-
-template <int N>
-__device__ __forceinline__ F3<N> f3_sub(const Field<N>& f, const F3<N>& a,
-                                        const F3<N>& b) {
-  return {sub(f, a.c0, b.c0), sub(f, a.c1, b.c1), sub(f, a.c2, b.c2)};
-}
-
-// v * a = (11 a2, a0, a1)
-template <int N>
-__device__ __forceinline__ F3<N> f3_mulv(const Field<N>& f, const F3<N>& a) {
-  return {mul_small(f, a.c2, kNR), a.c0, a.c1};
-}
-
-// Karatsuba over the cubic extension, 6 base products (build_f3m.js,
-// towers.py F3Device.mul):
-// c0 = v0 + 11 (t12 - v1 - v2), c1 = (t01 - v0 - v1) + 11 v2,
-// c2 = (t02 - v0 - v2) + v1.
-template <int N>
-__device__ __noinline__ F3<N> f3_mul(const Field<N>& f, const F3<N>& a,
-                                     const F3<N>& b) {
-  Fe<N> v0 = fmul(f, a.c0, b.c0);
-  Fe<N> v1 = fmul(f, a.c1, b.c1);
-  Fe<N> v2 = fmul(f, a.c2, b.c2);
-  Fe<N> t01 = fmul(f, add(f, a.c0, a.c1), add(f, b.c0, b.c1));
-  Fe<N> t12 = fmul(f, add(f, a.c1, a.c2), add(f, b.c1, b.c2));
-  Fe<N> t02 = fmul(f, add(f, a.c0, a.c2), add(f, b.c0, b.c2));
-  return {add(f, v0, mul_small(f, sub(f, sub(f, t12, v1), v2), kNR)),
-          add(f, sub(f, sub(f, t01, v0), v1), mul_small(f, v2, kNR)),
-          add(f, sub(f, sub(f, t02, v0), v2), v1)};
-}
-
 // Coefficient k of the Karatsuba F3 product whose base products v0, v1,
-// v2, t01, t12, t02 sit at slots r..r+5 of a team kernel, as f3_mul
-// combines them: c_k = (A - B - C) + m (D - E - F), with
-//   k = 0: v0 - 0 - 0 + 11 (t12 - v1 - v2),
-//   k = 1: t01 - v0 - v1 + 11 (v2 - 0 - 0),
-//   k = 2: t02 - v0 - v2 + (v1 - 0 - 0):
-// one straight-line body for every k, so that the items of a warp, which
-// take different k, do not diverge (slot offsets from r, -1 for zero).
-__constant__ int8_t kCoefSlots[3][6] = {
-    {0, -1, -1, 4, 1, 2}, {3, 0, 1, 2, -1, -1}, {5, 0, 2, 1, -1, -1}};
-
+// v2, t01, t12, t02 sit at slots r..r+5 of a team kernel (team.cuh
+// kCoefSlots, the non-residue 11).
 template <int N, int G>
 __device__ __forceinline__ Fe<N> f3_coef(const Field<N>& f,
                                          const Slots<N, G>& s, int r, int k,
                                          int g) {
   auto term = [&](int j) {
     const int d = kCoefSlots[k][j];
-    Fe<N> v = s.get(r + (d < 0 ? 0 : d), g);
-    const uint32_t keep = d < 0 ? 0u : ~0u;
-#pragma unroll
-    for (int w = 0; w < N; ++w) v.w[w] &= keep;
-    return v;
+    return s.get_if(r + (d < 0 ? 0 : d), d >= 0, g);
   };
   const Fe<N> x = sub(f, sub(f, term(0), term(1)), term(2));
   const Fe<N> y = sub(f, sub(f, term(3), term(4)), term(5));
   return add(f, x, select(k == 2, y, mul_small(f, y, kNR)));
-}
-
-// -- F6 = F3[w]/(w^2 - v) ------------------------------------------------------------
-
-// F3 half h (0 or 1) of a stacked F6 operand: components 3h .. 3h + 2
-template <int N>
-__device__ __forceinline__ F3<N> ld3(const uint32_t* __restrict__ p, int c,
-                                     int64_t n, int64_t i) {
-  return {ld<N>(p, c, n, i), ld<N>(p, c + 1, n, i), ld<N>(p, c + 2, n, i)};
-}
-
-template <int N>
-__device__ __forceinline__ void st3(uint32_t* __restrict__ p, int c, int64_t n,
-                                    int64_t i, const F3<N>& a) {
-  st<N>(p, c, n, i, a.c0);
-  st<N>(p, c + 1, n, i, a.c1);
-  st<N>(p, c + 2, n, i, a.c2);
 }
 
 // -- K12 --------------------------------------------------------------------------
@@ -210,18 +138,50 @@ __global__ void __launch_bounds__(kK12Lanes * kK12Team)
   }
 }
 
-// (a0 + a1 w)^2: ab = a0 a1, t = (a0 + a1)(a0 + v a1);
-// c0 = t - (ab + v ab), c1 = 2 ab
+// (a0 + a1 w)^2 = (t - ab - v ab) + 2 ab w with ab = a0 a1 and
+// t = (a0 + a1)(a0 + v a1) (towers.py F2Device.square over F3), by a team
+// of kSqrTeam threads per lane over kSqrLanes lanes a block.  Slots: a0
+// 0-2, a1 3-5, v a1 = (11 a1_2, a1_0, a1_1) 6-8; the 12 base products of
+// ab and t at 9-14 and 15-20; ab and t at 0-5 once the products are done.
+// Stages: load 9 slots, 12 products, 6 F3 coefficients, 6 outputs.
+constexpr int kSqrLanes = 8;
+constexpr int kSqrTeam = 12;
+constexpr int kSqrSlots = 21;
+
+__constant__ Prod kSqrProds[12] = {F3_PRODS(0, 3, 9),
+                                   F3_PRODS_SUM(0, 3, 0, 6, 15)};
+
 template <int N>
-__global__ void __launch_bounds__(kMntThreads)
+__global__ void __launch_bounds__(kSqrLanes * kSqrTeam)
     f6_sqr_kernel(Field<N> f, const uint32_t* __restrict__ a,
                   uint32_t* __restrict__ out, int64_t n) {
-  LANE_LOOP(i, n) {
-    F3<N> a0 = ld3<N>(a, 0, n, i), a1 = ld3<N>(a, 3, n, i);
-    F3<N> ab = f3_mul(f, a0, a1);
-    st3<N>(out, 3, n, i, f3_add(f, ab, ab));
-    F3<N> t = f3_mul(f, f3_add(f, a0, a1), f3_add(f, a0, f3_mulv(f, a1)));
-    st3<N>(out, 0, n, i, f3_sub(f, t, f3_add(f, ab, f3_mulv(f, ab))));
+  constexpr int G = kSqrLanes;
+  __shared__ uint32_t sm[kSqrSlots * Slots<N, G>::kStride];
+  const Slots<N, G> s{sm};
+  for (int64_t base = (int64_t)blockIdx.x * G; base < n;
+       base += (int64_t)gridDim.x * G) {
+    team_for<G>(9, base, n, [&](int c, int g) {   // a0, a1, v a1
+      const Fe<N> v = ld<N>(a, c < 6 ? c : 3 + (c + 2) % 3, n, base + g);
+      s.put(c, g, select(c == 6, mul_small(f, v, kNR), v));
+    });
+    __syncthreads();
+    prod_stage<N, G>(f, s, kSqrProds, 12, base, n);
+    __syncthreads();
+    team_for<G>(6, base, n, [&](int c, int g) {   // ab, t
+      s.put(c, g, f3_coef<N, G>(f, s, 9 + 6 * (c / 3), c % 3, g));
+    });
+    __syncthreads();
+    team_for<G>(3, base, n, [&](int k, int g) {   // c1 = 2 ab
+      const Fe<N> ab = s.get(k, g);
+      st<N>(out, 3 + k, n, base + g, add(f, ab, ab));
+    });
+    team_for<G>(3, base, n, [&](int k, int g) {   // c0 = t - ab - v ab
+      const Fe<N> w = s.get((k + 2) % 3, g);
+      const Fe<N> vab = select(k == 0, mul_small(f, w, kNR), w);
+      st<N>(out, k, n, base + g,
+            sub(f, sub(f, s.get(3 + k, g), s.get(k, g)), vab));
+    }, warp_after(3, G));
+    __syncthreads();
   }
 }
 
@@ -547,7 +507,8 @@ int k12_f6_sqr(const void* a, void* out, long long n, int n_limbs,
   if (bad_args(n_limbs, n)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
-  f6_sqr_kernel<kN><<<mnt_grid(n), kMntThreads, 0, (cudaStream_t)stream>>>(
+  f6_sqr_kernel<kN><<<team_grid(n, kSqrLanes), kSqrLanes * kSqrTeam, 0,
+                      (cudaStream_t)stream>>>(
       f, (const uint32_t*)a, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
@@ -593,7 +554,7 @@ int k14_mnt_miller_add(const void* xyz, const void* q, const void* p,
 // (k12_f6_mul, k12_f6_sqr, k13_f6_cyc_sqr, k14_mnt_miller_dbl,
 // k14_mnt_miller_add): the occupancy report of chip_cios_unroll.py.
 void mnt_block_threads(int* threads) {
-  const int t[5] = {kK12Lanes * kK12Team, kMntThreads, kMntThreads,
+  const int t[5] = {kK12Lanes * kK12Team, kSqrLanes * kSqrTeam, kMntThreads,
                     kDblLanes * kDblTeam, kAddLanes * kAddTeam};
   for (int k = 0; k < 5; ++k) threads[k] = t[k];
 }

@@ -69,6 +69,18 @@ struct Prod {
    o + 1},                                                                   \
   {{a + 2, kNoSlot, kNoSlot, kNoSlot}, {s, kNoSlot, kNoSlot, kNoSlot}, o + 2}
 
+// Coefficient k of a Karatsuba product over a cubic extension (towers.py
+// F3Device.mul, build_f3m.js) from its six products v0, v1, v2, t01, t12,
+// t02 (indices 0-5): c_k = (A - B - C) + m (D - E - F) with m the
+// non-residue for k = 0, 1 and 1 for k = 2, and
+//   k = 0: v0 - 0 - 0 + m (t12 - v1 - v2),
+//   k = 1: t01 - v0 - v1 + m (v2 - 0 - 0),
+//   k = 2: t02 - v0 - v2 + (v1 - 0 - 0),
+// the indices of A..F per k, -1 for zero: one straight-line body for every
+// k, so that the items of a warp, which take different k, do not diverge.
+__constant__ int8_t kCoefSlots[3][6] = {
+    {0, -1, -1, 4, 1, 2}, {3, 0, 1, 2, -1, -1}, {5, 0, 2, 1, -1, -1}};
+
 // The slots of one block: word k of slot s of lane g at
 // p[(s * (N + 1) + k) * G + g].  Word-major, so the G lanes of one item
 // read neighbouring banks; the pad word shifts consecutive slots by G banks,
@@ -86,6 +98,14 @@ struct Slots {
     Fe<N> a;
 #pragma unroll
     for (int k = 0; k < N; ++k) a.w[k] = q[k * G];
+    return a;
+  }
+  // slot s, or zero where keep is false, without a branch
+  __device__ __forceinline__ Fe<N> get_if(int s, bool keep, int g) const {
+    Fe<N> a = get(s, g);
+    const uint32_t mask = keep ? ~0u : 0u;
+#pragma unroll
+    for (int k = 0; k < N; ++k) a.w[k] &= mask;
     return a;
   }
   __device__ __forceinline__ void put(int s, int g, const Fe<N>& a) const {
@@ -152,6 +172,12 @@ __device__ __forceinline__ void team_for(int items, int64_t base, int64_t n,
     const int g = w % G;
     if (w >= 0 && base + g < n) body(w / G, g);
   }
+}
+
+// The first thread of a loop that is to start on a warp of its own after a
+// loop of `items` items a lane (team_for's `first`).
+__host__ __device__ constexpr int warp_after(int items, int G) {
+  return (items * G + kWarp - 1) / kWarp * kWarp;
 }
 
 // A product stage: the `items` base products of table tbl.

@@ -34,21 +34,23 @@
 //
 // What bounds them on the H100: counted against the card's peaks, a K8
 // product (54 Montgomery products of ~2N^2 IMADs, 36 planes of 2N 32-bit
-// words per lane) needs more time for its bytes than for its operations,
-// but one thread per lane at up to 255 registers leaves ~8 warps per SM, so
-// the kernels are expected to wait on each thread's chain of dependent
-// multiplies rather than on memory (at N = 8 they reach 11-17 % of the
-// byte bound).  K8, K10 and K11 run one thread per lane, as K1-K7.  One F12
-// operand is 12N words, so K8 reads operand halves from device memory where
-// a Karatsuba term needs them instead of keeping both operands in
-// registers, and the F2 and F6 products are __noinline__ functions, which
-// keeps the build in seconds; their call boundaries cost spills that
-// -Xptxas -v reports (the build log).  K9 runs on 1,024 lanes in every
-// pairing, where one thread per lane fills 16 of the 132 SMs and waits on
-// its chain of 18 base products: it runs a team of threads per lane
-// (team.cuh), the lane's values in shared memory and its 18 base products
-// in one round, one a thread.  This source defines no FP_CIOS_ROLLED, so
-// fp.cuh's and team.cuh's CIOS loops are unrolled here.
+// words per lane) needs about as much time for its bytes as for its
+// operations.  But the verify and pairing batches launch K8 and K9 on
+// 1,024-4,096 lanes, where one thread per lane (64-thread blocks) fills
+// 16-64 of the 132 SMs and waits on its chain of 54 or 18 dependent base
+// products.  So K8's product and K9 run a team of threads per lane
+// (team.cuh): the lane's values in shared memory and its base products in
+// one round, one a thread; K8's product keeps its one-thread design for more
+// than K8_TEAM_MAX_LANES lanes at 8 words, where every SM is busy and one
+// thread's chain is the cheaper, and for an xi other than its build's
+// curve's.  K8's square and the Miller steps K10 and K11 run one thread per
+// lane: one F12 operand is 12N words, so the square reads operand halves
+// from device memory where a Karatsuba term needs them instead of keeping
+// both operands in registers, and the F2 and F6 products are __noinline__
+// functions, which keeps the build in seconds; their call boundaries cost
+// spills that -Xptxas -v reports (the build log).  This source defines no
+// FP_CIOS_ROLLED, so fp.cuh's and team.cuh's CIOS loops are unrolled here
+// (the team kernels run 5-9 % slower rolled).
 
 #include "team.cuh"
 
@@ -196,12 +198,168 @@ __device__ __forceinline__ void st6(uint32_t* __restrict__ p, int h, int64_t n,
 
 // -- K8 --------------------------------------------------------------------------
 
-// (a0 + a1 w)(b0 + b1 w) = (t0 + v t1) + ((a0 + a1)(b0 + b1) - t0 - t1) w
-template <int N>
-__global__ void __launch_bounds__(kTowerThreads)
-    f12_mul_kernel(Field<N> f, Xi xi, const uint32_t* __restrict__ a,
+// The xi of the one curve each build's tower serves: BN128's 9 + u at 8
+// words, BLS12-381's 1 + u at 12.  K8's team kernel is compiled for it,
+// so that its small multiples are a few adds, or none.
+constexpr Xi kBuildXi = WORDS == 8 ? Xi{9, 1} : Xi{1, 1};
+
+// a * K for a compile-time K >= 1, a itself for K = 1
+template <int K, int N>
+__device__ __forceinline__ Fe<N> mul_const(const Field<N>& f,
+                                           const Fe<N>& a) {
+  if constexpr (K == 1) {
+    return a;
+  } else {
+    return mul_small(f, a, K);
+  }
+}
+
+// Component j of m y, y = u0 + u1 u given as own = u_j and other =
+// u_(1-j): with use_xi, m = xi = X0 + X1 u known at compile time, X0 own -
+// X1 other for j = 0 and + for j = 1; else m = 1, and other must be zero.
+// Without a branch, and with no second result held beside the first.
+template <int X0, int X1, int N>
+__device__ __forceinline__ Fe<N> xi_part(const Field<N>& f, const Fe<N>& own,
+                                         const Fe<N>& other, int j,
+                                         bool use_xi) {
+  const Fe<N> p = select(use_xi, mul_const<X0>(f, own), own);
+  const Fe<N> q = mul_const<X1>(f, other);
+  return add(f, p, select(j == 0, sub(f, fe_zero<N>(), q), q));
+}
+
+// Component j of coefficient k of the Karatsuba F6 product whose six F2
+// products v0, v1, v2, t01, t12, t02 sit at slots r, r + 2, .., r + 10 of a
+// team kernel (team.cuh kCoefSlots, the non-residue X0 + X1 u): m (D - E -
+// F) first, its other component read as zero for k = 2 (m = 1), then
+// A - B - C, one body for every k and j.
+template <int N, int G, int X0, int X1>
+__device__ __forceinline__ Fe<N> f6_coef(const Field<N>& f,
+                                         const Slots<N, G>& s, int r, int k,
+                                         int j, int g) {
+  auto term = [&](int i, int c, bool keep) {
+    const int d = kCoefSlots[k][i];
+    return s.get_if(r + 2 * (d < 0 ? 0 : d) + c, keep && d >= 0, g);
+  };
+  const Fe<N> own = sub(f, sub(f, term(3, j, true), term(4, j, true)),
+                        term(5, j, true));
+  const Fe<N> other = sub(f, sub(f, term(3, 1 - j, k < 2),
+                                 term(4, 1 - j, k < 2)),
+                          term(5, 1 - j, k < 2));
+  const Fe<N> y = xi_part<X0, X1>(f, own, other, j, k < 2);
+  return add(f, sub(f, sub(f, term(0, j, true), term(1, j, true)),
+                    term(2, j, true)), y);
+}
+
+// Table lines of the K8 product stage, two slots to an F2 value: the three
+// base products m0 = x0 y0, m1 = x1 y1, (x0 + x1)(y0 + y1) of the Karatsuba
+// F2 product of the values at slots x and y (F2_PRODS), or of the sums of
+// those at x, x2 and at y, y2 (F2_PRODS_SUM), into o..o+2; and the 18 of
+// the Karatsuba F6 product of the values at slots x.. and y.. (F2
+// coefficient k at x + 2k), its F2 products in the order v0, v1, v2, t01,
+// t12, t02 (F6_PRODS).
+#define F2_PRODS(x, y, o)                                                    \
+  {{x, kNoSlot, kNoSlot, kNoSlot}, {y, kNoSlot, kNoSlot, kNoSlot}, o},       \
+  {{x + 1, kNoSlot, kNoSlot, kNoSlot}, {y + 1, kNoSlot, kNoSlot, kNoSlot},   \
+   o + 1},                                                                   \
+  {{x, x + 1, kNoSlot, kNoSlot}, {y, y + 1, kNoSlot, kNoSlot}, o + 2}
+#define F2_PRODS_SUM(x, x2, y, y2, o)                                        \
+  {{x, x2, kNoSlot, kNoSlot}, {y, y2, kNoSlot, kNoSlot}, o},                 \
+  {{x + 1, x2 + 1, kNoSlot, kNoSlot}, {y + 1, y2 + 1, kNoSlot, kNoSlot},     \
+   o + 1},                                                                   \
+  {{x, x + 1, x2, x2 + 1}, {y, y + 1, y2, y2 + 1}, o + 2}
+#define F6_PRODS(x, y, o)                                                    \
+  F2_PRODS(x, y, o), F2_PRODS(x + 2, y + 2, o + 3),                          \
+  F2_PRODS(x + 4, y + 4, o + 6), F2_PRODS_SUM(x, x + 2, y, y + 2, o + 9),    \
+  F2_PRODS_SUM(x + 2, x + 4, y + 2, y + 4, o + 12),                          \
+  F2_PRODS_SUM(x, x + 4, y, y + 4, o + 15)
+
+// (a0 + a1 w)(b0 + b1 w) = (t0 + v t1) + (t2 - t0 - t1) w with t0 = a0 b0,
+// t1 = a1 b1 and t2 = (a0 + a1)(b0 + b1), by a team of kK8Team threads per
+// lane over kK8Lanes lanes a block: the 54 base products of the three F6
+// products in one round.  Slots: a 0-11 and b 12-23 (component c of the
+// operand at c), a0 + a1 at 24-29, b0 + b1 at 30-35, the base products of
+// t0, t1 and t2 at 36, 54 and 72; once the products are done the 18 F2
+// products at 0-35 (t_j's at 12 j), then t0, t1, t2 at 36, 42, 48.
+// Stages: load 24 slots and their 12 sums, 54 products, 36 F2
+// coefficients, 18 F6 coefficients, 12 outputs.  Two blocks fit an SM
+// (the launch bounds hold a thread to 72 registers): from 2,048 lanes on
+// one block's combines and loads then overlap another's products.  xi =
+// X0 + X1 u is a template argument, kBuildXi.
+constexpr int kK8Lanes = 8;
+constexpr int kK8Team = 54;
+constexpr int kK8Slots = 90;
+
+__constant__ Prod kK8Prods[54] = {F6_PRODS(0, 12, 36), F6_PRODS(6, 18, 54),
+                                  F6_PRODS(24, 30, 72)};
+
+template <int N, int X0, int X1>
+__global__ void __launch_bounds__(kK8Lanes * kK8Team, 2)
+    f12_mul_kernel(Field<N> f, const uint32_t* __restrict__ a,
                    const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
                    int64_t n) {
+  constexpr int G = kK8Lanes;
+  __shared__ uint32_t sm[kK8Slots * Slots<N, G>::kStride];
+  const Slots<N, G> s{sm};
+  for (int64_t base = (int64_t)blockIdx.x * G; base < n;
+       base += (int64_t)gridDim.x * G) {
+    team_for<G>(12, base, n, [&](int c, int g) {   // a or b, and the sum
+      const int k = c % 6, o = c < 6 ? 0 : 12;      // of its halves
+      const Fe<N> x = ld<N>(c < 6 ? a : b, k, n, base + g);
+      const Fe<N> y = ld<N>(c < 6 ? a : b, k + 6, n, base + g);
+      s.put(o + k, g, x);
+      s.put(o + k + 6, g, y);
+      s.put(24 + c, g, add(f, x, y));
+    });
+    __syncthreads();
+    prod_stage<N, G>(f, s, kK8Prods, 54, base, n);
+    __syncthreads();
+    team_for<G>(36, base, n, [&](int c, int g) {   // (m0 - m1, t - m0 - m1)
+      const int r = 36 + 3 * (c / 2);
+      const Fe<N> m0 = s.get(r, g);
+      s.put(c, g, sub(f, select(c % 2 == 0, m0, sub(f, s.get(r + 2, g), m0)),
+                      s.get(r + 1, g)));
+    });
+    __syncthreads();
+    team_for<G>(18, base, n, [&](int c, int g) {   // t0, t1, t2
+      s.put(36 + c, g, f6_coef<N, G, X0, X1>(f, s, 12 * (c / 6),
+                                             (c % 6) / 2, c % 2, g));
+    });
+    __syncthreads();
+    team_for<G>(6, base, n, [&](int c, int g) {    // t2 - t0 - t1
+      st<N>(out, 6 + c, n, base + g,
+            sub(f, sub(f, s.get(48 + c, g), s.get(36 + c, g)),
+                s.get(42 + c, g)));
+    });
+    team_for<G>(6, base, n, [&](int c, int g) {    // t0 + v t1
+      // v t1 = (xi t1_2, t1_0, t1_1): component c of t1_2 (slot 46 + c)
+      // and its other one for c < 2, t1's component c - 2 for c >= 2
+      const Fe<N> vt = xi_part<X0, X1>(
+          f, s.get(c < 2 ? 46 + c : 40 + c, g),
+          s.get_if(c < 2 ? 47 - c : 46, c < 2, g), c, c < 2);
+      st<N>(out, c, n, base + g, add(f, s.get(36 + c, g), vt));
+    }, warp_after(6, G));
+    __syncthreads();
+  }
+}
+
+// Above K8_TEAM_MAX_LANES lanes K8's product runs one thread a lane
+// instead: at 8 words, with every SM busy, a team's combines and slot
+// traffic cost more than one thread's chain (the crossover measured on the
+// H100, PERF.md §6; chip_cios_unroll.py builds variants with other
+// values).  At 12 words the team is the faster at every lane count.  An
+// xi other than kBuildXi runs one thread a lane too.
+#ifndef K8_TEAM_MAX_LANES
+#define K8_TEAM_MAX_LANES (WORDS == 8 ? 16384 : 1LL << 62)
+#endif
+
+// The one-thread design: (a0 + a1 w)(b0 + b1 w) = (t0 + v t1) +
+// ((a0 + a1)(b0 + b1) - t0 - t1) w, operand halves read again where a
+// Karatsuba term needs them.
+template <int N>
+__global__ void __launch_bounds__(kTowerThreads)
+    f12_mul_thread_kernel(Field<N> f, Xi xi, const uint32_t* __restrict__ a,
+                          const uint32_t* __restrict__ b,
+                          uint32_t* __restrict__ out, int64_t n) {
   LANE_LOOP(i, n) {
     F6<N> t0 = f6_mul(f, xi, ld6<N>(a, 0, n, i), ld6<N>(b, 0, n, i));
     F6<N> t1 = f6_mul(f, xi, ld6<N>(a, 1, n, i), ld6<N>(b, 1, n, i));
@@ -453,9 +611,18 @@ int k8_f12_mul(const void* a, const void* b, void* out, long long n,
   if (bad_args(n_limbs, n)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
-  f12_mul_kernel<kN><<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
-      f, Xi{(int)xi0, (int)xi1}, (const uint32_t*)a, (const uint32_t*)b,
-      (uint32_t*)out, n);
+  const Xi xi{(int)xi0, (int)xi1};
+  if (n <= (K8_TEAM_MAX_LANES) && xi.c0 == kBuildXi.c0 &&
+      xi.c1 == kBuildXi.c1) {
+    f12_mul_kernel<kN, kBuildXi.c0, kBuildXi.c1>
+        <<<team_grid(n, kK8Lanes), kK8Lanes * kK8Team, 0,
+           (cudaStream_t)stream>>>(
+            f, (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
+  } else {
+    f12_mul_thread_kernel<kN><<<tower_grid(n), kTowerThreads, 0,
+                                (cudaStream_t)stream>>>(
+        f, xi, (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -526,10 +693,10 @@ int k11_miller_add_mtwist(const void* xyz, const void* q, const void* p,
 }
 
 // Threads a block of the kernels above, in the order of their entry points
-// (k8_f12_mul, k8_f12_sqr, k9_f12_cyc_sqr, the Miller doubling, the Miller
-// add): the occupancy report of chip_cios_unroll.py.
+// (k8_f12_mul's team kernel, k8_f12_sqr, k9_f12_cyc_sqr, the Miller
+// doubling, the Miller add): the occupancy report of chip_cios_unroll.py.
 void tower_block_threads(int* threads) {
-  const int t[5] = {kTowerThreads, kTowerThreads, kK9Lanes * kK9Team,
+  const int t[5] = {kK8Lanes * kK8Team, kTowerThreads, kK9Lanes * kK9Team,
                     kTowerThreads, kTowerThreads};
   for (int k = 0; k < 5; ++k) threads[k] = t[k];
 }
