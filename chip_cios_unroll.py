@@ -4,13 +4,14 @@ libraries, built side by side and timed in turns.
 
     python3 chip_cios_unroll.py [--baseline DIR] [--unrolled]
                                 [--variant NAME:DEFINE[,DEFINE...]]
-                                [--field-only | --tower-only] [--sass]
+                                [--only PART[,PART...]] [--sass]
                                 [--pairings R] [--batches R]
 
 Run from the root of a checkout on a machine with the CUDA toolkit and a
 card.  Each variant is the field library `fp_kernels.cu` (8, 12 and 24
-words), the MNT6753 library `mnt_kernels.cu` (24 words) and the BN128 /
-BLS12-381 library `tower_kernels.cu` (8 and 12 words):
+words), the MNT6753 library `mnt_kernels.cu` (24 words), the BN128 /
+BLS12-381 library `tower_kernels.cu` (8 and 12 words) and the G1 group law
+`curve_kernels.cu` (8 and 12 words):
 
   rolled    the committed sources (mnt_kernels.cu defines FP_CIOS_ROLLED,
             fp.cuh's CIOS outer loop rolled);
@@ -26,12 +27,16 @@ It compiles every library of every variant at once (one nvcc each) into
 the ignored wasmsnark_tpu_torch/_build/cios_unroll/, prints each build's
 seconds and each kernel's registers, stack, spill stores, static shared
 memory and, where the library reports its blocks' threads
-(`mnt_block_threads`, `tower_block_threads`), the blocks an SM can hold
-by those (H100 limits: 64 K registers, 228 KB of shared memory with 1 KB
-reserved per block, 2,048 threads and 32 blocks).  Then it binds each
-variant in turn and times K12 (product and square), K13 and K14
-(doubling and add) at 255, 256, 512 and 2^16 lanes and K8's product and
-K9 at 8 and 12 words at TOWER_LANES (1,024 to 2^16): the median
+(`mnt_block_threads`, `tower_block_threads`, `curve_block_threads`), the
+blocks an SM can hold by those (H100 limits: 64 K registers, 228 KB of
+shared memory with 1 KB reserved per block, 2,048 threads and 32
+blocks).  Then it binds each variant in turn and times K12 (product and
+square), K13 and K14 (doubling and add) at 255, 256, 512 and 2^16 lanes,
+K8's product and K9 at 8 and 12 words at TOWER_LANES (1,024 to 2^16), and
+K5-K7 at 8 and 12 words at the prove's lane counts (CURVE_LANES: K6 at
+the MSM's 4, 68, 1,114,112 and 2,228,156, K5 at its one launch's, K7 at
+4) and 2^16, on chip_smoke.py's points (equal, opposite and zero points
+on a few lanes of every 2^16): the median
 of CUDA events around each wrapper call, each behind a ~1 ms device
 sleep; and the team kernels' C entry points alone (and K1's, one product
 a thread), as the mean of 20 launches in a row between two events.  The
@@ -41,9 +46,10 @@ count and the first variant's at 2^16 lanes, bit for bit.  K1 and K2
 (the add-and-sub pair, as chip_smoke.py's row) are timed the same way at
 24 words at FIELD_LANES[24] lanes (the MNT6753 paths' and 2^16) and at 8
 and 12 words at their paths' lane counts and 2^16, each checked against
-its plain version at every lane count.  With --field-only only the field
-library is built and only K1 and K2 timed, with --tower-only only
-tower_kernels.cu and only K8's product and K9.  With --sass it prints,
+its plain version at every lane count.  With --only and a comma-separated
+list of fp (K1, K2), tower (K8's product, K9), mnt (K12-K14) and curve
+(K5-K7), only those libraries are built and only their kernels timed.
+With --sass it prints,
 per variant and kernel, the instructions of its SASS (cuobjdump) and the
 most frequent opcodes.
 
@@ -59,10 +65,13 @@ bowe_gabizon_verify_batch, and its group-map-and-pairing stage alone) and
 its steady BLS12-381 verify batch (N_VERIFY = 1,024 lanes of one key, the
 wall time of groth16_verify_batch; the proof is of a 62-constraint
 square chain, since a batch's work depends on the public inputs and not
-on the circuit) the same way, then the card's kernel time of one call of
-the MNT6753 stage and of the BLS12-381 batch under torch.profiler; every
-batch must return its expected list.  Only the field and tower libraries
-differ between the turns.
+on the circuit) and chip_smoke.py's steady BN128 and BLS12-381 proves
+(the 2^16-constraint square chain, set up on the card; the wall time of
+groth16_gen_proof) the same way, then the card's kernel time of one call
+of the MNT6753 stage, of the BLS12-381 batch and of each prove under
+torch.profiler; every batch must return its expected list and every
+prove the first turn's proof.  Only the variants' libraries differ
+between the turns.
 
 The last line is one JSON object of all of it.
 """
@@ -79,13 +88,18 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROLLED = "#define FP_CIOS_ROLLED\n"
+# the parts --only chooses from: library name prefix -> kernels timed
+PARTS = {"fp": "K1, K2", "tower": "K8's product, K9", "mnt": "K12-K14",
+         "curve": "K5-K7"}
 # library -> (source, words)
 LIBS = {"fp_kernels_w8": ("fp_kernels.cu", 8),
         "fp_kernels_w12": ("fp_kernels.cu", 12),
         "fp_kernels_w24": ("fp_kernels.cu", 24),
         "mnt_kernels_w24": ("mnt_kernels.cu", 24),
         "tower_kernels_w8": ("tower_kernels.cu", 8),
-        "tower_kernels_w12": ("tower_kernels.cu", 12)}
+        "tower_kernels_w12": ("tower_kernels.cu", 12),
+        "curve_kernels_w8": ("curve_kernels.cu", 8),
+        "curve_kernels_w12": ("curve_kernels.cu", 12)}
 BIG = 1 << 16                    # the lane count of the cross-variant check
 MNT_LANES = (255, 256, 512, BIG)
 # K8's product and K9: the pairing and verify batches' lane counts, and
@@ -98,6 +112,12 @@ TOWER_LANES = (1024, 2048, 4096, 8192, 16384, 32768, BIG)
 FIELD_LANES = {24: (255, 256, 510, 1024, 1530, 2048, 3072, 4096, 6120, BIG),
                8: (2, 3, 6, 1024, 2048, BIG),
                12: (2, 3, 6, 1024, 2048, BIG)}
+# K5-K7 per word count: the prove's lane counts (PERF.md §6: K6's window
+# fold 4, its last halving step 68, its triangle's last and first steps
+# 1,114,112 and 2,228,156; K5's one launch; K7's 4) and 2^16
+CURVE_LANES = {"K5": {8: (2_444_827, BIG), 12: (2_388_711, BIG)},
+               "K6": {w: (4, 68, 1_114_112, 2_228_156, BIG) for w in (8, 12)},
+               "K7": {w: (4, BIG) for w in (8, 12)}}
 DEVICE = "cuda"                  # the card (a host rehearsal sets "cpu")
 # H100 SM limits for the occupancy estimate
 SM_REGS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 228 * 1024, 2048, 32
@@ -108,7 +128,9 @@ BLOCK_KERNELS = {
                           "mnt_miller_add_kernel"),
     "tower_block_threads": ("f12_mul_kernel", "f12_sqr_kernel",
                             "f12_cyc_sqr_kernel", "miller_dbl_kernel",
-                            "miller_add_kernel")}
+                            "miller_add_kernel"),
+    "curve_block_threads": ("jac_madd_kernel", "jac_add_kernel",
+                            "jac_dbl_kernel")}
 
 
 def blocks_per_sm(regs, smem, threads):
@@ -243,27 +265,32 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME:MACRO=VALUE[,...]: the committed sources "
                          "built with those macros")
-    only = ap.add_mutually_exclusive_group()
-    only.add_argument("--field-only", action="store_true",
-                      help="build and time the field library (K1, K2) only")
-    only.add_argument("--tower-only", action="store_true",
-                      help="build tower_kernels.cu only, time K8 and K9")
+    ap.add_argument("--only", default=",".join(PARTS),
+                    help="the libraries to build and time, of "
+                         + ", ".join(f"{p} ({k})" for p, k in PARTS.items()))
     ap.add_argument("--sass", action="store_true",
                     help="print each kernel's SASS instruction counts")
     ap.add_argument("--pairings", type=int, default=0,
                     help="rounds of the pairing batches per variant")
     ap.add_argument("--batches", type=int, default=0,
-                    help="rounds of the MNT6753 verify batch per variant")
+                    help="rounds of the verify batches and the proves per "
+                         "variant")
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(PARTS):
+        ap.error(f"--only takes parts of {','.join(PARTS)}")
+    parts = {p: p in only for p in PARTS}
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_cios_unroll: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    import chip_smoke as smoke
     from wasmsnark_tpu_torch.models.bls12381 import bls12381
     from wasmsnark_tpu_torch.models.bn128 import bn128
     from wasmsnark_tpu_torch.models.mnt6753 import mnt6753
+    from wasmsnark_tpu_torch.ops import curve as cv
     from wasmsnark_tpu_torch.ops import cuda_lib, fp, tower_kernels as tk
 
     smi = subprocess.run(
@@ -283,16 +310,13 @@ def main() -> int:
     if args.baseline:
         variants["baseline"] = (os.path.join(
             args.baseline, "wasmsnark_tpu_torch", "csrc"), None, ())
-    towers = not args.field_only            # tower_kernels.cu, K8 and K9
-    mnt = towers and not args.tower_only    # mnt_kernels.cu, K12-K14
-    field = not args.tower_only             # fp_kernels.cu, K1 and K2
+    field, towers, mnt, curves = (parts[k] for k in ("fp", "tower", "mnt",
+                                                      "curve"))
     libs, result = build_variants(variants, cuda_lib, {
         lib: sw for lib, sw in LIBS.items()
-        if (field and lib.startswith("fp_")) or (mnt and lib.startswith(
-            "mnt_")) or (towers and lib.startswith("tower_"))}, args.sass)
+        if parts[lib.split("_kernels")[0]]}, args.sass)
     result = {"device": smi, **result, "ms": {}}
 
-    import chip_smoke as smoke
     rng = np.random.default_rng(5)
     n = BIG
     specs = {24: mnt6753().fp_spec, 8: bn128().fp_spec,
@@ -317,14 +341,35 @@ def main() -> int:
     XI = {8: tk.XI, 12: tk.XI_BLS}
     ins = (A, B, X, Y, Z, xP, yP)
     FX = {w: (rand(specs[w]), rand(specs[w])) for w in FIELD_LANES}
+    # P, Q (Jacobian) and Qa (affine) per word count, as chip_smoke.py's
+    PTS = {w: smoke.curve_inputs(m, rng, DEVICE, n)
+           for w, m in ((8, bn128()), (12, bls12381()))} if curves else {}
 
     def cut(t, k):
         return smoke.cut(t, k, n)
 
+    def curve_runs(k):
+        """(name, wrapper, plain version) of K5-K7 at k lanes."""
+        out = []
+        for w, pts in PTS.items():
+            if not any(k in c[w] for c in CURVE_LANES.values()):
+                continue
+            s = specs[w]
+            P, Q, Qa = cut(pts, k)
+            for kid, fn, plain, args in (
+                    ("K5", cv.jac_madd, cv.jac_madd_plain, (P, Qa)),
+                    ("K6", cv.jac_add, cv.jac_add_plain, (P, Q)),
+                    ("K7", cv.jac_double, cv.jac_double_plain, (P,))):
+                if k in CURVE_LANES[kid][w]:
+                    out.append((f"{kid} @N{w}",
+                                lambda s=s, fn=fn, a=args: fn(s, *a),
+                                lambda s=s, p=plain, a=args: p(s, *a)))
+        return out
+
     def runs(k):
         """The wrappers timed at k lanes: K12-K14 at the MNT6753 lane
         counts, K8's product and K9 at TOWER_LANES, K1 and K2 at
-        FIELD_LANES."""
+        FIELD_LANES, K5-K7 at CURVE_LANES."""
         out = {}
         if mnt and k in MNT_LANES:
             A, B, X, Y, Z, xP, yP = cut(ins, k)
@@ -349,6 +394,7 @@ def main() -> int:
                 out[f"K1 @N{w}"] = lambda s=s, x=x, y=y: fp.mont_mul(s, x, y)
                 out[f"K2 @N{w}"] = lambda s=s, x=x, y=y: (
                     fp.mod_add(s, x, y), fp.mod_sub(s, x, y))
+        out.update({name: fn for name, fn, _ in curve_runs(k)})
         return out
 
     def field_plain(k):
@@ -377,7 +423,8 @@ def main() -> int:
                 a, b = cut(F12[w], k), cut(G12[w], k)
                 out += [tk.f12_mul_plain(specs[w], a, b, XI[w]),
                         tk.f12_cyc_sqr_plain(specs[w], a, XI[w])]
-        return _leaves(out + field_plain(k))
+        return _leaves(out + field_plain(k)
+                       + [p() for _, _, p in curve_runs(k)])
 
     def raw(k):
         """The team kernels' C entry points alone on stacked operands, and
@@ -387,8 +434,9 @@ def main() -> int:
                                device=DEVICE)
 
         out = {}
-        if field and k in MNT_LANES:
+        if k in MNT_LANES:
             A, B, X, Y, Z, xP, yP = cut(ins, k)
+        if field and k in MNT_LANES:
             out["K1"] = ("k1_mont_mul", spec,
                          [A[0][0], B[0][0], torch.empty_like(A[0][0])], ())
         if mnt and k in MNT_LANES:
@@ -398,6 +446,8 @@ def main() -> int:
                     torch.stack(tk.flatten6(A)), torch.stack(tk.flatten6(B)),
                     empty(6, spec)], ()),
                 "K12 sqr": ("k12_f6_sqr", spec, [
+                    torch.stack(tk.flatten6(A)), empty(6, spec)], ()),
+                "K13": ("k13_f6_cyc_sqr", spec, [
                     torch.stack(tk.flatten6(A)), empty(6, spec)], ()),
                 "K14 dbl": ("k14_mnt_miller_dbl", spec,
                             [*pts, empty(15, spec)], ()),
@@ -433,7 +483,8 @@ def main() -> int:
     if args.pairings or args.batches:
         cuda_lib.build()              # the field and curve libraries
     lanes = sorted(set(MNT_LANES + TOWER_LANES).union(
-        *FIELD_LANES.values()))
+        *FIELD_LANES.values(), *[ks for c in CURVE_LANES.values()
+                                 for ks in c.values()]))
     small = {k: plain(k) for k in lanes if k != n}
     first = None
     order = list(variants) + list(variants)[::-1]
@@ -455,7 +506,8 @@ def main() -> int:
         ms = {}
         for k in lanes:
             for kern, fn in runs(k).items():
-                reps = 10 if k == n and kern.startswith("K14") else 30
+                reps = 10 if (k == n and kern.startswith("K14")
+                              or k > n) else 30
                 ms[f"{kern} @{k}"] = smoke.time_cuda(fn, reps)
             for kern, (fn, s, tensors, ints) in raw(k).items():
                 ms[f"{kern} kernel @{k}"] = stream_ms(fn, s, tensors, k, ints)
@@ -592,12 +644,38 @@ def bls_verify_lanes(smoke):
                                       smoke.N_VERIFY)
 
 
+def proves(smoke):
+    """Per curve of chip_smoke.py, a function that proves the
+    2^16-constraint square chain of chip_smoke.py's setup once, with its
+    fixed rng, and returns the proof JSON."""
+    import wasmsnark_tpu_torch
+    from wasmsnark_tpu_torch.groth16.pkey import write_witness
+    from wasmsnark_tpu_torch.groth16.setup import (
+        setup, square_chain_circuit, square_chain_witness)
+    from wasmsnark_tpu_torch.models import curve_module
+
+    out = {}
+    for curve in smoke.CURVES:
+        m = curve_module(curve)
+        k = (1 << smoke.LOG_2N) - 2
+        pkey, _, _ = setup(square_chain_circuit(k), seed=smoke.SEED % 1000,
+                           module=m)
+        wbytes = write_witness(square_chain_witness(k, 3, r=m.Fr.q),
+                               m.fr_spec)
+        rt = {"bn128": wasmsnark_tpu_torch.build_bn128,
+              "bls12381": wasmsnark_tpu_torch.build_bls12381}[curve]()
+        out[curve] = (lambda rt=rt, w=wbytes, pk=pkey:
+                      rt.groth16_gen_proof(w, pk, rng=7))
+    return out
+
+
 def verify_batches(smoke, libs, cuda_lib, rounds):
     """Seconds of the steady MNT6753 verify batch and of its group map and
-    pairing stage (rt._check), and of the steady BLS12-381 verify batch,
-    under each variant's libraries, in alternating turns; then the card's
-    kernel time in one profiled call of the MNT6753 stage and of the
-    BLS12-381 batch under each."""
+    pairing stage (rt._check), of the steady BLS12-381 verify batch and of
+    the steady BN128 and BLS12-381 proves, under each variant's libraries,
+    in alternating turns; then the card's kernel time in one profiled call
+    of the MNT6753 stage, of the BLS12-381 batch and of each prove under
+    each."""
     import random
     import torch
     import wasmsnark_tpu_torch
@@ -612,9 +690,11 @@ def verify_batches(smoke, libs, cuda_lib, rounds):
     coeffs = rt._fixed_coeffs(batch[0]["delta"])
     want_ok = [w for w, mm in zip(want, ms) if mm is not None]
     bls, bvk, (bins, bprs, bwant) = bls_verify_lanes(smoke)
+    prove = proves(smoke)
+    first = {}
     names = list(libs)
-    out = {name: {"batch": [], "pairing": [], "bls_batch": []}
-           for name in names}
+    out = {name: {"batch": [], "pairing": [], "bls_batch": [],
+                  **{f"prove_{c}": [] for c in prove}} for name in names}
     for turn, (warm, name) in enumerate(turns(names, rounds)):
         cuda_lib._libs.update(libs[name])
         torch.cuda.synchronize()
@@ -622,34 +702,40 @@ def verify_batches(smoke, libs, cuda_lib, rounds):
         got = rt.bowe_gabizon_verify_batch(vk, ins, prs, fused=True,
                                            rng=random.Random(smoke.SEED))
         torch.cuda.synchronize()
-        batch_s = time.perf_counter() - t
+        secs = {"batch": time.perf_counter() - t}
         t = time.perf_counter()
         ok = rt._check(tt, g1_4, g2_var, coeffs, expected, True).tolist()
         torch.cuda.synchronize()
-        pairing_s = time.perf_counter() - t
+        secs["pairing"] = time.perf_counter() - t
         t = time.perf_counter()
         bgot = bls.groth16_verify_batch(bvk, bins, bprs)
         torch.cuda.synchronize()
-        bls_s = time.perf_counter() - t
+        secs["bls_batch"] = time.perf_counter() - t
         if got != want or ok != want_ok or bgot != bwant:
             raise AssertionError(f"verify batch wrong under {name}")
-        print(f"verify batch turn {turn} {name}: batch {batch_s:.3f} s, "
-              f"group map and pairing {pairing_s:.3f} s, BLS12-381 batch "
-              f"{bls_s:.3f} s", flush=True)
+        for c, run in prove.items():
+            t = time.perf_counter()
+            proof = run()
+            torch.cuda.synchronize()
+            secs[f"prove_{c}"] = time.perf_counter() - t
+            if first.setdefault(c, proof) != proof:
+                raise AssertionError(f"{c} prove differs under {name}")
+        print(f"verify batch turn {turn} {name}: " + ", ".join(
+            f"{key} {v:.3f} s" for key, v in secs.items()), flush=True)
         if not warm:
-            out[name]["batch"].append(batch_s)
-            out[name]["pairing"].append(pairing_s)
-            out[name]["bls_batch"].append(bls_s)
+            for key, v in secs.items():
+                out[name][key].append(v)
     for name in names:                # then one profiled call of each
         cuda_lib._libs.update(libs[name])
         out[name]["pairing_device"] = device_ms(lambda: rt._check(
             tt, g1_4, g2_var, coeffs, expected, True))
         out[name]["bls_batch_device"] = device_ms(
             lambda: bls.groth16_verify_batch(bvk, bins, bprs))
-        print(f"verify batch {name}: group map and pairing on the card "
-              + json.dumps(out[name]["pairing_device"])
-              + "; BLS12-381 batch on the card "
-              + json.dumps(out[name]["bls_batch_device"]), flush=True)
+        for c, run in prove.items():
+            out[name][f"prove_{c}_device"] = device_ms(run)
+        print(f"verify batch {name} on the card: " + json.dumps(
+            {k: v for k, v in out[name].items() if k.endswith("_device")}),
+            flush=True)
     return out
 
 

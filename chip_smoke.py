@@ -66,10 +66,17 @@ then MNT6753 at its full 753-bit width (48 limbs, 24 words):
 then, for every kernel row:
 
  13. times it again at the PATH_LANES lane counts its paths launched it
-     with most (cuda_lib.lane_launches, read on each path of steps 5-11),
-     on the same inputs cut to that many lanes, after the same
+     with most (cuda_lib.lane_launches, read on each path of steps 5-11)
+     and at the lane count of its own path, not among those, with the
+     most launches x lanes (K6's: the MSM triangle's first step, 2,228,156
+     lanes), on the same inputs cut to that many lanes, after the same
      bit-equality check, with the bound at that lane count: the record's
-     lanes_at_path, ms_at_path and bound_ms_at_path; and against the
+     lanes_at_path, ms_at_path and bound_ms_at_path; the time lost against
+     the bound on its own path over the lane counts timed (path_loss_ms,
+     path_loss_share of its launches); a model's estimate over all of
+     them (path_loss_est_ms, untimed_loss_ms, in the phases' record, not
+     the kernels'), checked at one more lane count of the path, estimated
+     before it is timed (est_check); and against the
      floor of as many calls as it makes at its word count (K2 on one
      lane, one call or the add-and-sub pair, timed the same way,
      call_floor_ms among the phases): ms_above_floor_at_path.
@@ -310,43 +317,106 @@ def cut(t, k, n):
 
 def at_path_lanes(kr):
     """Time a kernel row at the PATH_LANES lane counts its paths launch it
-    with most often, each after the same bit-equality check against the
-    plain version as at N_LANES; the bound is that lane count's.  Also
-    the time lost against the bound on the row's own path."""
-    import torch
-    fn_k, fn_p, args = kr["run"]
+    with most often, and at the lane count not among them that carries the
+    most of its own path's work (launches x lanes); the bound is that lane
+    count's.  Also the time lost against the bound on the row's own path:
+    measured over the lane counts timed (path_loss_ms), and estimated over
+    all of its launches (path_loss_est_ms, untimed_loss_ms).  The estimate
+    is a model, so one more count of the path still untimed is estimated
+    first and then timed, the model's error there in est_check: the one
+    whose launches x lanes times its distance (log ratio) from the count
+    it is scaled from is largest, where an error of the model would count
+    most."""
+    import math
     total = {}
     for c in kr["lanes_by_path"].values():
         for k, v in c.items():
             total[k] = total.get(k, 0) + v
-    kr["lanes_at_path"] = sorted(sorted(total, key=lambda k: (-total[k], k))
-                                 [:PATH_LANES])
-    kr["ms_at_path"], kr["bound_ms_at_path"] = {}, {}
-    for k in kr["lanes_at_path"]:
-        a = cut(args, k, kr["lanes"])
-        got, want = fn_k(*a), fn_p(*a)
-        torch.cuda.synchronize()
-        if mismatch(got, want)[0]:
-            raise AssertionError(f"{kr['name']} disagrees with its plain "
-                                 f"version at {k} lanes")
-        kr["ms_at_path"][k] = time_cuda(lambda: fn_k(*a), 50)
-        kr["bound_ms_at_path"][k] = bound(kr["bytes"] * k / kr["lanes"],
-                                          kr["ops"] * k / kr["lanes"])[0]
-    # time lost on the row's own path (the one its launches count):
-    # launches x (ms - bound) over the lane counts timed, and the share of
-    # that path's launches they cover
+    lanes = sorted(total, key=lambda k: (-total[k], k))[:PATH_LANES]
+    # the row's own path: the one its launches count
     counts = next((c for c in kr["lanes_by_path"].values() if c), {})
+    rest = [k for k in counts if k not in lanes]
+    if rest:
+        lanes.append(max(rest, key=lambda k: (counts[k] * k, k)))
+    kr["ms_at_path"], kr["bound_ms_at_path"] = {}, {}
+    for k in sorted(lanes):
+        time_at_lanes(kr, k)
+    kr["est_check"] = None
+    rest = [k for k in counts if k not in kr["ms_at_path"]]
+    if rest:
+        k = max(rest, key=lambda k: (counts[k] * k * abs(
+            math.log(k / scaled_from(kr, k))), k))
+        est = untimed_loss_ms(kr, k)
+        time_at_lanes(kr, k)
+        got = kr["ms_at_path"][k] - kr["bound_ms_at_path"][k]
+        kr["est_check"] = {"lanes": k, "est_ms": est, "ms": got,
+                           "err": est / got - 1 if got > 0 else None}
+    kr["lanes_at_path"] = sorted(kr["ms_at_path"])
+    # launches x (ms - bound) over the lane counts timed, the share of the
+    # path's launches they cover, and the estimate over all of them
     timed = {k: v for k, v in counts.items() if k in kr["ms_at_path"]}
     kr["path_loss_ms"] = sum(v * (kr["ms_at_path"][k]
                                   - kr["bound_ms_at_path"][k])
                              for k, v in timed.items())
     kr["path_loss_share"] = (sum(timed.values()) / sum(counts.values())
                              if counts else 0.0)
+    kr["path_loss_est_ms"] = kr["path_loss_ms"] + sum(
+        v * untimed_loss_ms(kr, k) for k, v in counts.items()
+        if k not in timed)
+    c = kr["est_check"]
     say(f"{kr['name']} at path lanes: " + ", ".join(
         f"{k} lanes {kr['ms_at_path'][k]:.4f} ms (bound "
         f"{kr['bound_ms_at_path'][k]:.4f})" for k in kr["lanes_at_path"])
         + f"; lost on its path {kr['path_loss_ms']:.1f} ms "
-        f"({kr['path_loss_share']:.0%} of its launches timed)")
+        f"({kr['path_loss_share']:.0%} of its launches timed), "
+        f"{kr['path_loss_est_ms']:.1f} ms estimated over all of them"
+        + (f"; the model at {c['lanes']} lanes, before timing: "
+           f"{c['est_ms']:.4f} ms lost a launch, timed {c['ms']:.4f}"
+           + (f" ({c['err']:+.1%})" if c["err"] is not None else "")
+           if c else ""))
+
+
+def time_at_lanes(kr, k):
+    """A kernel row's inputs cut to k lanes: the bit-equality check against
+    the plain version, then ms_at_path[k] and bound_ms_at_path[k]."""
+    import torch
+    fn_k, fn_p, args = kr["run"]
+    a = cut(args, k, kr["lanes"])
+    got, want = fn_k(*a), fn_p(*a)
+    torch.cuda.synchronize()
+    if mismatch(got, want)[0]:
+        raise AssertionError(f"{kr['name']} disagrees with its plain "
+                             f"version at {k} lanes")
+    del got, want
+    kr["ms_at_path"][k] = time_cuda(lambda: fn_k(*a), 50)
+    ops = (kr["ops_of"](*a) if kr.get("ops_of")
+           else kr["ops"] * k / kr["lanes"])
+    kr["bound_ms_at_path"][k] = bound(kr["bytes"] * k / kr["lanes"], ops)[0]
+
+
+def untimed_loss_ms(kr, k):
+    """The ms one launch of the row at k lanes, not timed, is estimated to
+    lose against its bound, from the lane count timed nearest to k (by
+    ratio) on the same side of the row's check size kr["lanes"] (N_LANES),
+    that check included.  Above it the card is full and the loss grows
+    with the lanes: (ms - bound) per lane times k.  At or below it the
+    launch is counted at that count's ms."""
+    big = kr["lanes"]
+    ms = {**kr["ms_at_path"], big: kr["ms"]}
+    bd = {**kr["bound_ms_at_path"], big: kr["bound_ms"]}
+    j = scaled_from(kr, k)
+    if k > big:
+        return (ms[j] - bd[j]) * k / j
+    return ms[j] - bound(kr["bytes"] * k / big, kr["ops"] * k / big)[0]
+
+
+def scaled_from(kr, k):
+    """The lane count timed that untimed_loss_ms scales k from."""
+    import math
+    big = kr["lanes"]
+    return min((j for j in (*kr["ms_at_path"], big)
+                if (j >= big if k > big else j <= big)),
+               key=lambda j: (abs(math.log(k / j)), j))
 
 
 def call_floors(dev):
@@ -421,6 +491,9 @@ def check_kernels(dev):
         bad, err = mismatch(a, b)
         ms = time_cuda(lambda: fn_k(*args), 50)
         plain_ms = time_cuda(lambda: fn_p(*args), 3)
+        ops_of = ops if callable(ops) else None
+        if ops_of:
+            ops = ops_of(*args)
         b_ms, b_by = bound(nbytes, ops)
         nw = words(spec)
         label = f"{kid} {name}" + ("" if nw == 8 else f" @N{nw}")
@@ -430,7 +503,8 @@ def check_kernels(dev):
             "replaces": line, "launches": None, "max_abs_err": err,
             "mismatched_lanes": bad, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "bytes": nbytes, "ops": ops, "lanes": n, "n_words": nw,
+            "bytes": nbytes, "ops": ops, "ops_of": ops_of, "lanes": n,
+            "n_words": nw,
             "curve": curve, "fns": fns or cuda_lib.KERNELS[kid][1],
             "run": (fn_k, fn_p, args)})
         say(f"{label}: {bad} mismatched lanes, {ms:.4f} ms "
@@ -510,7 +584,7 @@ def check_curve_kernels(curve, m, dev, rng, rand, record, n):
         "wasmsnark_tpu/ops/curve_pallas.py:53",
         lambda P, Q: cv.jac_add(Fq, P, Q),
         lambda P, Q: cv.jac_add_plain(Fq, P, Q), (P, Q),
-        9 * E * n, (23 * MM + 26 * AS) * n)
+        9 * E * n, functools.partial(k6_ops, Fq))
     rec("K7", "jac_dbl", "curve_kernels.cu",
         "wasmsnark_tpu/ops/curve_pallas.py:175",
         lambda P: cv.jac_double(Fq, P),
@@ -694,6 +768,28 @@ def check_mnt_kernels(rand, rec, n):
     (a0, _), *_ = tk.mnt_miller_add(Fq, X, Y, Z, x2, y2, xP, yP)
     if any(int(p[:, sl].abs().sum()) for p in a0):
         raise AssertionError("the x2 = X/Z lanes are not degenerate")
+
+
+def k6_ops(Fq, P, Q):
+    """K6's operations on these inputs, counted per lane from what its
+    result needs (csrc/curve_kernels.cu jac_add_kernel): none where an
+    operand is zero; on the others the 8 products and 3 adds and subs of
+    H and r; besides those, where P = Q the doubling's 7 products and 14
+    adds and subs, where H != 0 the add's other 8 products and 8 adds and
+    subs; and nothing more where P = -Q.  The lanes are told apart with the
+    plain field product."""
+    import functools
+    from wasmsnark_tpu_torch.ops import fp
+    mul = functools.partial(fp.mont_mul_plain, Fq)
+    (X1, Y1, Z1), (X2, Y2, Z2) = P, Q
+    z11, z22 = mul(Z1, Z1), mul(Z2, Z2)
+    h0 = (mul(X1, z22) == mul(X2, z11)).all(0)
+    r0 = (mul(Y1, mul(Z2, z22)) == mul(Y2, mul(Z1, z11))).all(0)
+    live = (Z1 != 0).any(0) & (Z2 != 0).any(0)
+    MM, AS = mm_ops(Fq), as_ops(Fq)
+    return (int(live.sum()) * (8 * MM + 3 * AS)
+            + int((live & h0 & r0).sum()) * (7 * MM + 14 * AS)
+            + int((live & ~h0).sum()) * (8 * MM + 8 * AS))
 
 
 def curve_inputs(m, rng, dev, n):
@@ -1483,6 +1579,11 @@ def main() -> int:
         kr["ms_above_floor_at_path"] = {
             k: ms - f for k, ms in kr["ms_at_path"].items()}
     phases["path_lanes_s"] = time.perf_counter() - t
+    # the loss estimated over all launches is a model, not a measurement:
+    # it stays out of the kernels' record, with its check beside it
+    phases["path_loss_model"] = {
+        kr["name"]: {k_: kr[k_] for k_ in ("path_loss_ms", "path_loss_est_ms",
+                                           "est_check")} for kr in kernels}
 
     phases["wall_s"] = time.perf_counter() - _T0
     say("phases " + json.dumps(phases))

@@ -374,6 +374,62 @@ def test_curve_kernels(libs, curve_name):
         assert_equal(outs, plain)
 
 
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+@pytest.mark.parametrize("n", [1, 13, 30, 96])
+def test_k6_jac_add(libs, curve_name, n):
+    """K6 at 8 (BN128) and 12 (BLS12-381) words on n lanes, against
+    jac_add_plain: _points' P = Q, P = -Q, P = 0 and Q = 0 lanes, lanes
+    32..35 where P and Q are both all-zero (an empty bucket on each side:
+    H = r = 0 without P = Q), and lane 70 a P = Q pair (lane 0's) among
+    lanes that add; one lane takes a random lane."""
+    m = CURVES[curve_name]()
+    spec = m.fp_spec
+    P, Q, _ = _points(m, 21)
+    for c in (*P, *Q):
+        c[:, 32:36] = 0
+        c[:, 70] = c[:, 0]
+    P, Q = _cut(P, n), _cut(Q, n)
+    outs = tuple(torch.empty_like(P[0]) for _ in range(3))
+    assert call(libs, "k6_jac_add", spec, (*P, *Q, *outs), n=n) == 0
+    assert_equal(outs, curve.jac_add_plain(spec, P, Q))
+
+
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+def test_chip_smoke_counts_k6_ops_by_lane(curve_name):
+    """chip_smoke.py's count of K6's operations (its bound) on test_k6's
+    lanes, against the lanes told apart in affine coordinates on the host:
+    a zero operand needs none, P = -Q the 8 products and 3 adds and subs
+    of H and r, P = Q 15 and 17, an add 16 and 11."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    m = CURVES[curve_name]()
+    spec = m.fp_spec
+    P, Q, _ = _points(m, 21)
+    for c in (*P, *Q):
+        c[:, 32:36] = 0
+        c[:, 70] = c[:, 0]
+    q = spec.q
+
+    def affine(J):
+        x, y, z = ([spec.from_mont(v) for v in limbs_to_ints(c.numpy())]
+                   for c in J)
+        return [None if zi == 0 else
+                (xi * pow(zi, -2, q) % q, yi * pow(zi, -3, q) % q)
+                for xi, yi, zi in zip(x, y, z)]
+
+    kinds = {"zero": (0, 0), "neg": (8, 3), "dbl": (15, 17), "add": (16, 11)}
+    seen = dict.fromkeys(kinds, 0)
+    for p, r in zip(affine(P), affine(Q)):
+        kind = ("zero" if p is None or r is None else "dbl" if p == r
+                else "neg" if p == (r[0], -r[1] % q) else "add")
+        seen[kind] += 1
+    assert all(seen.values()), seen
+    MM, AS = chip_smoke.mm_ops(spec), chip_smoke.as_ops(spec)
+    assert chip_smoke.k6_ops(spec, P, Q) == sum(
+        v * (kinds[k][0] * MM + kinds[k][1] * AS) for k, v in seen.items())
+
+
 def _tower(libs, fn, spec, groups, ints, n=N):
     ops = [torch.stack(g)[..., :n].contiguous() for g in groups]
     out = torch.empty((tk.N12, spec.n_limbs, n), dtype=torch.int32)
@@ -584,13 +640,29 @@ def _cut(t, n):
     return t[:, lo:lo + n].contiguous()
 
 
+def _mnt_cyclotomic(m, seed, count):
+    """count elements of MNT6753's cyclotomic subgroup: the easy part of
+    the final exponentiation, f^((q^3 - 1)(q + 1)), of random f."""
+    rng = np.random.default_rng(seed)
+    F6, q = m.F6, m.fp_spec.q
+    out = []
+    for _ in range(count):
+        f = tuple(tuple(int(v) % q for v in rng.integers(
+            1, 2 ** 62, size=3)) for _ in range(2))
+        t = F6.mul(F6.conjugate(f), F6.inv(f))
+        out.append(F6.mul(m._frobenius6(t), t))
+    return out
+
+
 @pytest.mark.parametrize("n", [1, 13, 30, 96])
 def test_mnt_team_kernels(libs, n):
-    """The MNT6753 team kernels, K12's F6 product and square and K14's
-    doubling and mixed add, on n lanes: one lane, ragged lane groups (13
-    and 30 are multiples of neither K12's 8 nor K14's 4 lanes a block) and
-    full ones, with the edge values, the Z = 0 lanes 4..7 and the x2 = X/Z
-    lanes 8..11 from 13 lanes on."""
+    """The MNT6753 team kernels, K12's F6 product and square, K13's
+    cyclotomic square and K14's doubling and mixed add, on n lanes: one
+    lane, ragged lane groups (13 and 30 are multiples of neither K12's and
+    K13's 8 nor K14's 4 lanes a block) and full ones, with the edge values,
+    the Z = 0 lanes 4..7 and the x2 = X/Z lanes 8..11 from 13 lanes on; K13
+    also on cyclotomic elements at lanes 4..11 and the last lane, where it
+    equals the square."""
     m = mnt6753()
     spec = m.fp_spec
     a = _cut(tk.unflatten6([rand(spec, 70 + k) for k in range(6)]), n)
@@ -602,6 +674,25 @@ def test_mnt_team_kernels(libs, n):
     rc, out = _mnt(libs, "k12_f6_sqr", spec, [tk.flatten6(a)], tk.N6, n)
     assert rc == 0
     assert_equal(tk.unflatten6(out), tk.mnt_f6_sqr_plain(spec, a))
+    rc, out = _mnt(libs, "k13_f6_cyc_sqr", spec, [tk.flatten6(a)], tk.N6, n)
+    assert rc == 0
+    assert_equal(tk.unflatten6(out), tk.mnt_f6_cyc_sqr_plain(spec, a))
+    planes = [rand(spec, 100 + k) for k in range(6)]
+    on = [*range(4, 12), N - 1]
+    cyc = _mnt_cyclotomic(m, 12, len(on))
+    for k, p in enumerate(planes):
+        p[:, on] = fp.planes(ints_to_limbs_fast(
+            [spec.to_mont(c[k // 3][k % 3]) for c in cyc], spec.n_limbs),
+            "cpu")
+    c = _cut(tk.unflatten6(planes), n)
+    rc, out = _mnt(libs, "k13_f6_cyc_sqr", spec, [tk.flatten6(c)], tk.N6, n)
+    assert rc == 0
+    got = tk.unflatten6(out)
+    assert_equal(got, tk.mnt_f6_cyc_sqr_plain(spec, c))
+    on = slice(4, 12) if n >= 12 else slice(n - 1, n)
+    for x, y in zip(leaves(got), leaves(tk.mnt_f6_sqr_plain(spec, c)),
+                    strict=True):
+        assert torch.equal(x[:, on], y[:, on])
     X, Y, Z, x2, y2, xP, yP = _cut(_mnt_points(m), n)
     plains = (tk.mnt_miller_dbl_plain(spec, X, Y, Z, xP, yP),
               tk.mnt_miller_add_plain(spec, X, Y, Z, x2, y2, xP, yP))
@@ -623,14 +714,7 @@ def test_mnt_kernels(libs):
     spec = m.fp_spec
     a = tk.unflatten6([rand(spec, 70 + k) for k in range(6)])
     b = tk.unflatten6([rand(spec, 80 + k) for k in range(6)])
-    F6 = m.F6
-    rng = np.random.default_rng(9)
-    cyc = []
-    for _ in range(N):
-        f = tuple(tuple(int(v) % spec.q for v in rng.integers(
-            1, 2 ** 62, size=3)) for _ in range(2))
-        t = F6.mul(F6.conjugate(f), F6.inv(f))
-        cyc.append(F6.mul(m._frobenius6(t), t))
+    cyc = _mnt_cyclotomic(m, 9, N)
     c = tk.unflatten6([fp.planes(ints_to_limbs_fast(
         [spec.to_mont(v[i][j]) for v in cyc], spec.n_limbs), "cpu")
         for i in range(2) for j in range(3)])
@@ -759,9 +843,12 @@ def test_chip_smoke_mnt_kernel_phase_rehearsal(libs, monkeypatch):
 
 def test_chip_smoke_times_rows_at_path_lanes(libs, monkeypatch):
     """chip_smoke.py's path-lane timing on the host libraries: the launch
-    counters by lane count, the three most frequent lane counts of a row,
-    its inputs cut (or repeated) to each, the bit-equality check there
-    (a disagreeing plain version fails the row) and the bound scaled."""
+    counters by lane count, the three most frequent lane counts of a row
+    and the one of its own path with the most launches x lanes besides
+    them, its inputs cut (or repeated) to each, the bit-equality check
+    there (a disagreeing plain version fails the row), the bound scaled,
+    the loss measured over the counts timed and estimated over all, and
+    the estimate's check at the untimed count with the most work."""
     smoke = rehearse(monkeypatch, libs)
     spec = mnt6753().fp_spec
     a = tk.unflatten6([rand(spec, 70 + k) for k in range(6)])
@@ -779,25 +866,63 @@ def test_chip_smoke_times_rows_at_path_lanes(libs, monkeypatch):
     cuda_lib.reset_launches()
     assert cuda_lib.lane_launches == {}
 
-    def row(plain):
+    def row(plain, lanes_by_path):
         return {"name": "K12 f6_mul @N24", "lanes": N, "bytes": 18 * 192 * N,
-                "ops": 10 ** 6 * N,
+                "ops": 10 ** 6 * N, "ms": 0.5, "bound_ms": 0.1,
                 "run": (lambda a, b: tk.mnt_f6_mul(spec, a, b), plain,
                         (a, b)),
-                "lanes_by_path": {"verify_batch": {13: 5, 30: 1},
-                                  "pairing_batch": {13: 2, 1: 4, 7: 1}}}
+                "lanes_by_path": lanes_by_path}
 
-    r = row(lambda a, b: tk.mnt_f6_mul_plain(spec, a, b))
+    def bound_ms(k):
+        return smoke.bound(18 * 192 * k, 10 ** 6 * k)[0]
+
+    def good(a, b):
+        return tk.mnt_f6_mul_plain(spec, a, b)
+
+    # the three most frequent counts are 1, 7 and 13; the most lane-work
+    # of its own path (verify_batch) besides them is 30's
+    r = row(good, {"verify_batch": {13: 5, 30: 1},
+                   "pairing_batch": {13: 2, 1: 4, 7: 1}})
     smoke.at_path_lanes(r)
-    assert r["lanes_at_path"] == [1, 7, 13]
-    assert sorted(r["ms_at_path"]) == [1, 7, 13]
-    assert r["bound_ms_at_path"][13] == smoke.bound(18 * 192 * 13,
-                                                    10 ** 6 * 13)[0]
-    # on its own path (verify_batch) 13 lanes is timed, 30 is not
-    assert r["path_loss_share"] == 5 / 6
-    assert r["path_loss_ms"] == pytest.approx(
-        5 * (r["ms_at_path"][13] - r["bound_ms_at_path"][13]))
-    bad = row(lambda a, b: tk.mnt_f6_mul_plain(spec, b, b))
+    assert r["lanes_at_path"] == [1, 7, 13, 30]
+    assert sorted(r["ms_at_path"]) == [1, 7, 13, 30]
+    assert r["bound_ms_at_path"][13] == bound_ms(13)
+    assert r["path_loss_share"] == 1.0
+    loss = sum(v * (r["ms_at_path"][k] - r["bound_ms_at_path"][k])
+               for k, v in ((13, 5), (30, 1)))
+    assert r["path_loss_ms"] == pytest.approx(loss)
+    assert r["path_loss_est_ms"] == pytest.approx(loss)
+    assert r["est_check"] is None             # nothing left untimed
+    # 4, 13 and 30 most frequent, 200 the most lane-work besides; then 150
+    # is estimated from 200's loss per lane (the nearest timed count above
+    # the check's N lanes) and timed: of the counts still untimed its
+    # lane-work times its distance from 200, 150 log(200 / 150), passes
+    # 50's from 30, 50 log(50 / 30); 50 is counted at the ms of 30 (the
+    # nearest timed count at or below N)
+    assert smoke.scaled_from(row(good, {}) | {
+        "ms_at_path": {30: 0, 200: 0}}, 50) == 30
+    r = row(good, {"prove": {4: 16, 13: 2, 30: 1, 50: 1, 150: 1, 200: 1}})
+    smoke.at_path_lanes(r)
+    assert r["lanes_at_path"] == [4, 13, 30, 150, 200]
+    ms, bd = r["ms_at_path"], r["bound_ms_at_path"]
+    assert r["path_loss_share"] == 21 / 22
+    loss = sum(v * (ms[k] - bd[k]) for k, v in ((4, 16), (13, 2), (30, 1),
+                                                 (150, 1), (200, 1)))
+    assert r["path_loss_ms"] == pytest.approx(loss)
+    check = r["est_check"]
+    assert check["lanes"] == 150
+    assert check["est_ms"] == pytest.approx((ms[200] - bd[200]) * 150 / 200)
+    assert check["ms"] == pytest.approx(ms[150] - bd[150])
+    assert check["err"] == pytest.approx(check["est_ms"] / check["ms"] - 1)
+    assert smoke.untimed_loss_ms(r, 50) == pytest.approx(ms[30]
+                                                         - bound_ms(50))
+    assert smoke.untimed_loss_ms(r, 170) == pytest.approx(
+        (ms[150] - bd[150]) * 170 / 150)
+    assert smoke.untimed_loss_ms(r, 90) == pytest.approx(0.5 - bound_ms(90))
+    assert r["path_loss_est_ms"] == pytest.approx(
+        loss + smoke.untimed_loss_ms(r, 50))
+    bad = row(lambda a, b: tk.mnt_f6_mul_plain(spec, b, b),
+              {"verify_batch": {13: 5, 30: 1}})
     with pytest.raises(AssertionError, match="disagrees with its plain"):
         smoke.at_path_lanes(bad)
 

@@ -1,8 +1,9 @@
 """The CUDA kernels K1-K14 against their plain versions on the card: K1-K10
 at BN128's 8 words, K1-K3 over BLS12-381's Fr (8 words), K1, K2, K4-K9
 and K11 over BLS12-381's Fq (12 words), and K1, K2, K4 and K12-K14 over
-MNT6753's Fq (24 words); the team kernels of K8's product, K9, K12 and
-K14, and K1 and K2 at 24 words, also at the lane counts of their paths.
+MNT6753's Fq (24 words); the team kernels of K8's product, K9 and
+K12-K14, K1 and K2 at 24 words and K6 at 8 and 12, also at the lane counts
+of their paths.
 
 Marked `cuda`: they need an NVIDIA card and nvcc, and skip elsewhere.  On
 the card, where jax is not installed and tests/conftest.py would import
@@ -95,6 +96,33 @@ def test_curve_kernels_match_plain(dev, which):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("which", ["fp", "bls_fq"])
+@pytest.mark.parametrize("n", [4, 68, 557_056, 1_114_112, 2_228_156])
+def test_k6_at_path_lanes(dev, which, n):
+    """K6 at 8 and 12 words at the lane counts of the prove's MSM (the
+    window fold's 4, the triangle and halving steps' 68 x 2^k and the
+    triangle's first step, 2,228,156), against jac_add_plain: random
+    operands with the edge values on lanes 0-3 of every plane (lane 0 is
+    all-zero on both sides), P = Q on lanes 1 and 40 (Q copied from P),
+    P = -Q on lanes 2-3, P = 0 on lane 41, Q = 0 on lane 42 and both
+    all-zero on lane 43, where the lanes exist."""
+    spec = SPECS[which]()
+    P = tuple(_rand(spec, n, s, dev) for s in (4, 5, 6))
+    Q = tuple(_rand(spec, n, s, dev) for s in (7, 8, 9))
+    for k in [k for k in (0, 1, 40) if k < n]:
+        for p, q in zip(P, Q):
+            q[:, k] = p[:, k]
+    Q[0][:, 2:4], Q[2][:, 2:4] = P[0][:, 2:4], P[2][:, 2:4]
+    Q[1][:, 2:4] = fp.mod_sub_plain(spec, torch.zeros_like(P[1][:, 2:4]),
+                                    P[1][:, 2:4])
+    if n > 43:
+        P[2][:, 41] = 0
+        Q[2][:, 42] = 0
+        for c in (*P, *Q):
+            c[:, 43] = 0
+    _assert_equal(curve.jac_add(spec, P, Q), curve.jac_add_plain(spec, P, Q))
+
+
 def _flat(t):
     return [t] if isinstance(t, torch.Tensor) else [p for c in t
                                                     for p in _flat(c)]
@@ -142,10 +170,10 @@ def test_tower_kernels_match_plain(dev, which, n):
 
 @pytest.mark.parametrize("n", [1, 255, 256, 512, 1280, 1 << 16])
 def test_mnt_team_kernels_match_plain(dev, n):
-    """The MNT6753 team kernels, K12's F6 product and square and K14's
-    doubling and mixed add, at the lane counts of the MNT6753 paths (255,
-    256, 512, 1,280), one lane and 2^16, with Z = 0 lanes; one lane takes
-    a random lane, not an edge value."""
+    """The MNT6753 team kernels, K12's F6 product and square, K13's
+    cyclotomic square and K14's doubling and mixed add, at the lane counts
+    of the MNT6753 paths (255, 256, 512, 1,280), one lane and 2^16, with
+    Z = 0 lanes; one lane takes a random lane, not an edge value."""
     spec = SPECS["mnt_fq"]()
     m = max(n, 64)
     lo = 0 if n >= 12 else m - n
@@ -157,6 +185,8 @@ def test_mnt_team_kernels_match_plain(dev, n):
     b = tk.unflatten6([rand(s) for s in range(56, 62)])
     _assert_equal(tk.mnt_f6_mul(spec, a, b), tk.mnt_f6_mul_plain(spec, a, b))
     _assert_equal(tk.mnt_f6_sqr(spec, a), tk.mnt_f6_sqr_plain(spec, a))
+    _assert_equal(tk.mnt_f6_cyc_sqr(spec, a),
+                  tk.mnt_f6_cyc_sqr_plain(spec, a))
     X, Y, Z, x2, y2 = [tuple(rand(s + j) for j in range(3))
                        for s in (70, 73, 76, 79, 82)]
     xP, yP = rand(85), rand(86)

@@ -215,6 +215,44 @@ __device__ __forceinline__ Fe<N> mont_mul(const Field<N>& f, const Fe<N>& a,
   return cond_sub_q(f, r);
 }
 
+// The base product of the team kernels (team.cuh) and of K6
+// (curve_kernels.cu), a * b * 2^(-32N) mod q with b's word i given by
+// b_word(i): CIOS without mont_mul's two extra accumulator words
+// ("no-carry" CIOS), which holds for a modulus whose top word is below
+// 2^31 - 1, as every field of the port's is (q < 2^(32N - 2)).  Per
+// word of b the multiply and the reduction run as two interleaved carry
+// chains, A and C, instead of one after the other, which halves the
+// chain of dependent steps that bounds one thread.  The result before the
+// final subtract is < 2q, so it is canonical after it.
+template <int N, class Word>
+__device__ __forceinline__ Fe<N> mont_mul_nc(const Field<N>& f,
+                                             const Fe<N>& a, Word b_word) {
+  Fe<N> t = fe_zero<N>();
+#ifdef FP_CIOS_ROLLED
+#pragma unroll 1
+#else
+#pragma unroll
+#endif
+  for (int i = 0; i < N; ++i) {
+    const uint32_t bi = b_word(i);
+    uint64_t s = (uint64_t)a.w[0] * bi + t.w[0];
+    uint32_t A = (uint32_t)(s >> 32);
+    const uint32_t m = (uint32_t)s * f.np;
+    uint64_t r = (uint64_t)m * f.q[0] + (uint32_t)s;
+    uint32_t C = (uint32_t)(r >> 32);
+#pragma unroll
+    for (int j = 1; j < N; ++j) {
+      s = (uint64_t)a.w[j] * bi + t.w[j] + A;
+      A = (uint32_t)(s >> 32);
+      r = (uint64_t)m * f.q[j] + (uint32_t)s + C;
+      C = (uint32_t)(r >> 32);
+      t.w[j - 1] = (uint32_t)r;
+    }
+    t.w[N - 1] = C + A;
+  }
+  return cond_sub_q(f, t);
+}
+
 // a * k for a small k >= 0 by double-and-add.
 template <int N>
 __device__ __forceinline__ Fe<N> mul_small(const Field<N>& f, Fe<N> a, int k) {

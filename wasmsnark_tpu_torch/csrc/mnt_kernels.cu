@@ -38,37 +38,22 @@
 // launch them on 255-512 lanes, where one thread per lane fills 4-8 of the
 // 132 SMs and the time is one thread's serial chain of products (18 in K12's
 // product, 12 in its square, 84-108 in a Miller step): the latency of a
-// thread bounds them, not the card's throughput.  So K12's product and
-// square and both Miller steps run a team of threads per lane (team.cuh):
-// the lane's values in shared memory, one base product per thread per round,
-// which shortens the chain to one round of products (K12) and four (each K14
-// step) plus their combines.  K13 still runs one thread per lane: an F6
-// operand is 6N = 144 words, more than fits the 255 registers of a thread
-// beside the CIOS state, so its base product is one __noinline__ copy of the
-// CIOS body, and it reads its inputs from device memory where a formula
-// needs them again instead of keeping them live.
+// thread bounds them, not the card's throughput.  So every kernel here
+// runs a team of threads per lane (team.cuh): the lane's values in shared
+// memory, one base product per thread per round, which shortens the chain
+// to one round of products (K12, K13) and four (each K14 step) plus their
+// combines.
 
-// Both CIOS products here, fmul's and the team kernels' (team.cuh
-// mont_mul_nc), keep their outer loop rolled: on the H100 that builds this
-// library ~11 s faster, and the team kernels run faster rolled at every
-// lane count; the one-thread K13 would run 18 % faster unrolled at the
-// paths' 256 lanes (chip_cios_unroll.py, PERF.md §6), which is left to its
-// redesign.
+// The team kernels' CIOS product (fp.cuh mont_mul_nc) keeps its outer loop
+// rolled: on the H100 that builds this library ~11 s faster, and the team
+// kernels run faster rolled at every lane count (chip_cios_unroll.py,
+// PERF.md §6).
 #define FP_CIOS_ROLLED
 #include "team.cuh"
 
 namespace {
 
-constexpr int kMntThreads = 64;
 constexpr int kNR = 11;            // F3 non-residue, G1's a, G2's a2 / v^2
-
-// -- base field ------------------------------------------------------------------
-
-template <int N>
-__device__ __noinline__ Fe<N> fmul(const Field<N>& f, const Fe<N>& a,
-                                   const Fe<N>& b) {
-  return mont_mul(f, a, b);
-}
 
 // -- F3 --------------------------------------------------------------------------
 
@@ -192,28 +177,57 @@ __global__ void __launch_bounds__(kSqrLanes * kSqrTeam)
 // 2xy = (x + y)^2 - x^2 - y^2 from three squarings; t = 11 x^2 + y^2;
 // a_k' = 3 t - 2 a_k, and b_k' = 3 c + 2 b_k with c the cross term, times
 // 11 for (b2, a1) -> b0'.
+//
+// By a team of kCycTeam threads per lane over kCycLanes lanes a block.
+// Slots: a0, a1, a2, b0, b1, b2 at 0-5; pair k's x^2, y^2, (x + y)^2 at
+// 6 + 3k .. 8 + 3k.  Stages: load 6 slots, 9 squarings, 6 outputs (the
+// three a_k' and, on warps of their own, the three b_k').  8 lanes a block
+// run fastest at the paths' 255 lanes (4 and 2 are 15-29 % slower there,
+// 16 12 %; chip_cios_unroll.py, PERF.md §6).
+constexpr int kCycLanes = 8;
+constexpr int kCycTeam = 9;
+constexpr int kCycSlots = 15;
+
+#define SQR_PAIR(x, y, o)                                                    \
+  {{x, kNoSlot, kNoSlot, kNoSlot}, {x, kNoSlot, kNoSlot, kNoSlot}, o},       \
+  {{y, kNoSlot, kNoSlot, kNoSlot}, {y, kNoSlot, kNoSlot, kNoSlot}, o + 1},   \
+  {{x, y, kNoSlot, kNoSlot}, {x, y, kNoSlot, kNoSlot}, o + 2}
+
+__constant__ Prod kCycProds[9] = {SQR_PAIR(4, 0, 6), SQR_PAIR(2, 3, 9),
+                                  SQR_PAIR(5, 1, 12)};
+
 template <int N>
-__global__ void __launch_bounds__(kMntThreads)
+__global__ void __launch_bounds__(kCycLanes * kCycTeam)
     f6_cyc_sqr_kernel(Field<N> f, const uint32_t* __restrict__ a,
                       uint32_t* __restrict__ out, int64_t n) {
-  LANE_LOOP(i, n) {
-    const int xs[3] = {4, 2, 5}, ys[3] = {0, 3, 1};
-    const int as[3] = {0, 1, 2}, bs[3] = {4, 5, 3};
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      Fe<N> x = ld<N>(a, xs[k], n, i), y = ld<N>(a, ys[k], n, i);
-      Fe<N> sx = fmul(f, x, x), sy = fmul(f, y, y);
-      Fe<N> xy = add(f, x, y);
-      Fe<N> cross = sub(f, sub(f, fmul(f, xy, xy), sx), sy);
-      Fe<N> t = add(f, mul_small(f, sx, kNR), sy);
-      Fe<N> ak = ld<N>(a, as[k], n, i);
-      st<N>(out, as[k], n, i,
+  constexpr int G = kCycLanes;
+  __shared__ uint32_t sm[kCycSlots * Slots<N, G>::kStride];
+  const Slots<N, G> s{sm};
+  for (int64_t base = (int64_t)blockIdx.x * G; base < n;
+       base += (int64_t)gridDim.x * G) {
+    team_for<G>(6, base, n, [&](int c, int g) {
+      s.put(c, g, ld<N>(a, c, n, base + g));
+    });
+    __syncthreads();
+    prod_stage<N, G>(f, s, kCycProds, 9, base, n);
+    __syncthreads();
+    team_for<G>(3, base, n, [&](int k, int g) {   // a_k' = 3 t - 2 a_k
+      const Fe<N> t = add(f, mul_small(f, s.get(6 + 3 * k, g), kNR),
+                          s.get(7 + 3 * k, g));
+      const Fe<N> ak = s.get(k, g);
+      st<N>(out, k, n, base + g,
             sub(f, add(f, add(f, t, t), t), add(f, ak, ak)));
-      Fe<N> c = k == 2 ? mul_small(f, cross, kNR) : cross;
-      Fe<N> bk = ld<N>(a, bs[k], n, i);
-      st<N>(out, bs[k], n, i,
-            add(f, add(f, add(f, c, c), c), add(f, bk, bk)));
-    }
+    });
+    team_for<G>(3, base, n, [&](int j, int g) {   // b_j' = 3 c + 2 b_j
+      const int r = 6 + 3 * ((j + 2) % 3);          // the pair of b_j'
+      const Fe<N> cross = sub(f, sub(f, s.get(r + 2, g), s.get(r, g)),
+                              s.get(r + 1, g));
+      const Fe<N> c = select(j == 0, mul_small(f, cross, kNR), cross);
+      const Fe<N> bj = s.get(3 + j, g);
+      st<N>(out, 3 + j, n, base + g,
+            add(f, add(f, add(f, c, c), c), add(f, bj, bj)));
+    }, warp_after(3, G));
+    __syncthreads();
   }
 }
 
@@ -480,13 +494,6 @@ __global__ void __launch_bounds__(kAddLanes * kAddTeam)
   }
 }
 
-inline unsigned mnt_grid(long long n) {
-  long long blocks = (n + kMntThreads - 1) / kMntThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 65535LL * 8) blocks = 65535LL * 8;
-  return (unsigned)blocks;
-}
-
 }  // namespace
 
 extern "C" {
@@ -518,9 +525,9 @@ int k13_f6_cyc_sqr(const void* a, void* out, long long n, int n_limbs,
   if (bad_args(n_limbs, n)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
-  f6_cyc_sqr_kernel<kN>
-      <<<mnt_grid(n), kMntThreads, 0, (cudaStream_t)stream>>>(
-          f, (const uint32_t*)a, (uint32_t*)out, n);
+  f6_cyc_sqr_kernel<kN><<<team_grid(n, kCycLanes), kCycLanes * kCycTeam, 0,
+                          (cudaStream_t)stream>>>(
+      f, (const uint32_t*)a, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
 
@@ -554,7 +561,8 @@ int k14_mnt_miller_add(const void* xyz, const void* q, const void* p,
 // (k12_f6_mul, k12_f6_sqr, k13_f6_cyc_sqr, k14_mnt_miller_dbl,
 // k14_mnt_miller_add): the occupancy report of chip_cios_unroll.py.
 void mnt_block_threads(int* threads) {
-  const int t[5] = {kK12Lanes * kK12Team, kSqrLanes * kSqrTeam, kMntThreads,
+  const int t[5] = {kK12Lanes * kK12Team, kSqrLanes * kSqrTeam,
+                    kCycLanes * kCycTeam,
                     kDblLanes * kDblTeam, kAddLanes * kAddTeam};
   for (int k = 0; k < 5; ++k) threads[k] = t[k];
 }
