@@ -32,7 +32,8 @@ blocks an SM can hold by those (H100 limits: 64 K registers, 228 KB of
 shared memory with 1 KB reserved per block, 2,048 threads and 32
 blocks).  Then it binds each variant in turn and times K12 (product and
 square), K13 and K14 (doubling and add) at 255, 256, 512 and 2^16 lanes,
-K8's product and K9 at 8 and 12 words at TOWER_LANES (1,024 to 2^16), and
+K8's product and square, K9 and the Miller doubling (K10 at 8 words, K11
+at 12) at TOWER_LANES (1,024 to 2^16), and
 K5-K7 at 8 and 12 words at the prove's lane counts (CURVE_LANES: K6 at
 the MSM's 4, 68, 1,114,112 and 2,228,156, K5 at its one launch's, K7 at
 4) and 2^16, on chip_smoke.py's points (equal, opposite and zero points
@@ -48,7 +49,8 @@ count and the first variant's at 2^16 lanes, bit for bit.  K1 and K2
 and 12 words at their paths' lane counts and 2^16, each checked against
 its plain version at every lane count.  With --only and a comma-separated
 list of fp (K1, K2), tower (K8's product, K9), mnt (K12-K14) and curve
-(K5-K7), only those libraries are built and only their kernels timed.
+(K5-K7), only those libraries are built and only their kernels timed;
+tower (K8, K9 and the Miller doubling) builds tower_kernels.cu.
 With --sass it prints,
 per variant and kernel, the instructions of its SASS (cuobjdump) and the
 most frequent opcodes.
@@ -89,8 +91,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROLLED = "#define FP_CIOS_ROLLED\n"
 # the parts --only chooses from: library name prefix -> kernels timed
-PARTS = {"fp": "K1, K2", "tower": "K8's product, K9", "mnt": "K12-K14",
-         "curve": "K5-K7"}
+PARTS = {"fp": "K1, K2", "tower": "K8, K9, the Miller doubling",
+         "mnt": "K12-K14", "curve": "K5-K7"}
 # library -> (source, words)
 LIBS = {"fp_kernels_w8": ("fp_kernels.cu", 8),
         "fp_kernels_w12": ("fp_kernels.cu", 12),
@@ -102,8 +104,8 @@ LIBS = {"fp_kernels_w8": ("fp_kernels.cu", 8),
         "curve_kernels_w12": ("curve_kernels.cu", 12)}
 BIG = 1 << 16                    # the lane count of the cross-variant check
 MNT_LANES = (255, 256, 512, BIG)
-# K8's product and K9: the pairing and verify batches' lane counts, and
-# more up to 2^16 for where a team kernel stops paying
+# K8, K9 and the Miller doubling: the pairing and verify batches' lane
+# counts, and more up to 2^16 for where a team kernel stops paying
 TOWER_LANES = (1024, 2048, 4096, 8192, 16384, 32768, BIG)
 # K1 and K2 per word count: the lane counts their paths launch them with
 # most (PERF.md §6: the MNT6753 verify batch's at 24 words, the prove's at
@@ -339,6 +341,13 @@ def main() -> int:
     G12 = {w: tk.unflatten12([rand(specs[w]) for _ in range(12)])
            for w in (8, 12)}
     XI = {8: tk.XI, 12: tk.XI_BLS}
+    # Miller doubling points (X, Y, Z, xP, yP) per word count, Z = 0 on
+    # lanes 64..95
+    DBL = {w: tuple((rand(specs[w]), rand(specs[w])) for _ in range(3))
+           + (rand(specs[w]), rand(specs[w])) for w in (8, 12)}
+    for w in DBL:
+        for c in DBL[w][2]:
+            c[:, 64:96] = 0
     ins = (A, B, X, Y, Z, xP, yP)
     FX = {w: (rand(specs[w]), rand(specs[w])) for w in FIELD_LANES}
     # P, Q (Jacobian) and Qa (affine) per word count, as chip_smoke.py's
@@ -366,10 +375,19 @@ def main() -> int:
                                 lambda s=s, p=plain, a=args: p(s, *a)))
         return out
 
+    def dbl(w, pts, plain=False):
+        """The Miller doubling of the word count's curve on the points
+        pts (K10 at 8 words, K11 at 12), or its plain version."""
+        if w == 8:
+            return (tk.miller_dbl_plain if plain else tk.miller_dbl)(
+                specs[w], *pts)
+        return (tk.miller_dbl_mtwist_plain if plain
+                else tk.miller_dbl_mtwist)(specs[w], *pts, XI[w])
+
     def runs(k):
         """The wrappers timed at k lanes: K12-K14 at the MNT6753 lane
-        counts, K8's product and K9 at TOWER_LANES, K1 and K2 at
-        FIELD_LANES, K5-K7 at CURVE_LANES."""
+        counts, K8, K9 and the Miller doubling at TOWER_LANES, K1 and K2
+        at FIELD_LANES, K5-K7 at CURVE_LANES."""
         out = {}
         if mnt and k in MNT_LANES:
             A, B, X, Y, Z, xP, yP = cut(ins, k)
@@ -385,8 +403,12 @@ def main() -> int:
                 a, b = cut(F12[w], k), cut(G12[w], k)
                 out[f"K8 mul @N{w}"] = (lambda a=a, b=b, w=w: tk.f12_mul(
                     specs[w], a, b, XI[w]))
+                out[f"K8 sqr @N{w}"] = (lambda a=a, w=w: tk.f12_sqr(
+                    specs[w], a, XI[w]))
                 out[f"K9 @N{w}"] = (lambda a=a, w=w: tk.f12_cyc_sqr(
                     specs[w], a, XI[w]))
+                out[f"K{10 if w == 8 else 11} dbl"] = (
+                    lambda w=w, pts=cut(DBL[w], k): dbl(w, pts))
         for w, ks in FIELD_LANES.items():
             if field and k in ks:
                 x, y = cut(FX[w], k)
@@ -422,7 +444,9 @@ def main() -> int:
             for w in (8, 12):
                 a, b = cut(F12[w], k), cut(G12[w], k)
                 out += [tk.f12_mul_plain(specs[w], a, b, XI[w]),
-                        tk.f12_cyc_sqr_plain(specs[w], a, XI[w])]
+                        tk.f12_sqr_plain(specs[w], a, XI[w]),
+                        tk.f12_cyc_sqr_plain(specs[w], a, XI[w]),
+                        dbl(w, cut(DBL[w], k), plain=True)]
         return _leaves(out + field_plain(k)
                        + [p() for _, _, p in curve_runs(k)])
 
@@ -460,8 +484,16 @@ def main() -> int:
                 out[f"K8 mul @N{w}"] = ("k8_f12_mul", specs[w], [
                     a, torch.stack(tk.flatten12(cut(G12[w], k))),
                     empty(12, specs[w])], XI[w])
+                out[f"K8 sqr @N{w}"] = ("k8_f12_sqr", specs[w], [
+                    a, empty(12, specs[w])], XI[w])
                 out[f"K9 @N{w}"] = ("k9_f12_cyc_sqr", specs[w], [
                     a, empty(12, specs[w])], XI[w])
+                X, Y, Z, xP, yP = cut(DBL[w], k)
+                out[f"K{10 if w == 8 else 11} dbl"] = (
+                    "k10_miller_dbl" if w == 8 else "k11_miller_dbl_mtwist",
+                    specs[w], [torch.stack([*X, *Y, *Z]),
+                               torch.stack([xP, yP]), empty(12, specs[w])],
+                    () if w == 8 else XI[w])
         return out
 
     def stream_ms(fn, s, tensors, k, ints, reps=20):

@@ -593,15 +593,34 @@ def check_curve_kernels(curve, m, dev, rng, rand, record, n):
     check_tower_kernels(curve, m, rand, rec, n)
 
 
+# modular adds and subs of one Karatsuba F2 product (two operand sums,
+# three combining subs) and one Karatsuba F6 product (its operand sums of
+# three F2 pairs a side, six F2 products, 18 combining adds and subs; two
+# multiplications by xi besides)
+F2_MUL_ADDS = 2 + 3
+F6_MUL_ADDS = 12 + 6 * F2_MUL_ADDS + 18
+# K8's square: two F6 products, a0 + a1, a0 + v a1 (one multiplication by
+# xi), 2 ab and t - ab - v ab (one)
+SQR_ADDS = 2 * F6_MUL_ADDS + 6 + 6 + 6 + 12
+# the Miller doubling's team kernel: 8 Karatsuba F2 products, 6 complex
+# squares (the sum and the difference of the operand's components, a
+# doubling), (Y + Z)^2 and (X + Z)^2 (four operand sums, a doubling and
+# the two squares taken off, per component); then per component c_y =
+# 2 YZ2, c_x = -3 X2Z, t1 = 9 X4 - 4 V Y2, c_0 = 3 X3 - 2 Y2Z, Z' =
+# 4 Y2Z c_y and Y' = 36 X3Y2Z - 27 X6 - 8 Y4Z2
+DBL_ADDS = (8 * F2_MUL_ADDS + 6 * 3 + 2 * 9
+            + 2 * (1 + 3 + chain(9) + chain(4) + 1 + chain(3) + 2 + 2
+                   + chain(36) + chain(27) + chain(8) + 2))
 # per C entry point of the tower kernels: (Montgomery products, modular
 # adds and subs besides those of xi, multiplications by xi), counted from
 # csrc/tower_kernels.cu's formulas (small multiples as double-and-add
-# chains)
+# chains); K8's square and the doubling from what their results need, a
+# sum of operands counted once where the team's product items share it
 TOWER_OPS = {
-    "k8_f12_mul": (54, 182, 7), "k8_f12_sqr": (36, 126, 6),
+    "k8_f12_mul": (54, 182, 7), "k8_f12_sqr": (36, SQR_ADDS, 6),
     "k9_f12_cyc_sqr": (18, 83, 4),
-    "k10_miller_dbl": (50, 151, 0), "k10_miller_add": (41, 79, 0),
-    "k11_miller_dbl_mtwist": (50, 151, 1),
+    "k10_miller_dbl": (44, DBL_ADDS, 0), "k10_miller_add": (41, 79, 0),
+    "k11_miller_dbl_mtwist": (44, DBL_ADDS, 1),
     "k11_miller_add_mtwist": (41, 79, 1),
 }
 

@@ -600,6 +600,78 @@ def test_k8_mul_other_xi(libs, curve_name):
         assert_equal(tk.unflatten12(out), tk.f12_mul_plain(spec, a, b, xi))
 
 
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+@pytest.mark.parametrize("n", [1, 13, 30, 96])
+def test_k8_sqr_team_kernel(libs, curve_name, n):
+    """K8's square as a team kernel at 8 (BN128, xi = 9 + u) and 12
+    (BLS12-381, xi = 1 + u) words on n lanes: one lane, ragged lane groups
+    (13 and 30 are not multiples of its 8 lanes a block) and full ones,
+    against f12_sqr_plain; the edge values 0, 1, q - 1, q - 2 on lanes 0..3
+    and cyclotomic elements on lanes 4..11 and the last lane, where it
+    equals K9's cyclotomic square."""
+    m = CURVES[curve_name]()
+    spec = m.fp_spec
+    xi = tk.XI if curve_name == "bn128" else tk.XI_BLS
+    planes = [rand(spec, 280 + k) for k in range(12)]
+    cyc = [tk.flatten12(c) for c in _cyclotomic(m, 13, 9)]
+    on = [*range(4, 12), N - 1]
+    for k, p in enumerate(planes):
+        p[:, on] = fp.planes(ints_to_limbs_fast(
+            [spec.to_mont(c[k]) for c in cyc], spec.n_limbs), "cpu")
+    a = _cut(tk.unflatten12(planes), n)
+    rc, out = _tower(libs, "k8_f12_sqr", spec, [tk.flatten12(a)], xi, n)
+    assert rc == 0
+    assert_equal(tk.unflatten12(out), tk.f12_sqr_plain(spec, a, xi))
+    rc, cyc_out = _tower(libs, "k9_f12_cyc_sqr", spec, [tk.flatten12(a)], xi,
+                         n)
+    assert rc == 0
+    on = slice(4, 12) if n >= 12 else slice(n - 1, n)
+    for x, y in zip(out, cyc_out, strict=True):
+        assert torch.equal(x[:, on], y[:, on])
+
+
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+def test_k8_sqr_other_xi(libs, curve_name):
+    """K8's square with an xi other than its build's curve's (the team
+    kernel is compiled for that one): 30 lanes run K8's one-thread product
+    of a with itself, and still equal the plain square at that xi."""
+    spec = CURVES[curve_name]().fp_spec
+    a = _cut(tk.unflatten12([rand(spec, 300 + k) for k in range(12)]), 30)
+    for xi in ((2, 1), (9, 3)):
+        rc, out = _tower(libs, "k8_f12_sqr", spec, [tk.flatten12(a)], xi, 30)
+        assert rc == 0
+        assert_equal(tk.unflatten12(out), tk.f12_sqr_plain(spec, a, xi))
+
+
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+@pytest.mark.parametrize("n", [1, 13, 30, 96])
+def test_miller_dbl_team_kernel(libs, curve_name, n):
+    """The Miller doubling as a team kernel on n lanes: the D twist (K10) at
+    BN128's 8 words, the M twist (K11, xi = 1 + u) at BLS12-381's 12, against
+    miller_dbl_plain / miller_dbl_mtwist_plain: one lane, ragged lane groups
+    (13 and 30 are not multiples of its 8 lanes a block) and full ones, the
+    edge values on lanes 0..3 of every plane, Z = 0 on lanes 4..7 and
+    Y = 0 on lanes 8..11."""
+    spec = CURVES[curve_name]().fp_spec
+    X, Y, Z = [(rand(spec, 320 + 2 * k), rand(spec, 321 + 2 * k))
+               for k in range(3)]
+    xP, yP = rand(spec, 330), rand(spec, 331)
+    for c in Z:
+        c[:, 4:8] = 0
+    for c in Y:
+        c[:, 8:12] = 0
+    X, Y, Z, xP, yP = _cut((X, Y, Z, xP, yP), n)
+    if curve_name == "bn128":
+        fn, extra = "k10_miller_dbl", ()
+        plain = tk.miller_dbl_plain(spec, X, Y, Z, xP, yP)
+    else:
+        fn, extra = "k11_miller_dbl_mtwist", tk.XI_BLS
+        plain = tk.miller_dbl_mtwist_plain(spec, X, Y, Z, xP, yP, tk.XI_BLS)
+    rc, out = _tower(libs, fn, spec, [[*X, *Y, *Z], [xP, yP]], extra, n)
+    assert rc == 0
+    assert_equal(tk._step_out(out, spec.n_limbs, (n,)), plain)
+
+
 def _mnt(libs, fn, spec, groups, n_out, n=N):
     ops = [torch.stack(g)[..., :n].contiguous() for g in groups]
     out = torch.empty((n_out, spec.n_limbs, n), dtype=torch.int32)

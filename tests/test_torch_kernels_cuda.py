@@ -1,9 +1,9 @@
 """The CUDA kernels K1-K14 against their plain versions on the card: K1-K10
 at BN128's 8 words, K1-K3 over BLS12-381's Fr (8 words), K1, K2, K4-K9
 and K11 over BLS12-381's Fq (12 words), and K1, K2, K4 and K12-K14 over
-MNT6753's Fq (24 words); the team kernels of K8's product, K9 and
-K12-K14, K1 and K2 at 24 words and K6 at 8 and 12, also at the lane counts
-of their paths.
+MNT6753's Fq (24 words); the team kernels of K8's product and square, K9,
+the Miller doubling of K10 and K11 and K12-K14, K1 and K2 at 24 words and
+K6 at 8 and 12, also at the lane counts of their paths.
 
 Marked `cuda`: they need an NVIDIA card and nvcc, and skip elsewhere.  On
 the card, where jax is not installed and tests/conftest.py would import
@@ -214,6 +214,37 @@ def test_k9_team_kernel_match_plain(dev, which, n):
                   tk.f12_cyc_sqr_plain(spec, a, xi))
     _assert_equal(tk.f12_mul(spec, a, b, xi),
                   tk.f12_mul_plain(spec, a, b, xi))
+
+
+@pytest.mark.parametrize("which", ["fp", "bls_fq"])
+@pytest.mark.parametrize("n", [1, 1024, 4096, 1 << 16])
+def test_k8_sqr_and_miller_dbl_team_kernels_match_plain(dev, which, n):
+    """K8's square and the Miller doubling (K10's D twist at 8 words, K11's
+    M twist at 12) as team kernels at the verify and pairing batches' 1,024
+    and 4,096 lanes, at 2^16 and on one lane, with Z = 0 lanes and Y = 0
+    lanes; one lane takes a random lane, not an edge value."""
+    spec = SPECS[which]()
+    xi = tk.XI if which == "fp" else tk.XI_BLS
+    m = max(n, 64)
+    lo = 0 if n >= 12 else m - n
+
+    def rand(seed):
+        return _rand(spec, m, seed, dev)[:, lo:lo + n].contiguous()
+
+    a = tk.unflatten12([rand(s) for s in range(90, 102)])
+    _assert_equal(tk.f12_sqr(spec, a, xi), tk.f12_sqr_plain(spec, a, xi))
+    X, Y, Z = [(rand(s), rand(s + 1)) for s in (110, 112, 114)]
+    xP, yP = rand(116), rand(117)
+    for c in Z:
+        c[:, 5:9] = 0
+    for c in Y:
+        c[:, 9:13] = 0
+    if which == "fp":
+        _assert_equal(tk.miller_dbl(spec, X, Y, Z, xP, yP),
+                      tk.miller_dbl_plain(spec, X, Y, Z, xP, yP))
+    else:
+        _assert_equal(tk.miller_dbl_mtwist(spec, X, Y, Z, xP, yP, xi),
+                      tk.miller_dbl_mtwist_plain(spec, X, Y, Z, xP, yP, xi))
 
 
 def test_mnt_kernels_match_plain(dev):

@@ -16,9 +16,9 @@
 //     _miller_dbl_mtwist_kernel / _miller_add_mtwist_kernel: BLS12-381's
 //     M-twist steps, the same point update with the line's w^0 term times
 //     xi and its other two terms in the (v w, v^2 w) slots (b1, b2).
-// Both Miller kernels compute exactly the products of the Pallas kernels:
-// the representative of the new point is not unique, so the formulas are
-// not free here.
+// The Miller kernels compute the Pallas kernels' field elements: the
+// representative of the new point is not unique, so the formulas are not
+// free here (the doubling regroups products, which keeps every value).
 //
 // Towers: F2 = Fp[u]/(u^2 + 1), F6 = F2[v]/(v^3 - xi), F12 = F6[w]/(w^2 - v),
 // with xi = xi0 + xi1 u a kernel argument (BN128: 9 + u; BLS12-381: 1 + u).
@@ -35,20 +35,19 @@
 // What bounds them on the H100: counted against the card's peaks, a K8
 // product (54 Montgomery products of ~2N^2 IMADs, 36 planes of 2N 32-bit
 // words per lane) needs about as much time for its bytes as for its
-// operations.  But the verify and pairing batches launch K8 and K9 on
+// operations.  But the verify and pairing batches launch K8-K11 on
 // 1,024-4,096 lanes, where one thread per lane (64-thread blocks) fills
-// 16-64 of the 132 SMs and waits on its chain of 54 or 18 dependent base
-// products.  So K8's product and K9 run a team of threads per lane
-// (team.cuh): the lane's values in shared memory and its base products in
-// one round, one a thread; K8's product keeps its one-thread design for more
-// than K8_TEAM_MAX_LANES lanes at 8 words, where every SM is busy and one
-// thread's chain is the cheaper, and for an xi other than its build's
-// curve's.  K8's square and the Miller steps K10 and K11 run one thread per
-// lane: one F12 operand is 12N words, so the square reads operand halves
-// from device memory where a Karatsuba term needs them instead of keeping
-// both operands in registers, and the F2 and F6 products are __noinline__
-// functions, which keeps the build in seconds; their call boundaries cost
-// spills that -Xptxas -v reports (the build log).  This source defines no
+// 16-64 of the 132 SMs and waits on its chain of 36-54 dependent base
+// products.  So K8, K9 and the Miller doubling of K10 and K11 run a team of
+// threads per lane (team.cuh): the lane's values in shared memory and its
+// base products in rounds, one a thread: one round for K8 and K9, three for
+// the doubling.  K8's product keeps its one-thread design for more than
+// K8_TEAM_MAX_LANES lanes at 8 words, where every SM is busy and one
+// thread's chain is the cheaper, and K8's product and square run it for an
+// xi other than its build's curve's.  The Miller add steps of K10 and K11
+// run one thread per lane: the F2 products are __noinline__ functions,
+// which keeps the build in seconds; their call boundaries cost stack that
+// -Xptxas -v reports (the build log).  This source defines no
 // FP_CIOS_ROLLED, so fp.cuh's and team.cuh's CIOS loops are unrolled here
 // (the team kernels run 5-9 % slower rolled).
 
@@ -89,12 +88,6 @@ __device__ __forceinline__ F2<N> f2_sub(const Field<N>& f, const F2<N>& a,
 template <int N>
 __device__ __forceinline__ F2<N> f2_neg(const Field<N>& f, const F2<N>& a) {
   return {sub(f, fe_zero<N>(), a.c0), sub(f, fe_zero<N>(), a.c1)};
-}
-
-template <int N>
-__device__ __forceinline__ F2<N> f2_small(const Field<N>& f, const F2<N>& a,
-                                          int k) {
-  return {mul_small(f, a.c0, k), mul_small(f, a.c1, k)};
 }
 
 // (c0 a0 - c1 a1) + (c1 a0 + c0 a1) u
@@ -250,13 +243,39 @@ __device__ __forceinline__ Fe<N> f6_coef(const Field<N>& f,
                     term(2, j, true)), y);
 }
 
-// Table lines of the K8 product stage, two slots to an F2 value: the three
+// Component j of the Karatsuba F2 product whose base products m0, m1 and
+// t = (x0 + x1)(y0 + y1) sit at slots r..r+2 (F2_PRODS): m0 - m1 for j = 0,
+// t - m0 - m1 for j = 1, without a branch.
+template <int N, int G>
+__device__ __forceinline__ Fe<N> f2_coef(const Field<N>& f,
+                                         const Slots<N, G>& s, int r, int j,
+                                         int g) {
+  const Fe<N> m0 = s.get(r, g);
+  return sub(f, select(j == 0, m0, sub(f, s.get(r + 2, g), m0)),
+             s.get(r + 1, g));
+}
+
+// Component j of the F2 square u^2 = ((u0 + u1)(u0 - u1), 2 u0 u1) whose
+// base products u0 u1 and (u0 + u1)(u0 - u1) sit at slots r, r + 1
+// (F2_SQR): the second for j = 0, twice the first for j = 1.
+template <int N, int G>
+__device__ __forceinline__ Fe<N> f2_sqr_coef(const Field<N>& f,
+                                             const Slots<N, G>& s, int r,
+                                             int j, int g) {
+  const Fe<N> v = s.get(r + 1 - j, g);
+  return select(j == 1, add(f, v, v), v);
+}
+
+// Table lines of a product stage, two slots to an F2 value: the three
 // base products m0 = x0 y0, m1 = x1 y1, (x0 + x1)(y0 + y1) of the Karatsuba
 // F2 product of the values at slots x and y (F2_PRODS), or of the sums of
 // those at x, x2 and at y, y2 (F2_PRODS_SUM), into o..o+2; and the 18 of
 // the Karatsuba F6 product of the values at slots x.. and y.. (F2
 // coefficient k at x + 2k), its F2 products in the order v0, v1, v2, t01,
-// t12, t02 (F6_PRODS).
+// t12, t02 (F6_PRODS).  The two of the square of the value at slot x
+// whose difference x0 - x1 sits at slot d (F2_SQR), or of the sum of those
+// at x and y with differences at dx and dy (F2_SQR_SUM), into o, o + 1;
+// the two of the value at x times the base element at slot b (F2_SCAL).
 #define F2_PRODS(x, y, o)                                                    \
   {{x, kNoSlot, kNoSlot, kNoSlot}, {y, kNoSlot, kNoSlot, kNoSlot}, o},       \
   {{x + 1, kNoSlot, kNoSlot, kNoSlot}, {y + 1, kNoSlot, kNoSlot, kNoSlot},   \
@@ -272,6 +291,15 @@ __device__ __forceinline__ Fe<N> f6_coef(const Field<N>& f,
   F2_PRODS(x + 4, y + 4, o + 6), F2_PRODS_SUM(x, x + 2, y, y + 2, o + 9),    \
   F2_PRODS_SUM(x + 2, x + 4, y + 2, y + 4, o + 12),                          \
   F2_PRODS_SUM(x, x + 4, y, y + 4, o + 15)
+#define F2_SQR(x, d, o)                                                      \
+  {{x, kNoSlot, kNoSlot, kNoSlot}, {x + 1, kNoSlot, kNoSlot, kNoSlot}, o},   \
+  {{x, x + 1, kNoSlot, kNoSlot}, {d, kNoSlot, kNoSlot, kNoSlot}, o + 1}
+#define F2_SQR_SUM(x, y, dx, dy, o)                                          \
+  {{x, y, kNoSlot, kNoSlot}, {x + 1, y + 1, kNoSlot, kNoSlot}, o},           \
+  {{x, x + 1, y, y + 1}, {dx, dy, kNoSlot, kNoSlot}, o + 1}
+#define F2_SCAL(x, b, o)                                                     \
+  {{x, kNoSlot, kNoSlot, kNoSlot}, {b, kNoSlot, kNoSlot, kNoSlot}, o},       \
+  {{x + 1, kNoSlot, kNoSlot, kNoSlot}, {b, kNoSlot, kNoSlot, kNoSlot}, o + 1}
 
 // (a0 + a1 w)(b0 + b1 w) = (t0 + v t1) + (t2 - t0 - t1) w with t0 = a0 b0,
 // t1 = a1 b1 and t2 = (a0 + a1)(b0 + b1), by a team of kK8Team threads per
@@ -313,11 +341,8 @@ __global__ void __launch_bounds__(kK8Lanes * kK8Team, 2)
     __syncthreads();
     prod_stage<N, G>(f, s, kK8Prods, 54, base, n);
     __syncthreads();
-    team_for<G>(36, base, n, [&](int c, int g) {   // (m0 - m1, t - m0 - m1)
-      const int r = 36 + 3 * (c / 2);
-      const Fe<N> m0 = s.get(r, g);
-      s.put(c, g, sub(f, select(c % 2 == 0, m0, sub(f, s.get(r + 2, g), m0)),
-                      s.get(r + 1, g)));
+    team_for<G>(36, base, n, [&](int c, int g) {   // the 18 F2 products
+      s.put(c, g, f2_coef<N, G>(f, s, 36 + 3 * (c / 2), c % 2, g));
     });
     __syncthreads();
     team_for<G>(18, base, n, [&](int c, int g) {   // t0, t1, t2
@@ -371,19 +396,78 @@ __global__ void __launch_bounds__(kTowerThreads)
   }
 }
 
-// (a0 + a1 w)^2: ab = a0 a1, t = (a0 + a1)(a0 + v a1);
-// c0 = t - ab - v ab, c1 = 2 ab
-template <int N>
-__global__ void __launch_bounds__(kTowerThreads)
-    f12_sqr_kernel(Field<N> f, Xi xi, const uint32_t* __restrict__ a,
+// (a0 + a1 w)^2 = (t - ab - v ab) + 2 ab w with ab = a0 a1 and
+// t = (a0 + a1)(a0 + v a1), by a team of kSqrTeam threads per lane over
+// kSqrLanes lanes a block: the 36 base products of the two F6 products in
+// one round, on K8's product's layout.  Slots: a0 0-5, a1 6-11, a0 + a1
+// 12-17, a0 + v a1 18-23 (component c of an F6 value at its first slot +
+// c), the base products of ab and t at 24 and 42; once the products are
+// done the 12 F2 products at 0-23 (ab's at 0, t's at 12), then ab and t at
+// 24 and 30.  Stages: load 24 slots, 36 products, 24 F2 coefficients, 12
+// F6 coefficients, 12 outputs.  The square has one canonical value, so it
+// is bit-identical to the product of a with itself whatever the grouping.
+// xi = X0 + X1 u is a template argument, kBuildXi; another xi runs K8's
+// one-thread product of a with itself.  8 lanes a block (288 threads) run
+// fastest at every lane count measured, 1,024 to 2^16; 4 are 6-33 %
+// slower, and 16 exceed the 48 KB of static shared memory at 12 words
+// (chip_cios_unroll.py, PERF.md §6).
+constexpr int kSqrLanes = 8;
+constexpr int kSqrTeam = 36;
+constexpr int kSqrSlots = 60;
+
+__constant__ Prod kSqrProds[36] = {F6_PRODS(0, 6, 24), F6_PRODS(12, 18, 42)};
+
+template <int N, int X0, int X1>
+__global__ void __launch_bounds__(kSqrLanes * kSqrTeam)
+    f12_sqr_kernel(Field<N> f, const uint32_t* __restrict__ a,
                    uint32_t* __restrict__ out, int64_t n) {
-  LANE_LOOP(i, n) {
-    F6<N> ab = f6_mul(f, xi, ld6<N>(a, 0, n, i), ld6<N>(a, 1, n, i));
-    st6<N>(out, 1, n, i, f6_add(f, ab, ab));
-    F6<N> a1 = ld6<N>(a, 1, n, i);
-    F6<N> t = f6_mul(f, xi, f6_add(f, ld6<N>(a, 0, n, i), a1),
-                     f6_add(f, ld6<N>(a, 0, n, i), f6_mul_v(f, xi, a1)));
-    st6<N>(out, 0, n, i, f6_sub(f, f6_sub(f, t, ab), f6_mul_v(f, xi, ab)));
+  constexpr int G = kSqrLanes;
+  __shared__ uint32_t sm[kSqrSlots * Slots<N, G>::kStride];
+  const Slots<N, G> s{sm};
+  for (int64_t base = (int64_t)blockIdx.x * G; base < n;
+       base += (int64_t)gridDim.x * G) {
+    team_for<G>(6, base, n, [&](int c, int g) {    // a0, a1, a0 + a1
+      const Fe<N> x = ld<N>(a, c, n, base + g);
+      const Fe<N> y = ld<N>(a, 6 + c, n, base + g);
+      s.put(c, g, x);
+      s.put(6 + c, g, y);
+      s.put(12 + c, g, add(f, x, y));
+    });
+    team_for<G>(6, base, n, [&](int c, int g) {    // a0 + v a1
+      // v a1 = (xi a1_2, a1_0, a1_1): component c of xi a1_2 (planes 10
+      // and 11) for c < 2, plane 4 + c of a for c >= 2
+      const Fe<N> vy = xi_part<X0, X1>(
+          f, ld<N>(a, c < 2 ? 10 + c : 4 + c, n, base + g),
+          select(c < 2, ld<N>(a, c < 2 ? 11 - c : 10, n, base + g),
+                 fe_zero<N>()), c,
+          c < 2);
+      s.put(18 + c, g, add(f, ld<N>(a, c, n, base + g), vy));
+    }, warp_after(6, G));
+    __syncthreads();
+    prod_stage<N, G>(f, s, kSqrProds, 36, base, n);
+    __syncthreads();
+    team_for<G>(24, base, n, [&](int c, int g) {   // the 12 F2 products
+      s.put(c, g, f2_coef<N, G>(f, s, 24 + 3 * (c / 2), c % 2, g));
+    });
+    __syncthreads();
+    team_for<G>(12, base, n, [&](int c, int g) {   // ab, t
+      s.put(24 + c, g, f6_coef<N, G, X0, X1>(f, s, 12 * (c / 6),
+                                             (c % 6) / 2, c % 2, g));
+    });
+    __syncthreads();
+    team_for<G>(6, base, n, [&](int c, int g) {    // c1 = 2 ab
+      const Fe<N> ab = s.get(24 + c, g);
+      st<N>(out, 6 + c, n, base + g, add(f, ab, ab));
+    });
+    team_for<G>(6, base, n, [&](int c, int g) {    // c0 = t - ab - v ab
+      // v ab = (xi ab_2, ab_0, ab_1), as K8's product forms v t1
+      const Fe<N> vab = xi_part<X0, X1>(
+          f, s.get(c < 2 ? 28 + c : 22 + c, g),
+          s.get_if(c < 2 ? 29 - c : 28, c < 2, g), c, c < 2);
+      st<N>(out, c, n, base + g,
+            sub(f, sub(f, s.get(30 + c, g), s.get(24 + c, g)), vab));
+    }, warp_after(6, G));
+    __syncthreads();
   }
 }
 
@@ -410,15 +494,8 @@ constexpr int kK9Team = 18;
 constexpr int kK9Slots = 36;
 
 #define K9_PAIR(x, y, o)                                                     \
-  {{x, kNoSlot, kNoSlot, kNoSlot}, {x + 1, kNoSlot, kNoSlot, kNoSlot}, o},   \
-  {{x, x + 1, kNoSlot, kNoSlot}, {12 + x / 2, kNoSlot, kNoSlot, kNoSlot},    \
-   o + 1},                                                                   \
-  {{y, kNoSlot, kNoSlot, kNoSlot}, {y + 1, kNoSlot, kNoSlot, kNoSlot},       \
-   o + 2},                                                                   \
-  {{y, y + 1, kNoSlot, kNoSlot}, {12 + y / 2, kNoSlot, kNoSlot, kNoSlot},    \
-   o + 3},                                                                   \
-  {{x, y, kNoSlot, kNoSlot}, {x + 1, y + 1, kNoSlot, kNoSlot}, o + 4},       \
-  {{x, x + 1, y, y + 1}, {12 + x / 2, 12 + y / 2, kNoSlot, kNoSlot}, o + 5}
+  F2_SQR(x, 12 + x / 2, o), F2_SQR(y, 12 + y / 2, o + 2),                    \
+  F2_SQR_SUM(x, y, 12 + x / 2, 12 + y / 2, o + 4)
 
 __constant__ Prod kK9Prods[18] = {K9_PAIR(8, 0, 18), K9_PAIR(4, 6, 24),
                                   K9_PAIR(10, 2, 30)};
@@ -494,41 +571,162 @@ struct LineSlots {
   static constexpr int k0 = kMTwist ? 2 : 4;   // c_0
 };
 
-// In: xyz = (X, Y, Z) [6, L, n], p = (xP, yP) [2, L, n].
-// Line: c_y = 2YZ^2, c_x = -3X^2Z, c_0 = 3X^3 - 2Y^2Z; then
+// In: xyz = (X, Y, Z) [6, L, n], p = (xP, yP) [2, L, n].  The Pallas
+// kernel's formulas: line c_y = 2YZ^2, c_x = -3X^2Z, c_0 = 3X^3 - 2Y^2Z;
 // X' = 2YZ (9X^4 - 8XY^2Z), Y' = 36X^3Y^2Z - 27X^4X^2 - 8(Y^2Z)^2,
 // Z' = 8 Y^3 Z^3 at planes 6..11 of out [12, L, n].
+//
+// By a team of kDblTeam threads per lane over kDblLanes lanes a block, in
+// three levels of F2 products, each followed by one combine stage:
+//   P1  X^2, Y^2, Z^2, (Y + Z)^2, (X + Z)^2
+//                       -> X2, Y2, Z2, U = 2YZ, V = 2XZ
+//   P2  Y2 Z, Y Z2, X2 Z, X2 X, X2 X2, V Y2
+//                       -> Y2Z, c_y, c_x, X3, t1 = 9X4 - 4 V Y2, c_0
+//   P3  U t1, X3 Y2Z, X3 X3, Y2Z Y2Z, Y2Z c_y, c_y yP, c_x xP
+//                       -> X', Y', Z' = 4 Y2Z c_y, the line at P
+// Each square is the complex one, ((u0 + u1)(u0 - u1), 2 u0 u1), with
+// u0 - u1 in a slot of its own: 44 base products, where the one-thread
+// design took 50 in five levels.  Every value is canonical, so 2YZ =
+// (Y + Z)^2 - Y^2 - Z^2, X^4 X^2 = (X^3)^2, Y^3 Z^3 = Y2Z YZ2 and
+// xi (c_y yP) = (xi c_y) yP are the Pallas kernel's field elements, and
+// the new point is its representative.  The M twist's xi is a runtime
+// Xi (xi_coef), so both twists run one body.  Slots: X 0, Y 2, Z 4, xP 6,
+// yP 7, the differences u0 - u1 of X, Y, Z 8-10; X2 11, Y2 13, Z2 15, U
+// 17, V 19, X2's difference 21; Y2Z 22, c_y 24, c_x 26, X3 28, t1 30, the
+// differences of Y2Z 32 and X3 33; and the raw base products of the level
+// in flight from kDblRaw (17 slots).  8 lanes a block (136 threads) run
+// fastest at the pairing batches' 1,024 lanes; 16 are 3-10 % slower there
+// and faster from 2,048 lanes on at 12 words, 4,096 at 8 (28-36 % at
+// 2^16), 4 slower at every count (chip_cios_unroll.py, PERF.md §6).
+constexpr int kDblLanes = 8;
+constexpr int kDblTeam = 17;
+constexpr int kDblRaw = 34;
+constexpr int kDblSlots = kDblRaw + 17;
+
+__constant__ Prod kDblProds[44] = {
+    // P1
+    F2_SQR(0, 8, kDblRaw), F2_SQR(2, 9, kDblRaw + 2),
+    F2_SQR(4, 10, kDblRaw + 4), F2_SQR_SUM(2, 4, 9, 10, kDblRaw + 6),
+    F2_SQR_SUM(0, 4, 8, 10, kDblRaw + 8),
+    // P2
+    F2_PRODS(13, 4, kDblRaw), F2_PRODS(2, 15, kDblRaw + 3),
+    F2_PRODS(11, 4, kDblRaw + 6), F2_PRODS(11, 0, kDblRaw + 9),
+    F2_SQR(11, 21, kDblRaw + 12), F2_PRODS(19, 13, kDblRaw + 14),
+    // P3
+    F2_PRODS(17, 30, kDblRaw), F2_PRODS(28, 22, kDblRaw + 3),
+    F2_SQR(28, 33, kDblRaw + 6), F2_SQR(22, 32, kDblRaw + 8),
+    F2_PRODS(22, 24, kDblRaw + 10), F2_SCAL(24, 7, kDblRaw + 13),
+    F2_SCAL(26, 6, kDblRaw + 15)};
+__constant__ int kDblLevel[4] = {0, 10, 27, 44};   // P1-P3 in kDblProds
+
+template <int N, int G, bool kMTwist>
+__device__ __forceinline__ void dbl_combine(const Field<N>& f, Xi xi,
+                                            const Slots<N, G>& s, int level,
+                                            uint32_t* __restrict__ out,
+                                            int64_t base, int64_t n) {
+  using S = LineSlots<kMTwist>;
+  constexpr int r = kDblRaw;
+  switch (level) {
+    case 0:
+      team_for<G>(6, base, n, [&](int c, int g) {   // X2, Y2, Z2
+        s.put(11 + c, g, f2_sqr_coef<N, G>(f, s, r + 2 * (c / 2), c % 2, g));
+      });
+      team_for<G>(4, base, n, [&](int c, int g) {   // U = 2YZ, V = 2XZ
+        // (Y + Z)^2 - Y^2 - Z^2 and (X + Z)^2 - X^2 - Z^2
+        const int k = c / 2, j = c % 2;
+        const Fe<N> w = add(f, f2_sqr_coef<N, G>(f, s, r + 2 - 2 * k, j, g),
+                            f2_sqr_coef<N, G>(f, s, r + 4, j, g));
+        s.put(17 + c, g,
+              sub(f, f2_sqr_coef<N, G>(f, s, r + 6 + 2 * k, j, g), w));
+      }, warp_after(6, G));
+      team_for<G>(1, base, n, [&](int, int g) {     // X2_0 - X2_1
+        const Fe<N> m = s.get(r, g);
+        s.put(21, g, sub(f, s.get(r + 1, g), add(f, m, m)));
+      }, warp_after(6, G) + warp_after(4, G));
+      break;
+    case 1:
+      team_for<G>(8, base, n, [&](int c, int g) {   // Y2Z, c_y, c_x, X3
+        // Y2 Z, 2 Y Z2, -3 X2 Z and X2 X
+        const int k = c / 2;
+        const Fe<N> v = f2_coef<N, G>(f, s, r + 3 * k, c % 2, g);
+        const Fe<N> v2 = add(f, v, v);
+        s.put(22 + c, g,
+              select(k == 1, v2,
+                     select(k == 2, sub(f, fe_zero<N>(), add(f, v2, v)), v)));
+      });
+      team_for<G>(2, base, n, [&](int j, int g) {   // t1 = 9 X4 - 4 V Y2
+        s.put(30 + j, g,
+              sub(f, mul_small(f, f2_sqr_coef<N, G>(f, s, r + 12, j, g), 9),
+                  mul_small(f, f2_coef<N, G>(f, s, r + 14, j, g), 4)));
+      }, warp_after(8, G));
+      team_for<G>(2, base, n, [&](int j, int g) {   // c_0 = 3 X3 - 2 Y2Z
+        const Fe<N> y = f2_coef<N, G>(f, s, r, j, g);
+        st<N>(out, S::k0 + j, n, base + g,
+              sub(f, mul_small(f, f2_coef<N, G>(f, s, r + 9, j, g), 3),
+                  add(f, y, y)));
+      }, warp_after(8, G) + warp_after(2, G));
+      team_for<G>(2, base, n, [&](int i, int g) {   // u0 - u1 of Y2Z, X3
+        const int o = r + 9 * i;
+        s.put(32 + i, g, sub(f, f2_coef<N, G>(f, s, o, 0, g),
+                             f2_coef<N, G>(f, s, o, 1, g)));
+      }, warp_after(8, G) + 2 * warp_after(2, G));
+      break;
+    default:
+      team_for<G>(4, base, n, [&](int c, int g) {   // X' = U t1, Z'
+        // Z' = 4 Y2Z c_y
+        const int k = c / 2;
+        const Fe<N> v = f2_coef<N, G>(f, s, r + 10 * k, c % 2, g);
+        const Fe<N> v2 = add(f, v, v);
+        st<N>(out, 6 + 4 * k + c % 2, n, base + g,
+              select(k == 1, add(f, v2, v2), v));
+      });
+      team_for<G>(2, base, n, [&](int j, int g) {   // Y'
+        // 36 X3 Y2Z - 27 X3^2 - 8 Y2Z^2
+        const Fe<N> x = mul_small(f, f2_coef<N, G>(f, s, r + 3, j, g), 36);
+        const Fe<N> y =
+            mul_small(f, f2_sqr_coef<N, G>(f, s, r + 6, j, g), 27);
+        st<N>(out, 8 + j, n, base + g,
+              sub(f, sub(f, x, y),
+                  mul_small(f, f2_sqr_coef<N, G>(f, s, r + 8, j, g), 8)));
+      }, warp_after(4, G));
+      team_for<G>(2, base, n, [&](int j, int g) {   // a0 = c_y yP, xi c_y yP
+        Fe<N> a0 = s.get(r + 13 + j, g);
+        if constexpr (kMTwist)
+          a0 = xi_coef(f, xi, s.get(r + 13, g), s.get(r + 14, g), j);
+        st<N>(out, j, n, base + g, a0);
+      }, warp_after(4, G) + warp_after(2, G));
+      team_for<G>(2, base, n, [&](int j, int g) {   // c_x xP
+        st<N>(out, S::kX + j, n, base + g, s.get(r + 15 + j, g));
+      }, warp_after(4, G) + 2 * warp_after(2, G));
+  }
+}
+
 template <int N, bool kMTwist>
-__global__ void __launch_bounds__(kTowerThreads)
+__global__ void __launch_bounds__(kDblLanes * kDblTeam)
     miller_dbl_kernel(Field<N> f, Xi xi, const uint32_t* __restrict__ xyz,
                       const uint32_t* __restrict__ p,
                       uint32_t* __restrict__ out, int64_t n) {
-  using S = LineSlots<kMTwist>;
-  LANE_LOOP(i, n) {
-    F2<N> X = ld2<N>(xyz, 0, n, i), Y = ld2<N>(xyz, 2, n, i),
-          Z = ld2<N>(xyz, 4, n, i);
-    F2<N> X2 = f2_sqr(f, X), Y2 = f2_sqr(f, Y), Z2 = f2_sqr(f, Z);
-    F2<N> Y2Z = f2_mul(f, Y2, Z);
-    F2<N> YZ2 = f2_mul(f, Y, Z2);
-    F2<N> c_y = f2_add(f, YZ2, YZ2);
-    if (kMTwist) c_y = f2_mul_xi(f, xi, c_y);
-    st2<N>(out, 0, n, i, f2_mul_base(f, c_y, ld<N>(p, 1, n, i)));
-    st2<N>(out, S::kX, n, i,
-           f2_mul_base(f, f2_neg(f, f2_small(f, f2_mul(f, X2, Z), 3)),
-                       ld<N>(p, 0, n, i)));
-    F2<N> X3c = f2_mul(f, X2, X);
-    st2<N>(out, S::k0, n, i,
-           f2_sub(f, f2_small(f, X3c, 3), f2_small(f, Y2Z, 2)));
-    F2<N> X4 = f2_sqr(f, X2);
-    F2<N> t1 = f2_sub(f, f2_small(f, X4, 9), f2_small(f, f2_mul(f, X, Y2Z), 8));
-    st2<N>(out, 6, n, i, f2_mul(f, f2_small(f, f2_mul(f, Y, Z), 2), t1));
-    F2<N> Yn = f2_sub(f,
-                      f2_sub(f, f2_small(f, f2_mul(f, X3c, Y2Z), 36),
-                             f2_small(f, f2_mul(f, X4, X2), 27)),
-                      f2_small(f, f2_sqr(f, Y2Z), 8));
-    st2<N>(out, 8, n, i, Yn);
-    st2<N>(out, 10, n, i,
-           f2_small(f, f2_mul(f, f2_mul(f, Y2, Y), f2_mul(f, Z2, Z)), 8));
+  constexpr int G = kDblLanes;
+  __shared__ uint32_t sm[kDblSlots * Slots<N, G>::kStride];
+  const Slots<N, G> s{sm};
+  for (int64_t base = (int64_t)blockIdx.x * G; base < n;
+       base += (int64_t)gridDim.x * G) {
+    team_for<G>(8, base, n, [&](int c, int g) {    // X, Y, Z, xP, yP
+      s.put(c, g, ld<N>(c < 6 ? xyz : p, c < 6 ? c : c - 6, n, base + g));
+    });
+    team_for<G>(3, base, n, [&](int k, int g) {    // u0 - u1 of X, Y, Z
+      s.put(8 + k, g, sub(f, ld<N>(xyz, 2 * k, n, base + g),
+                          ld<N>(xyz, 2 * k + 1, n, base + g)));
+    }, warp_after(8, G));
+    __syncthreads();
+#pragma unroll 1
+    for (int level = 0; level < 3; ++level) {
+      prod_stage<N, G>(f, s, kDblProds + kDblLevel[level],
+                       kDblLevel[level + 1] - kDblLevel[level], base, n);
+      __syncthreads();
+      dbl_combine<N, G, kMTwist>(f, xi, s, level, out, base, n);
+      __syncthreads();
+    }
   }
 }
 
@@ -582,7 +780,8 @@ int miller_dbl(const void* xyz, const void* p, void* out, long long n,
   if (n == 0) return 0;
   Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
   miller_dbl_kernel<kN, kMTwist>
-      <<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
+      <<<team_grid(n, kDblLanes), kDblLanes * kDblTeam, 0,
+         (cudaStream_t)stream>>>(
           f, xi, (const uint32_t*)xyz, (const uint32_t*)p, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
@@ -631,8 +830,16 @@ int k8_f12_sqr(const void* a, void* out, long long n, long long xi0,
   if (bad_args(n_limbs, n)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
-  f12_sqr_kernel<kN><<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
-      f, Xi{(int)xi0, (int)xi1}, (const uint32_t*)a, (uint32_t*)out, n);
+  const Xi xi{(int)xi0, (int)xi1};
+  if (xi.c0 == kBuildXi.c0 && xi.c1 == kBuildXi.c1) {
+    f12_sqr_kernel<kN, kBuildXi.c0, kBuildXi.c1>
+        <<<team_grid(n, kSqrLanes), kSqrLanes * kSqrTeam, 0,
+           (cudaStream_t)stream>>>(f, (const uint32_t*)a, (uint32_t*)out, n);
+  } else {
+    f12_mul_thread_kernel<kN><<<tower_grid(n), kTowerThreads, 0,
+                                (cudaStream_t)stream>>>(
+        f, xi, (const uint32_t*)a, (const uint32_t*)a, (uint32_t*)out, n);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -693,11 +900,11 @@ int k11_miller_add_mtwist(const void* xyz, const void* q, const void* p,
 }
 
 // Threads a block of the kernels above, in the order of their entry points
-// (k8_f12_mul's team kernel, k8_f12_sqr, k9_f12_cyc_sqr, the Miller
+// (k8_f12_mul's and k8_f12_sqr's team kernels, k9_f12_cyc_sqr, the Miller
 // doubling, the Miller add): the occupancy report of chip_cios_unroll.py.
 void tower_block_threads(int* threads) {
-  const int t[5] = {kK8Lanes * kK8Team, kTowerThreads, kK9Lanes * kK9Team,
-                    kTowerThreads, kTowerThreads};
+  const int t[5] = {kK8Lanes * kK8Team, kSqrLanes * kSqrTeam,
+                    kK9Lanes * kK9Team, kDblLanes * kDblTeam, kTowerThreads};
   for (int k = 0; k < 5; ++k) threads[k] = t[k];
 }
 
