@@ -21,7 +21,8 @@ BLS12-381 library `tower_kernels.cu` (8 and 12 words) and the G1 group law
             UNROLLED among them stands for --unrolled's edit);
   baseline  with --baseline DIR, the sources and headers of another
             checkout DIR (an older commit, unpacked with `git archive`),
-            as committed there.
+            as committed there (a K7 without the `times` argument runs
+            one launch a doubling, as the window fold did then).
 
 It compiles every library of every variant at once (one nvcc each) into
 the ignored wasmsnark_tpu_torch/_build/cios_unroll/, prints each build's
@@ -35,9 +36,12 @@ square), K13 and K14 (doubling and add) at 255, 256, 512 and 2^16 lanes,
 K8's product and square, K9 and the Miller doubling (K10 at 8 words, K11
 at 12) at TOWER_LANES (1,024 to 2^16), and
 K5-K7 at 8 and 12 words at the prove's lane counts (CURVE_LANES: K6 at
-the MSM's 4, 68, 1,114,112 and 2,228,156, K5 at its one launch's, K7 at
-4) and 2^16, on chip_smoke.py's points (equal, opposite and zero points
-on a few lanes of every 2^16): the median
+the MSM's 4, 68, 1,114,112 and 2,228,156, K5 at its one launch's on
+inputs shaped as the prove's (chip_smoke.py k5_path_inputs, with the lane
+kinds that one prove of each curve gives K5, probed first), K7 at 4 with
+the window fold's doublings a launch and with one) and 2^16, on
+chip_smoke.py's points (equal, opposite and zero points on a few lanes of
+every 2^16; K5's the general case, a random Z1): the median
 of CUDA events around each wrapper call, each behind a ~1 ms device
 sleep; and the team kernels' C entry points alone (and K1's, one product
 a thread), as the mean of 20 launches in a row between two events.  The
@@ -80,6 +84,7 @@ The last line is one JSON object of all of it.
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import re
@@ -114,12 +119,18 @@ TOWER_LANES = (1024, 2048, 4096, 8192, 16384, 32768, BIG)
 FIELD_LANES = {24: (255, 256, 510, 1024, 1530, 2048, 3072, 4096, 6120, BIG),
                8: (2, 3, 6, 1024, 2048, BIG),
                12: (2, 3, 6, 1024, 2048, BIG)}
-# K5-K7 per word count: the prove's lane counts (PERF.md §6: K6's window
+# K5-K7 per word count: the prove's lane counts (PERF.md §6: K5's one
+# launch, on lanes shaped as the prove gives it, "K5 path"; K6's window
 # fold 4, its last halving step 68, its triangle's last and first steps
-# 1,114,112 and 2,228,156; K5's one launch; K7's 4) and 2^16
-CURVE_LANES = {"K5": {8: (2_444_827, BIG), 12: (2_388_711, BIG)},
+# 1,114,112 and 2,228,156; K7's 4, with the fold's doublings a launch,
+# "K7 fold", and with one) and 2^16 (K5 on chip_smoke.py's random-Z
+# points, the general case; K7 one doubling a launch)
+CURVE_LANES = {"K5 path": {8: (2_444_827,), 12: (2_388_711,)},
+               "K5": {w: (BIG,) for w in (8, 12)},
                "K6": {w: (4, 68, 1_114_112, 2_228_156, BIG) for w in (8, 12)},
+               "K7 fold": {w: (4,) for w in (8, 12)},
                "K7": {w: (4, BIG) for w in (8, 12)}}
+
 DEVICE = "cuda"                  # the card (a host rehearsal sets "cpu")
 # H100 SM limits for the occupancy estimate
 SM_REGS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 228 * 1024, 2048, 32
@@ -317,6 +328,7 @@ def main() -> int:
     libs, result = build_variants(variants, cuda_lib, {
         lib: sw for lib, sw in LIBS.items()
         if parts[lib.split("_kernels")[0]]}, args.sass)
+    use = binder(variants, libs, cuda_lib, cv)
     result = {"device": smi, **result, "ms": {}}
 
     rng = np.random.default_rng(5)
@@ -353,26 +365,47 @@ def main() -> int:
     # P, Q (Jacobian) and Qa (affine) per word count, as chip_smoke.py's
     PTS = {w: smoke.curve_inputs(m, rng, DEVICE, n)
            for w, m in ((8, bn128()), (12, bls12381()))} if curves else {}
+    if curves:
+        # K5's lane kinds and K7's doublings a launch on chip_smoke.py's
+        # proves, under the first variant's libraries
+        use(next(iter(variants)))
+        cuda_lib.build()
+        probed = probe_proves(smoke, proves(smoke))
+        result["prove_probe"] = probed
+        print("prove probe: " + json.dumps(probed), flush=True)
+        PATH5 = {w: smoke.k5_path_inputs(m, rng, DEVICE, n,
+                                         probed[c]["k5_lane_kinds"])
+                 for w, m, c in ((8, bn128(), "bn128"),
+                                 (12, bls12381(), "bls12381"))}
+        FOLD = {8: probed["bn128"]["k7_doublings"],
+                12: probed["bls12381"]["k7_doublings"]}
 
     def cut(t, k):
         return smoke.cut(t, k, n)
 
     def curve_runs(k):
-        """(name, wrapper, plain version) of K5-K7 at k lanes."""
+        """(name, wrapper, plain version) of K5-K7 at k lanes; the
+        wrappers are looked up in ops.curve at each call (use swaps
+        jac_double for a variant whose K7 doubles once a launch)."""
         out = []
         for w, pts in PTS.items():
             if not any(k in c[w] for c in CURVE_LANES.values()):
                 continue
             s = specs[w]
             P, Q, Qa = cut(pts, k)
-            for kid, fn, plain, args in (
-                    ("K5", cv.jac_madd, cv.jac_madd_plain, (P, Qa)),
-                    ("K6", cv.jac_add, cv.jac_add_plain, (P, Q)),
-                    ("K7", cv.jac_double, cv.jac_double_plain, (P,))):
-                if k in CURVE_LANES[kid][w]:
-                    out.append((f"{kid} @N{w}",
-                                lambda s=s, fn=fn, a=args: fn(s, *a),
-                                lambda s=s, p=plain, a=args: p(s, *a)))
+            for row, fn, args, ints in (
+                    ("K5 path", "jac_madd", cut(PATH5[w], k), ()),
+                    ("K5", "jac_madd", (P, Qa), ()),
+                    ("K6", "jac_add", (P, Q), ()),
+                    ("K7 fold", "jac_double", (P,), (FOLD[w],)),
+                    ("K7", "jac_double", (P,), ())):
+                if k in CURVE_LANES[row][w]:
+                    out.append((
+                        f"{row} @N{w}",
+                        lambda s=s, fn=fn, a=args, i=ints: getattr(
+                            cv, fn)(s, *a, *i),
+                        lambda s=s, fn=fn, a=args, i=ints: getattr(
+                            cv, fn + "_plain")(s, *a, *i)))
         return out
 
     def dbl(w, pts, plain=False):
@@ -511,7 +544,7 @@ def main() -> int:
         b.synchronize()
         return a.elapsed_time(b) / reps
 
-    cuda_lib._libs.update(libs[next(iter(variants))])
+    use(next(iter(variants)))
     if args.pairings or args.batches:
         cuda_lib.build()              # the field and curve libraries
     lanes = sorted(set(MNT_LANES + TOWER_LANES).union(
@@ -521,7 +554,7 @@ def main() -> int:
     first = None
     order = list(variants) + list(variants)[::-1]
     for turn, name in enumerate(order):
-        cuda_lib._libs.update(libs[name])
+        use(name)
         same = True
         for k, want in small.items():
             got = _leaves([fn() for fn in runs(k).values()])
@@ -547,11 +580,11 @@ def main() -> int:
         print(f"turn {turn} {name}: " + ", ".join(
             f"{key} {v:.4f}" for key, v in ms.items()), flush=True)
     if args.pairings:
-        result["pairing_s"] = pairing_batches(smoke, libs, cuda_lib,
+        result["pairing_s"] = pairing_batches(smoke, list(libs), use,
                                               args.pairings)
     if args.batches:
         result["verify_batch_s"] = verify_batches(
-            smoke, libs, cuda_lib, args.batches)
+            smoke, list(libs), use, args.batches)
     print(json.dumps(result))
     return 0
 
@@ -564,7 +597,7 @@ def turns(names, rounds):
                                               else names[::-1])]
 
 
-def pairing_batches(smoke, libs, cuda_lib, rounds):
+def pairing_batches(smoke, names, use, rounds):
     """Seconds of chip_smoke.py's unprepared pairing batches under each
     variant's libraries, in alternating turns: BN128 and BLS12-381 on
     N_VERIFY lanes of e(7 G1, 9 G2), MNT6753 on N_MNT lanes of the same
@@ -610,10 +643,9 @@ def pairing_batches(smoke, libs, cuda_lib, rounds):
         lambda: pd.pairing_products_fused(g1f, g2f),
         lambda e: all(v == m.F6.one() for v in pd.unpack_f6(e)))
 
-    names = list(libs)
     out = {name: {b: [] for b in batches} for name in names}
     for turn, (warm, name) in enumerate(turns(names, rounds)):
-        cuda_lib._libs.update(libs[name])
+        use(name)
         secs = {}
         for b, (run, ok) in batches.items():
             torch.cuda.synchronize()
@@ -628,7 +660,7 @@ def pairing_batches(smoke, libs, cuda_lib, rounds):
         print(f"pairing turn {turn} {name}: " + ", ".join(
             f"{b} {s:.4f} s" for b, s in secs.items()), flush=True)
     for name in names:                # then one profiled call of each
-        cuda_lib._libs.update(libs[name])
+        use(name)
         out[name]["device"] = {b: device_ms(run)
                                for b, (run, _) in batches.items()}
         print(f"pairing {name} on the card: " + json.dumps(
@@ -676,10 +708,11 @@ def bls_verify_lanes(smoke):
                                       smoke.N_VERIFY)
 
 
+@functools.lru_cache(maxsize=None)
 def proves(smoke):
     """Per curve of chip_smoke.py, a function that proves the
     2^16-constraint square chain of chip_smoke.py's setup once, with its
-    fixed rng, and returns the proof JSON."""
+    fixed rng, and returns the proof JSON (set up once a process)."""
     import wasmsnark_tpu_torch
     from wasmsnark_tpu_torch.groth16.pkey import write_witness
     from wasmsnark_tpu_torch.groth16.setup import (
@@ -701,7 +734,51 @@ def proves(smoke):
     return out
 
 
-def verify_batches(smoke, libs, cuda_lib, rounds):
+def probe_proves(smoke, prove):
+    """Per curve, what the prove gives K5 and K7 (chip_smoke.py
+    probe_curve_kernels, probed_shapes): K5's lanes by kind, K7's calls
+    and their most frequent doublings a launch."""
+    from wasmsnark_tpu_torch.models import curve_module
+    out = {}
+    for curve, run in prove.items():
+        _, k5, k7 = smoke.probe_curve_kernels(run)
+        out[curve] = smoke.probed_shapes(curve_module(curve).fp_spec, k5, k7)
+    return out
+
+
+def binder(variants, libs, cuda_lib, cv):
+    """use(name): bind variant `name`'s libraries for the wrappers.  A
+    variant whose curve library lacks `curve_kernels_revision` (older than
+    K7's `times` argument) has its k7_jac_dbl bound with the older
+    arguments, and while it is bound jac_double runs one launch a
+    doubling, as the window fold did then."""
+    jac_double = cv.jac_double
+
+    def one_a_launch(spec, p, times=1):
+        for _ in range(times):
+            p = cv._curve_call("k7_jac_dbl", cv.jac_double_plain, spec,
+                               tuple(p), 0)
+        return p
+
+    legacy = set()
+    for name in variants:
+        for lib, handle in libs[name].items():
+            if (not lib.startswith("curve_kernels")
+                    or hasattr(handle, "curve_kernels_revision")):
+                continue
+            legacy.add(name)            # k7_jac_dbl(6 planes, n, ...)
+            handle.k7_jac_dbl.argtypes = (
+                [ctypes.c_void_p] * 6
+                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p])
+
+    def use(name):
+        cuda_lib._libs.update(libs[name])
+        cv.jac_double = one_a_launch if name in legacy else jac_double
+    return use
+
+
+def verify_batches(smoke, names, use, rounds):
     """Seconds of the steady MNT6753 verify batch and of its group map and
     pairing stage (rt._check), of the steady BLS12-381 verify batch and of
     the steady BN128 and BLS12-381 proves, under each variant's libraries,
@@ -724,11 +801,10 @@ def verify_batches(smoke, libs, cuda_lib, rounds):
     bls, bvk, (bins, bprs, bwant) = bls_verify_lanes(smoke)
     prove = proves(smoke)
     first = {}
-    names = list(libs)
     out = {name: {"batch": [], "pairing": [], "bls_batch": [],
                   **{f"prove_{c}": [] for c in prove}} for name in names}
     for turn, (warm, name) in enumerate(turns(names, rounds)):
-        cuda_lib._libs.update(libs[name])
+        use(name)
         torch.cuda.synchronize()
         t = time.perf_counter()
         got = rt.bowe_gabizon_verify_batch(vk, ins, prs, fused=True,
@@ -758,7 +834,7 @@ def verify_batches(smoke, libs, cuda_lib, rounds):
             for key, v in secs.items():
                 out[name][key].append(v)
     for name in names:                # then one profiled call of each
-        cuda_lib._libs.update(libs[name])
+        use(name)
         out[name]["pairing_device"] = device_ms(lambda: rt._check(
             tt, g1_4, g2_var, coeffs, expected, True))
         out[name]["bls_batch_device"] = device_ms(

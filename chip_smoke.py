@@ -21,7 +21,11 @@ then, for BN128 and then for BLS12-381, at each curve's full widths:
   4. runs the trusted setup of a 2^16-constraint circuit on the card;
   5. proves twice through build_<curve>().groth16_gen_proof with a fixed
      rng, with every launch counter set to 0 just before the first prove
-     and read just after it — each of K1-K7 must have launched;
+     and read just after it — each of K1-K7 must have launched; the first
+     prove's K5 and K7 calls are probed (their wrappers wrapped, the
+     launches unchanged): K5's lanes counted by kind (k5_lane_kinds: P
+     zero, Q zero, Z1 = one or not, P = Q, P = -Q, an add) and K7's
+     doublings a launch;
   6. verifies the proof on the host (True) and a tampered copy (False), and
      proves a small circuit on the card and with the plain versions on the
      CPU, requiring the same proof JSON;
@@ -69,8 +73,11 @@ then, for every kernel row:
      with most (cuda_lib.lane_launches, read on each path of steps 5-11)
      and at the lane count of its own path, not among those, with the
      most launches x lanes (K6's: the MSM triangle's first step, 2,228,156
-     lanes), on the same inputs cut to that many lanes, after the same
-     bit-equality check, with the bound at that lane count: the record's
+     lanes), on the same inputs cut to that many lanes (K5 on inputs
+     shaped as its prove launch, k5_path_inputs, with the lane kinds of
+     step 5 in their shares; K7 with the prove's doublings a launch),
+     after the same bit-equality check, with the bound at that lane
+     count (K5's from k5_ops, K7's from k7_ops): the record's
      lanes_at_path, ms_at_path and bound_ms_at_path; the time lost against
      the bound on its own path over the lane counts timed (path_loss_ms,
      path_loss_share of its launches); a model's estimate over all of
@@ -378,9 +385,12 @@ def at_path_lanes(kr):
 
 def time_at_lanes(kr, k):
     """A kernel row's inputs cut to k lanes: the bit-equality check against
-    the plain version, then ms_at_path[k] and bound_ms_at_path[k]."""
+    the plain version, then ms_at_path[k] and bound_ms_at_path[k].  A row
+    whose path runs other inputs or arguments than its check (K5's lane
+    kinds, K7's doublings a launch) takes them from kr["path_run"] and
+    their count of operations from kr["path_ops_of"]."""
     import torch
-    fn_k, fn_p, args = kr["run"]
+    fn_k, fn_p, args = kr.get("path_run", kr["run"])
     a = cut(args, k, kr["lanes"])
     got, want = fn_k(*a), fn_p(*a)
     torch.cuda.synchronize()
@@ -389,8 +399,8 @@ def time_at_lanes(kr, k):
                              f"version at {k} lanes")
     del got, want
     kr["ms_at_path"][k] = time_cuda(lambda: fn_k(*a), 50)
-    ops = (kr["ops_of"](*a) if kr.get("ops_of")
-           else kr["ops"] * k / kr["lanes"])
+    ops_of = kr.get("path_ops_of", kr.get("ops_of"))
+    ops = ops_of(*a) if ops_of else kr["ops"] * k / kr["lanes"]
     kr["bound_ms_at_path"][k] = bound(kr["bytes"] * k / kr["lanes"], ops)[0]
 
 
@@ -579,7 +589,7 @@ def check_curve_kernels(curve, m, dev, rng, rand, record, n):
         "wasmsnark_tpu/ops/curve_pallas.py:114",
         lambda P, Qa: cv.jac_madd(Fq, P, Qa),
         lambda P, Qa: cv.jac_madd_plain(Fq, P, Qa), (P, Qa),
-        8 * E * n, (18 * MM + 25 * AS) * n)
+        8 * E * n, functools.partial(k5_ops, Fq))
     rec("K6", "jac_add", "curve_kernels.cu",
         "wasmsnark_tpu/ops/curve_pallas.py:53",
         lambda P, Q: cv.jac_add(Fq, P, Q),
@@ -589,7 +599,7 @@ def check_curve_kernels(curve, m, dev, rng, rand, record, n):
         "wasmsnark_tpu/ops/curve_pallas.py:175",
         lambda P: cv.jac_double(Fq, P),
         lambda P: cv.jac_double_plain(Fq, P), (P,),
-        6 * E * n, (7 * MM + 11 * AS) * n)
+        6 * E * n, functools.partial(k7_ops, Fq, 1))
     check_tower_kernels(curve, m, rand, rec, n)
 
 
@@ -809,6 +819,165 @@ def k6_ops(Fq, P, Q):
     return (int(live.sum()) * (8 * MM + 3 * AS)
             + int((live & h0 & r0).sum()) * (7 * MM + 14 * AS)
             + int((live & ~h0).sum()) * (8 * MM + 8 * AS))
+
+
+def k5_lane_kinds(Fq, P, Qa):
+    """K5's lanes by kind (csrc/curve_kernels.cu jac_madd_kernel), told
+    apart with the plain field product: P zero (p_zero), else Q the affine
+    zero (q_zero), else by Z1, Montgomery one ("one_") or not ("z_"), and
+    by what the add comes to, P = Q ("dbl"), P = -Q ("neg") or an add
+    ("add").  Returns {kind: lanes}."""
+    import functools
+    import torch
+    from wasmsnark_tpu_torch.ops import fp
+    mul = functools.partial(fp.mont_mul_plain, Fq)
+    (X1, Y1, Z1), (X2, Y2) = P, Qa
+    p_zero = ~(Z1 != 0).any(0)
+    q_zero = ~p_zero & ~(X2 != 0).any(0) & ~(Y2 != 0).any(0)
+    live = ~p_zero & ~q_zero
+    one = torch.tensor(Fq.limbs(Fq.one_mont), dtype=Z1.dtype,
+                       device=Z1.device)[:, None]
+    z_one = (Z1 == one).all(0)
+    z11 = mul(Z1, Z1)
+    h0 = (mul(X2, z11) == X1).all(0)
+    r0 = (mul(Y2, mul(Z1, z11)) == Y1).all(0)
+    out = {"p_zero": int(p_zero.sum()), "q_zero": int(q_zero.sum())}
+    for z, zs in (("one_", z_one), ("z_", ~z_one)):
+        for law, mask in (("dbl", h0 & r0), ("neg", h0 & ~r0),
+                          ("add", ~h0)):
+            out[z + law] = int((live & zs & mask).sum())
+    return out
+
+
+def k5_ops(Fq, P, Qa):
+    """K5's operations on these inputs, counted per lane from what its
+    result needs (csrc/curve_kernels.cu jac_madd_kernel; lanes by
+    k5_lane_kinds): none where an operand is zero; on the others the 3
+    adds and subs of H and r, and where Z1 is not Montgomery one the 4
+    products before them (Z1^2, U2, Z1^3, S2); besides those, where P = Q
+    the doubling's 7 products and 14 adds and subs, where H != 0 the add's
+    6 products and 7 adds and subs (I, J, V, r^2, Y1 J, r (V - X3); 2H,
+    which is Z3 where Z1 is one), and one product and one add more where
+    Z1 is not one (Z3 = 2 Z1 H); nothing more where P = -Q."""
+    k = k5_lane_kinds(Fq, P, Qa)
+    MM, AS = mm_ops(Fq), as_ops(Fq)
+    live = sum(v for key, v in k.items() if key.startswith(("one_", "z_")))
+    general = sum(v for key, v in k.items() if key.startswith("z_"))
+    dbl = k["one_dbl"] + k["z_dbl"]
+    add = k["one_add"] + k["z_add"]
+    return (live * 3 * AS + general * 4 * MM + dbl * (7 * MM + 14 * AS)
+            + add * (6 * MM + 7 * AS) + k["z_add"] * (MM + AS))
+
+
+def k7_ops(Fq, times, P):
+    """K7's operations on these inputs: `times` doublings of 7 products
+    and 11 adds and subs on every lane whose Z is not zero (a zero point is
+    left as it is)."""
+    live = int((P[2] != 0).any(0).sum())
+    return times * live * (7 * mm_ops(Fq) + 11 * as_ops(Fq))
+
+
+def probe_curve_kernels(run):
+    """run() with ops.curve's K5 and K7 wrappers wrapped, their launches
+    unchanged: returns run()'s result, the operands of every K5 call and
+    the (lanes, doublings) of every K7 call."""
+    from wasmsnark_tpu_torch.ops import curve as cv
+    madd, dbl = cv.jac_madd, cv.jac_double
+    k5, k7 = [], []
+
+    def jac_madd(spec, p, q):
+        k5.append((p, q))
+        return madd(spec, p, q)
+
+    def jac_double(spec, p, times=1):
+        k7.append((p[0][0].numel(), times))
+        return dbl(spec, p, times)
+
+    cv.jac_madd, cv.jac_double = jac_madd, jac_double
+    try:
+        return run(), k5, k7
+    finally:
+        cv.jac_madd, cv.jac_double = madd, dbl
+
+
+def probed_shapes(Fq, k5_calls, k7_calls):
+    """What probe_curve_kernels saw: K5's lanes by kind over its calls
+    (k5_lane_kinds), K7's calls by lanes and doublings, and the doublings
+    a launch most of them made."""
+    import collections
+    kinds = collections.Counter()
+    for P, Qa in k5_calls:
+        kinds.update(k5_lane_kinds(Fq, P, Qa))
+    k7 = collections.Counter(k7_calls)
+    return {"k5_lane_kinds": dict(kinds),
+            "k7_calls": {f"{k} lanes x {t} doublings": v
+                         for (k, t), v in sorted(k7.items())},
+            "k7_doublings": collections.Counter(
+                t for _, t in k7_calls).most_common(1)[0][0]}
+
+
+def k5_path_inputs(m, rng, dev, n, kinds):
+    """K5's operands on n lanes shaped as the prove's launch: the lane
+    kinds of k5_lane_kinds in its counts' shares (each kind it holds on at
+    least one lane, adds on the rest), in a random order.  P is promoted
+    from affine points, (X, Y, one), and (0, one, 0) where P is zero; on
+    lanes of a general Z1 ("z_" kinds) it is scaled by a random Z.  Q is
+    affine: the affine zero (0, 0), P's point (P = Q), P's point with Y
+    negated as K4 leaves it (P = -Q), or another of 256 distinct G1
+    points."""
+    import numpy as np
+    import torch
+    from wasmsnark_tpu_torch.ops import fp
+    from wasmsnark_tpu_torch.utils.serialize import ints_to_limbs_fast
+
+    Fq, G = m.fp_spec, m.G1
+    total = sum(kinds.values())
+    share = {k: max(1, round(v * n / total)) if v else 0
+             for k, v in kinds.items() if k != "one_add"}
+    share["one_add"] = n - sum(share.values())
+    lane_kind = np.concatenate([np.full(v, i) for i, v in enumerate(
+        share.values())])
+    rng.shuffle(lane_kind)
+    names = list(share)
+    kind = {k: torch.from_numpy(lane_kind == names.index(k)).to(dev)
+            for k in names}
+    ks = [int(k) for k in rng.integers(1, 2 ** 62, size=256)]
+    aff = [G.affine(G.times_scalar(m.g1_gen, k)) for k in ks]
+
+    def mont(vals):
+        return fp.planes(ints_to_limbs_fast(
+            [Fq.to_mont(v) for v in vals], Fq.n_limbs), dev)
+
+    X, Y = mont([a[0] for a in aff]), mont([a[1] for a in aff])
+    ip = rng.integers(0, 256, size=n)
+    iq = (ip + rng.integers(1, 256, size=n)) % 256    # another point
+    same = lane_kind == names.index("one_dbl")
+    same |= lane_kind == names.index("z_dbl")
+    neg = (lane_kind == names.index("one_neg")) | (
+        lane_kind == names.index("z_neg"))
+    iq = np.where(same | neg, ip, iq)
+    ip, iq = (torch.from_numpy(v).to(dev) for v in (ip, iq))
+    px, py, qx, qy = X[:, ip], Y[:, ip], X[:, iq], Y[:, iq]
+    neg = torch.from_numpy(neg).to(dev)
+    qy = torch.where(neg[None], fp.mod_sub_plain(Fq, torch.zeros_like(qy),
+                                                 qy), qy)
+    one = mont([1])
+    pz = one.expand(-1, n).clone()
+    general = sum(kind[k] for k in names if k.startswith("z_")).bool()
+    zs = mont([int(v) for v in rng.integers(1, 2 ** 62, size=n)])
+    zz = fp.mont_mul_plain(Fq, zs, zs)
+    px = torch.where(general[None], fp.mont_mul_plain(Fq, px, zz), px)
+    py = torch.where(general[None], fp.mont_mul_plain(
+        Fq, py, fp.mont_mul_plain(Fq, zz, zs)), py)
+    pz = torch.where(general[None], zs, pz)
+    pzero, qzero = kind["p_zero"][None], kind["q_zero"][None]
+    px = torch.where(pzero, 0, px)
+    py = torch.where(pzero, one, py)
+    pz = torch.where(pzero, 0, pz)
+    qx = torch.where(qzero, 0, qx)
+    qy = torch.where(qzero, 0, qy)
+    return tuple(t.contiguous() for t in (px, py, pz)), (qx.contiguous(),
+                                                          qy.contiguous())
 
 
 def curve_inputs(m, rng, dev, n):
@@ -1122,7 +1291,8 @@ def run_curve(curve, phases):
     say(f"{curve} prove (first call; launch counters from 0)")
     cuda_lib.reset_launches()
     t = time.perf_counter()
-    proof = rt.groth16_gen_proof(wbytes, pkey, rng=7)
+    proof, k5_calls, k7_calls = probe_curve_kernels(
+        lambda: rt.groth16_gen_proof(wbytes, pkey, rng=7))
     torch.cuda.synchronize()
     phases["prove_first_s"] = time.perf_counter() - t
     launches = dict(cuda_lib.launches)
@@ -1134,6 +1304,13 @@ def run_curve(curve, phases):
     if missing:
         raise AssertionError(f"kernels never launched on the {curve} "
                              f"prove: {missing}")
+    # what K5's and K7's launches on the prove were given: K5's lanes by
+    # kind (its path-lane row takes their shares), K7's doublings a launch
+    phases.update(probed_shapes(m.fp_spec, k5_calls, k7_calls))
+    del k5_calls
+    say(f"{curve} prove: K5's lanes by kind "
+        f"{json.dumps(phases['k5_lane_kinds'])}; K7's calls "
+        f"{json.dumps(phases['k7_calls'])}")
 
     t = time.perf_counter()
     proof2 = rt.groth16_gen_proof(wbytes, pkey, rng=7)
@@ -1179,6 +1356,36 @@ def run_curve(curve, phases):
     by_path["pairing_batch"] = pairing_batch(rt, vk, pub, proof, phases)
     card_against_cpu(rt, vk, lanes, phases)
     return by_path
+
+
+def with_path_runs(kernels, curve, phases, dev):
+    """The K5 and K7 rows of a curve, after its prove: K5's path-lane
+    timing on k5_path_inputs with the prove's lane kinds (its check at
+    N_LANES stays on the random-Z lanes of curve_inputs, the general
+    case), bounded by k5_ops; K7's on the check's points with the
+    doublings a launch of the prove's K7 calls, bounded by k7_ops."""
+    import functools
+    import numpy as np
+    from wasmsnark_tpu_torch.models import curve_module
+    from wasmsnark_tpu_torch.ops import curve as cv
+
+    m = curve_module(curve)
+    Fq = m.fp_spec
+    times = phases["k7_doublings"]
+    rng = np.random.default_rng(SEED + 5)
+    for kr in kernels:
+        if kr["curve"] != curve:
+            continue
+        if kr["name"].startswith("K5 "):
+            kr["path_run"] = (kr["run"][0], kr["run"][1], k5_path_inputs(
+                m, rng, dev, kr["lanes"], phases["k5_lane_kinds"]))
+            kr["path_ops_of"] = functools.partial(k5_ops, Fq)
+        elif kr["name"].startswith("K7 "):
+            kr["path_run"] = (
+                lambda P, t=times: cv.jac_double(Fq, P, t),
+                lambda P, t=times: cv.jac_double_plain(Fq, P, t),
+                kr["run"][2])
+            kr["path_ops_of"] = functools.partial(k7_ops, Fq, times)
 
 
 # -- MNT6753 ------------------------------------------------------------------
@@ -1565,6 +1772,7 @@ def main() -> int:
     for curve in CURVES:
         phases[curve] = {}
         by_path[curve] = run_curve(curve, phases[curve])
+        with_path_runs(kernels, curve, phases[curve], dev)
     phases["mnt6753"] = {}
     by_path["mnt6753"] = run_mnt(phases["mnt6753"])
 

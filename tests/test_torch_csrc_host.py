@@ -11,8 +11,10 @@ versions that chip_smoke.py holds the card's kernels against.  It cannot
 show that nvcc accepts the code or how it runs on the card.
 
 Inputs: canonical planes from a seeded numpy generator with the edge
-values 0, 1, q-1, q-2; equal, opposite and zero points for K5-K7; Z = 0
-and x2 = X/Z lanes for the Miller steps; cyclotomic elements for K13.
+values 0, 1, q-1, q-2; equal, opposite and zero points for K5-K7 (K5 also
+on promoted affine points, as the prove's bucket scan gives it; K7 with
+Y = 0 lanes and 1, 2 and 16 doublings a launch); Z = 0 and x2 = X/Z lanes
+for the Miller steps; cyclotomic elements for K13.
 Tolerance: bit-identical.
 
 The same libraries rehearse chip_smoke.py without a card (`rehearse`):
@@ -48,27 +50,28 @@ SHIM = pathlib.Path(__file__).resolve().parent / "cuda_host_shim"
 N = 96                                    # lanes
 
 
-def _gxx(out, lib, src, w, defines=(), extra=""):
+def _gxx(out, lib, src, w, defines=(), extra="", prefix=""):
     """Start g++ on source `src` of csrc (its launch configurations removed,
-    `extra` appended) for word count w with -D `defines`, into
-    out/lib<lib>.so; the headers must be in out."""
+    `prefix` put before it and `extra` appended) for word count w with -D
+    `defines`, into out/lib<lib>.so; the headers must be in out."""
     text = (pathlib.Path(cuda_lib.CSRC) / src).read_text()
     cpp = out / f"{lib}.cpp"
-    cpp.write_text(re.sub(r"<<<.*?>>>", "", text, flags=re.S) + extra)
+    cpp.write_text(prefix + re.sub(r"<<<.*?>>>", "", text, flags=re.S)
+                   + extra)
     return subprocess.Popen(
         ["g++", "-O1", "-std=c++17", "-shared", "-fPIC", f"-DWORDS={w}",
          *[f"-D{d}" for d in defines], f"-I{SHIM}", f"-I{out}", "-o",
          str(out / f"lib{lib}.so"), str(cpp)], stderr=subprocess.PIPE)
 
 
-def build_host_libs(out, only=None, defines=(), extra=""):
+def build_host_libs(out, only=None, defines=(), extra="", prefix=""):
     """Every library of cuda_lib.libraries() (or those named in `only`),
     compiled by g++ for the host into the directory `out` and bound with
-    the loader's argtypes; `defines` and `extra` as for _gxx."""
+    the loader's argtypes; `defines`, `extra` and `prefix` as for _gxx."""
     out = pathlib.Path(out)
     for name in cuda_lib.HEADERS:
         shutil.copy(os.path.join(cuda_lib.CSRC, name), out / name)
-    procs = {lib: _gxx(out, lib, src, w, defines, extra)
+    procs = {lib: _gxx(out, lib, src, w, defines, extra, prefix)
              for lib, (src, w) in cuda_lib.libraries().items()
              if only is None or lib in only}
     for lib, p in procs.items():
@@ -323,7 +326,8 @@ def test_butterfly_over_fr_and_no_12_word_build(libs, curve_name):
 
 def _points(m, seed):
     """Jacobian P, Q and affine Qa lanes: random multiples of G1 with
-    random Z, lanes 0-7 P = Q, 8-15 P = -Q, 16-23 P = 0, 24-31 Q = 0."""
+    random Z, lanes 0-7 P = Q, 8-15 P = -Q, 16-23 P = 0, 24-31 Q = 0; and
+    P's affine lanes Pa (the affine zero (0, 0) where P = 0)."""
     rng = np.random.default_rng(seed)
     spec, G = m.fp_spec, m.G1
     aff = [G.affine(G.times_scalar(m.g1_gen, int(k)))
@@ -351,11 +355,14 @@ def _points(m, seed):
     zs = [int(v) for v in rng.integers(1, 2 ** 62, size=2 * N)]
     P, Q = jac(px, py, mont(zs[:N])), jac(qx, qy, mont(zs[N:]))
     Qa = (qx.clone(), qy.clone())
+    Pa = (px.clone(), py.clone())
     P[2][:, 16:24] = 0
     Q[2][:, 24:32] = 0
-    Qa[0][:, 24:32] = 0
-    Qa[1][:, 24:32] = 0
-    return P, Q, Qa
+    for c in Qa:
+        c[:, 24:32] = 0
+    for c in Pa:
+        c[:, 16:24] = 0
+    return P, Q, Qa, Pa
 
 
 @pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
@@ -363,14 +370,15 @@ def test_curve_kernels(libs, curve_name):
     """K5-K7 at 8 (BN128) and 12 (BLS12-381) words."""
     m = CURVES[curve_name]()
     spec = m.fp_spec
-    P, Q, Qa = _points(m, 7)
-    for fn, ins, plain in (
-            ("k5_jac_madd", (*P, *Qa), curve.jac_madd_plain(spec, P, Qa)),
-            ("k6_jac_add", (*P, *Q), curve.jac_add_plain(spec, P, Q)),
-            ("k7_jac_dbl", P, curve.jac_double_plain(spec, P))):
+    P, Q, Qa, _ = _points(m, 7)
+    for fn, ins, ints, plain in (
+            ("k5_jac_madd", (*P, *Qa), (),
+             curve.jac_madd_plain(spec, P, Qa)),
+            ("k6_jac_add", (*P, *Q), (), curve.jac_add_plain(spec, P, Q)),
+            ("k7_jac_dbl", P, (1,), curve.jac_double_plain(spec, P))):
         outs = tuple(torch.empty_like(P[0]) for _ in range(3))
         assert call(libs, fn, spec,
-                    (*[t.contiguous() for t in ins], *outs)) == 0
+                    (*[t.contiguous() for t in ins], *outs), ints) == 0
         assert_equal(outs, plain)
 
 
@@ -384,7 +392,7 @@ def test_k6_jac_add(libs, curve_name, n):
     lanes that add; one lane takes a random lane."""
     m = CURVES[curve_name]()
     spec = m.fp_spec
-    P, Q, _ = _points(m, 21)
+    P, Q, *_ = _points(m, 21)
     for c in (*P, *Q):
         c[:, 32:36] = 0
         c[:, 70] = c[:, 0]
@@ -405,7 +413,7 @@ def test_chip_smoke_counts_k6_ops_by_lane(curve_name):
     import chip_smoke
     m = CURVES[curve_name]()
     spec = m.fp_spec
-    P, Q, _ = _points(m, 21)
+    P, Q, *_ = _points(m, 21)
     for c in (*P, *Q):
         c[:, 32:36] = 0
         c[:, 70] = c[:, 0]
@@ -428,6 +436,167 @@ def test_chip_smoke_counts_k6_ops_by_lane(curve_name):
     MM, AS = chip_smoke.mm_ops(spec), chip_smoke.as_ops(spec)
     assert chip_smoke.k6_ops(spec, P, Q) == sum(
         v * (kinds[k][0] * MM + kinds[k][1] * AS) for k, v in seen.items())
+
+
+def _k5_lanes(m, seed, kind):
+    """K5's operands: Jacobian P and affine Qa.  P is "path", promoted
+    from _points' affine lanes (Z1 = one, as on the bucket scan's first
+    step, where P = 0 is (0, one, 0)), or "general", _points' random-Z
+    P.  Both with _points' P = Q, P = -Q, P = 0 and Q = 0 lanes, and
+    lanes 32..35 where P is zero and Q the affine zero."""
+    spec = m.fp_spec
+    P, _, Qa, Pa = _points(m, seed)
+    for c in (*Qa, *Pa):
+        c[:, 32:36] = 0
+    if kind == "path":
+        jac = curve.JacobianDevice(towers.FpAdapter(fp.PlainFp(spec, "cpu")))
+        P = tuple(c.contiguous() for c in jac.promote(Pa))
+    else:
+        P[2][:, 32:36] = 0
+    return P, Qa
+
+
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+@pytest.mark.parametrize("kind", ["path", "general"])
+@pytest.mark.parametrize("n", [1, 13, 30, 96])
+def test_k5_jac_madd(libs, curve_name, kind, n):
+    """K5 at 8 (BN128) and 12 (BLS12-381) words on n lanes of _k5_lanes,
+    against jac_madd_plain: the branch of each lane kind, the Z1 = one
+    shortcut on the path's lanes and the general products on the
+    others."""
+    m = CURVES[curve_name]()
+    spec = m.fp_spec
+    P, Qa = _cut(_k5_lanes(m, 23, kind), n)
+    outs = tuple(torch.empty_like(P[0]) for _ in range(3))
+    assert call(libs, "k5_jac_madd", spec, (*P, *Qa, *outs), n=n) == 0
+    assert_equal(outs, curve.jac_madd_plain(spec, P, Qa))
+
+
+# A host build of the curve kernels that counts the field operations they
+# run: the source's products (mont_mul_nc) and adds and subs go through
+# counting wrappers, which curve_op_counts reads and resets.
+_COUNT_OPS = r"""
+#include "team.cuh"
+static long long g_ops[2];
+template <int N, class Word>
+Fe<N> counted_mont_mul_nc(const Field<N>& f, const Fe<N>& a, Word b) {
+  ++g_ops[0];
+  return mont_mul_nc<N>(f, a, b);
+}
+template <int N>
+Fe<N> counted_add(const Field<N>& f, const Fe<N>& a, const Fe<N>& b) {
+  ++g_ops[1];
+  return add(f, a, b);
+}
+template <int N>
+Fe<N> counted_sub(const Field<N>& f, const Fe<N>& a, const Fe<N>& b) {
+  ++g_ops[1];
+  return sub(f, a, b);
+}
+extern "C" void curve_op_counts(long long* out) {
+  out[0] = g_ops[0];
+  out[1] = g_ops[1];
+  g_ops[0] = g_ops[1] = 0;
+}
+#define mont_mul_nc counted_mont_mul_nc
+#define add counted_add
+#define sub counted_sub
+"""
+
+
+@pytest.fixture(scope="module")
+def counting_libs(tmp_path_factory):
+    """The curve libraries built with _COUNT_OPS."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    libs = build_host_libs(tmp_path_factory.mktemp("curve_counting"),
+                           only=("curve_kernels_w8", "curve_kernels_w12"),
+                           prefix=_COUNT_OPS)
+    for lib in libs.values():
+        lib.curve_op_counts.argtypes = [ctypes.c_void_p]
+    return libs
+
+
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+def test_chip_smoke_counts_k5_ops_by_lane(counting_libs, curve_name):
+    """chip_smoke.py's K5 lane kinds and operation count (K5's bound) on
+    _k5_lanes' path and general lanes: the kinds against the lanes told
+    apart in affine coordinates on the host, the count against the
+    products and adds and subs that K5 itself runs on each lane, one lane
+    a launch (counting_libs), all bit-equal to the plain version."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    m = CURVES[curve_name]()
+    spec = m.fp_spec
+    q = spec.q
+    MM, AS = chip_smoke.mm_ops(spec), chip_smoke.as_ops(spec)
+    lib = counting_libs[f"curve_kernels_w{spec.n_limbs // 2}"]
+    counts = np.zeros(2, np.int64)
+    for kind in ("path", "general"):
+        P, Qa = _k5_lanes(m, 23, kind)
+        x1, y1, z1, x2, y2 = ([spec.from_mont(v) for v in
+                               limbs_to_ints(c.numpy())] for c in (*P, *Qa))
+        seen, ops = {}, 0
+        for i, lane in enumerate(zip(x1, y1, z1, x2, y2)):
+            xi, yi, zi, ax, ay = lane
+            if zi == 0 or ax == ay == 0:
+                key = "p_zero" if zi == 0 else "q_zero"
+            else:
+                p = (xi * pow(zi, -2, q) % q, yi * pow(zi, -3, q) % q)
+                key = ("one_" if zi == 1 else "z_") + (
+                    "dbl" if p == (ax, ay) else
+                    "neg" if p == (ax, -ay % q) else "add")
+            seen[key] = seen.get(key, 0) + 1
+            ins = tuple(c[:, i:i + 1].contiguous() for c in (*P, *Qa))
+            outs = tuple(torch.empty_like(ins[0]) for _ in range(3))
+            lib.curve_op_counts(counts.ctypes.data)
+            assert lib.k5_jac_madd(
+                *[t.data_ptr() for t in (*ins, *outs)], 1, spec.n_limbs,
+                cuda_lib.field_words(spec).ctypes.data, None) == 0
+            assert_equal(outs, curve.jac_madd_plain(spec, ins[:3], ins[3:]))
+            lib.curve_op_counts(counts.ctypes.data)
+            ops += int(counts[0]) * MM + int(counts[1]) * AS
+        kinds = chip_smoke.k5_lane_kinds(spec, P, Qa)
+        assert {k: v for k, v in kinds.items() if v} == seen
+        assert set(seen) == {"p_zero", "q_zero"} | {
+            ("one_" if kind == "path" else "z_") + law
+            for law in ("dbl", "neg", "add")}
+        assert chip_smoke.k5_ops(spec, P, Qa) == ops
+
+
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+@pytest.mark.parametrize("times", [1, 2, 16])
+def test_k7_jac_dbl_times(libs, curve_name, times):
+    """K7 at 8 and 12 words, `times` doublings in one launch, against
+    jac_double_plain: _points' random-Z P with Z = 0 on lanes 16-23 (left
+    as they are at every step), Y = 0 on lanes 40-43 (Z = 0 after the
+    first doubling, then left as they are) and X = 0 on lanes 44-45."""
+    m = CURVES[curve_name]()
+    spec = m.fp_spec
+    P, *_ = _points(m, 29)
+    P[1][:, 40:44] = 0
+    P[0][:, 44:46] = 0
+    outs = tuple(torch.empty_like(P[0]) for _ in range(3))
+    assert call(libs, "k7_jac_dbl", spec, (*P, *outs), (times,)) == 0
+    want = curve.jac_double_plain(spec, P, times)
+    assert_equal(outs, want)
+    assert_equal(tuple(c[:, 16:24] for c in outs),
+                 tuple(c[:, 16:24] for c in P))
+    assert not outs[2][:, 40:44].any()
+
+
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+def test_k7_jac_dbl_refuses_no_doublings(libs, curve_name):
+    """k7_jac_dbl returns cudaErrorInvalidValue for times < 1, and
+    jac_double refuses it before any launch."""
+    spec = CURVES[curve_name]().fp_spec
+    P, *_ = _points(CURVES[curve_name](), 29)
+    outs = tuple(torch.empty_like(P[0]) for _ in range(3))
+    for times in (0, -1):
+        assert call(libs, "k7_jac_dbl", spec, (*P, *outs), (times,)) == 1
+    with pytest.raises(ValueError, match="at least once"):
+        curve.jac_double(spec, P, 0)
 
 
 def _tower(libs, fn, spec, groups, ints, n=N):

@@ -202,3 +202,33 @@ def test_fold_windows_device_matches_host():
     got = unpack_g1(tuple(c[:, None] for c in fold_windows_device(
         G1d, pack_g1(wins), 4)))[0]
     assert same(m.G1, fold_windows(m.G1, wins, 4), got)
+
+
+@pytest.mark.parametrize("window_bits", [3, 16])
+def test_fold_windows_device_double_times_vs_jax(window_bits, monkeypatch):
+    """The port's window fold, whose `window_bits` doublings a window are
+    one double_times call (K7's plain version on the CPU), against the JAX
+    package's fold_windows_device (a fori_loop of doublings) after affine
+    normalisation, and against the host fold; windows include the zero
+    point."""
+    from wasmsnark_tpu.ops.msm import fold_windows_device as jfold
+    from wasmsnark_tpu_torch.ops import curve as curve_mod
+    rnd = random.Random(41)
+    wins = rand_g1(rnd, 3) + [m.G1.zero()] + rand_g1(rnd, 2)
+    calls = []
+    dbl = curve_mod.jac_double
+
+    def jac_double(spec, p, times=1):
+        calls.append(times)
+        return dbl(spec, p, times)
+
+    monkeypatch.setattr(curve_mod, "jac_double", jac_double)
+    got = unpack_g1(tuple(c[:, None] for c in fold_windows_device(
+        G1d, pack_g1(wins), window_bits)))[0]
+    assert calls == [window_bits] * (len(wins) - 1)
+    jw = tuple(np.asarray(tfp.to_numpy(c)) for c in pack_g1(wins))
+    want = jax.jit(lambda w: jfold(JG1, w, window_bits))(jw)
+    jgot = unpack_g1(tuple(tfp.planes(np.asarray(c)[:, None], CPU)
+                           for c in want))[0]
+    assert same(m.G1, got, jgot)
+    assert same(m.G1, fold_windows(m.G1, wins, window_bits), got)

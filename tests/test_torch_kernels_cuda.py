@@ -3,7 +3,9 @@ at BN128's 8 words, K1-K3 over BLS12-381's Fr (8 words), K1, K2, K4-K9
 and K11 over BLS12-381's Fq (12 words), and K1, K2, K4 and K12-K14 over
 MNT6753's Fq (24 words); the team kernels of K8's product and square, K9,
 the Miller doubling of K10 and K11 and K12-K14, K1 and K2 at 24 words and
-K6 at 8 and 12, also at the lane counts of their paths.
+K6 at 8 and 12, also at the lane counts of their paths; K5 on promoted
+affine points, as the prove gives it, and K7 with several doublings a
+launch.
 
 Marked `cuda`: they need an NVIDIA card and nvcc, and skip elsewhere.  On
 the card, where jax is not installed and tests/conftest.py would import
@@ -35,7 +37,7 @@ def _rand(spec, n, seed, dev):
     rng = np.random.default_rng(seed)
     a = rng.integers(0, 1 << 16, size=(spec.n_limbs, n), dtype=np.uint32)
     a[-1] = rng.integers(0, spec.q_limbs[-1], size=n, dtype=np.uint32)
-    for j, v in enumerate((0, 1, spec.q - 1, spec.q - 2)):
+    for j, v in enumerate((0, 1, spec.q - 1, spec.q - 2)[:n]):
         a[:, j] = spec.limbs(v)
     return fp.planes(a, dev)
 
@@ -121,6 +123,52 @@ def test_k6_at_path_lanes(dev, which, n):
         for c in (*P, *Q):
             c[:, 43] = 0
     _assert_equal(curve.jac_add(spec, P, Q), curve.jac_add_plain(spec, P, Q))
+
+
+@pytest.mark.parametrize("which", ["fp", "bls_fq"])
+@pytest.mark.parametrize("n", [1, 999, 1 << 16, 2_388_711])
+def test_k5_on_promoted_points(dev, which, n):
+    """K5 at 8 and 12 words on P promoted from affine values (Z1 =
+    Montgomery one, as the prove's bucket scan gives it), against
+    jac_madd_plain: random operands with P = Q on lanes 0 and 40, P = -Q
+    on lanes 1-2, P zero ((0, one, 0)) on lane 41, Q the affine zero on
+    lane 42 and both on lane 43, where the lanes exist."""
+    spec = SPECS[which]()
+    x1, y1, x2, y2 = (_rand(spec, n, s, dev) for s in (30, 31, 32, 33))
+    one = fp.planes(np.array([spec.limbs(spec.one_mont)],
+                             dtype=np.uint32).T, dev)
+    z1 = one.expand(-1, n).contiguous()
+    for k in [k for k in (0, 40) if k < n]:
+        x2[:, k], y2[:, k] = x1[:, k], y1[:, k]
+    x2[:, 1:3] = x1[:, 1:3]
+    y2[:, 1:3] = fp.mod_sub_plain(spec, torch.zeros_like(y1[:, 1:3]),
+                                  y1[:, 1:3])
+    if n > 43:
+        x1[:, 41], y1[:, 41], z1[:, 41] = 0, one[:, 0], 0
+        x2[:, 42:44], y2[:, 42:44] = 0, 0
+        x1[:, 43], y1[:, 43], z1[:, 43] = 0, one[:, 0], 0
+    P, Qa = (x1, y1, z1), (x2, y2)
+    _assert_equal(curve.jac_madd(spec, P, Qa),
+                  curve.jac_madd_plain(spec, P, Qa))
+
+
+@pytest.mark.parametrize("which", ["fp", "bls_fq"])
+@pytest.mark.parametrize("n,times", [(4, 16), (4, 1), (999, 2),
+                                     (1 << 16, 1)])
+def test_k7_doubles_times_in_one_launch(dev, which, n, times):
+    """K7 at 8 and 12 words, `times` doublings in one launch, against
+    jac_double_plain: random operands with Z = 0 on lane 0 (left as it
+    is) and Y = 0 on lane 1 (zero after one doubling, then left as it
+    is); one launch a call."""
+    spec = SPECS[which]()
+    P = tuple(_rand(spec, n, s, dev) for s in (34, 35, 36))
+    P[2][:, 0] = 0
+    if n > 1:
+        P[1][:, 1] = 0
+    cuda_lib.reset_launches()
+    got = curve.jac_double(spec, P, times)
+    assert cuda_lib.fn_launches["k7_jac_dbl"] == 1
+    _assert_equal(got, curve.jac_double_plain(spec, P, times))
 
 
 def _flat(t):

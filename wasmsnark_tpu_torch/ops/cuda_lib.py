@@ -69,11 +69,14 @@ KERNELS = {
 _ENTRY = {fn: (lib, kid) for kid, (lib, fns) in KERNELS.items() for fn in fns}
 
 # number of tensor arguments and integer arguments of each C entry point,
-# in order (tensors first, then the ints, then the constants and stream)
+# in order (tensors first, then the ints, then the constants and stream);
+# the first int is the lanes, k7_jac_dbl's second the doublings a launch
+# (the window fold's fori_loop over window_bits, wasmsnark_tpu/ops/msm.py
+# fold_windows_device)
 _SIGNATURES = {
     "k1_mont_mul": (3, 1), "k2_mod_add": (3, 1), "k2_mod_sub": (3, 1),
     "k3_butterfly": (3, 2), "k4_cneg": (3, 1),
-    "k5_jac_madd": (8, 1), "k6_jac_add": (9, 1), "k7_jac_dbl": (6, 1),
+    "k5_jac_madd": (8, 1), "k6_jac_add": (9, 1), "k7_jac_dbl": (6, 2),
     "k8_f12_mul": (3, 3), "k8_f12_sqr": (2, 3), "k9_f12_cyc_sqr": (2, 3),
     "k10_miller_dbl": (3, 1), "k10_miller_add": (4, 1),
     "k11_miller_dbl_mtwist": (3, 3), "k11_miller_add_mtwist": (4, 3),

@@ -6,7 +6,8 @@ is any Z = 0, canonical (0, one, 0).  Every degenerate case (zero operands,
 P == Q, P == -Q) is resolved per lane with masked selects.
 
 For the Jacobian G1 (base field Fp) the three operations are fused kernels:
-K5 `jac_madd`, K6 `jac_add`, K7 `jac_double` (csrc/curve_kernels.cu).
+K5 `jac_madd`, K6 `jac_add`, K7 `jac_double` (csrc/curve_kernels.cu; K7
+doubles a given number of times in one launch, `double_times`).
 Their plain versions are the composed formulas below evaluated over
 `PlainFp`, pure PyTorch on any device.  G2 composes per-op over F2Device,
 and ProjectiveDevice (MNT6753 G1) over any field adapter, as in the JAX
@@ -136,10 +137,17 @@ class JacobianDevice:
     # -- the group law --------------------------------------------------------
 
     def double(self, p):
+        return self.double_times(p, 1)
+
+    def double_times(self, p, times: int):
+        """p doubled `times` times: one K7 launch on a kernel-backed G1,
+        else `times` composed doublings."""
         spec = self._fused_spec()
         if spec is not None:
-            return jac_double(spec, p)
-        return self.double_composed(p)
+            return jac_double(spec, p, times)
+        for _ in range(times):
+            p = self.double_composed(p)
+        return p
 
     def add(self, p, q):
         spec = self._fused_spec()
@@ -261,21 +269,21 @@ def jac_add_plain(spec: FieldSpec, p, q):
     return _plain_curve(spec, p[0].device).add_composed(p, q)
 
 
-def jac_double_plain(spec: FieldSpec, p):
-    return _plain_curve(spec, p[0].device).double_composed(p)
+def jac_double_plain(spec: FieldSpec, p, times: int = 1):
+    return _plain_curve(spec, p[0].device).double_times(p, times)
 
 
-def _curve_call(fn: str, plain, spec: FieldSpec, coords, split):
+def _curve_call(fn: str, plain, spec: FieldSpec, coords, split, ints=()):
     L = spec.n_limbs
     flat, bshape = lanes(L, *coords)
     if not flat[0].is_cuda:
         ins = (tuple(flat[:split]), tuple(flat[split:])) if split else \
             (tuple(flat),)
-        out = plain(spec, *ins)
+        out = plain(spec, *ins, *ints)
     else:
         check_cuda(*flat)
         out = tuple(torch.empty_like(flat[0]) for _ in range(3))
-        cuda_lib.launch(fn, spec, (*flat, *out), (flat[0].shape[1],))
+        cuda_lib.launch(fn, spec, (*flat, *out), (flat[0].shape[1], *ints))
     return tuple(o.reshape((L,) + bshape) for o in out)
 
 
@@ -289,7 +297,11 @@ def jac_add(spec: FieldSpec, p, q):
     return _curve_call("k6_jac_add", jac_add_plain, spec, (*p, *q), 3)
 
 
-def jac_double(spec: FieldSpec, p):
-    """K7: doubling (replaces curve_pallas.py jac_double_pallas)."""
-    return _curve_call("k7_jac_dbl", jac_double_plain, spec, tuple(p), 0)
+def jac_double(spec: FieldSpec, p, times: int = 1):
+    """K7: p doubled `times` >= 1 times in one launch (replaces
+    curve_pallas.py jac_double_pallas, run `times` times)."""
+    if times < 1:
+        raise ValueError("jac_double doubles at least once")
+    return _curve_call("k7_jac_dbl", jac_double_plain, spec, tuple(p), 0,
+                       (times,))
 

@@ -19,8 +19,8 @@ window grouping, lane tiles):
     stay all-zero, which the complete add treats as the zero point), and
     the triangle sum_b b*S_b is a segmented suffix scan plus a halving
     reduction (K6);
-  * fold_windows_device folds the windows MSB first: c doublings (K7) and
-    one add (K6) per window.
+  * fold_windows_device folds the windows MSB first: c doublings (one K7
+    launch) and one add (K6) per window.
 
 Completeness comes from the group law: repeated points, zero points,
 inverse pairs, zero scalars and unreduced 256-bit scalars all fold in.
@@ -158,8 +158,10 @@ class MSMDevice:
 
 
 def fold_windows_device(curve, win, window_bits: int):
-    """MSB -> LSB window fold: c doublings + 1 add per window.  win:
-    Jacobian leaves [.., W].  Returns leaves [..]."""
+    """MSB -> LSB window fold: c doublings + 1 add per window (on a
+    kernel-backed G1 the c doublings are one K7 launch, as the JAX
+    package's fold runs them in one fori_loop).  win: Jacobian leaves
+    [.., W].  Returns leaves [..]."""
     W = _last(win)
     acc = None
     for w in range(W - 1, -1, -1):
@@ -167,9 +169,7 @@ def fold_windows_device(curve, win, window_bits: int):
         if acc is None:
             acc = pw
             continue
-        for _ in range(window_bits):
-            acc = curve.double(acc)
-        acc = curve.add(acc, pw)
+        acc = curve.add(curve.double_times(acc, window_bits), pw)
     return map_leaf(acc, lambda a: a[..., 0])
 
 
