@@ -21,8 +21,8 @@ BLS12-381 library `tower_kernels.cu` (8 and 12 words) and the G1 group law
             UNROLLED among them stands for --unrolled's edit);
   baseline  with --baseline DIR, the sources and headers of another
             checkout DIR (an older commit, unpacked with `git archive`),
-            as committed there (a K7 without the `times` argument runs
-            one launch a doubling, as the window fold did then).
+            as committed there (its entry points must take the same
+            arguments as the committed ones).
 
 It compiles every library of every variant at once (one nvcc each) into
 the ignored wasmsnark_tpu_torch/_build/cios_unroll/, prints each build's
@@ -33,8 +33,8 @@ blocks an SM can hold by those (H100 limits: 64 K registers, 228 KB of
 shared memory with 1 KB reserved per block, 2,048 threads and 32
 blocks).  Then it binds each variant in turn and times K12 (product and
 square), K13 and K14 (doubling and add) at 255, 256, 512 and 2^16 lanes,
-K8's product and square, K9 and the Miller doubling (K10 at 8 words, K11
-at 12) at TOWER_LANES (1,024 to 2^16), and
+K8's product and square, K9 and the Miller doubling and add (K10 at 8
+words, K11 at 12) at TOWER_LANES (1,024 to 2^16), and
 K5-K7 at 8 and 12 words at the prove's lane counts (CURVE_LANES: K6 at
 the MSM's 4, 68, 1,114,112 and 2,228,156, K5 at its one launch's on
 inputs shaped as the prove's (chip_smoke.py k5_path_inputs, with the lane
@@ -52,9 +52,9 @@ count and the first variant's at 2^16 lanes, bit for bit.  K1 and K2
 24 words at FIELD_LANES[24] lanes (the MNT6753 paths' and 2^16) and at 8
 and 12 words at their paths' lane counts and 2^16, each checked against
 its plain version at every lane count.  With --only and a comma-separated
-list of fp (K1, K2), tower (K8's product, K9), mnt (K12-K14) and curve
-(K5-K7), only those libraries are built and only their kernels timed;
-tower (K8, K9 and the Miller doubling) builds tower_kernels.cu.
+list of fp (K1, K2), tower (K8, K9 and the Miller steps of K10 and K11),
+mnt (K12-K14) and curve (K5-K7), only those libraries are built and only
+their kernels timed; tower builds tower_kernels.cu.
 With --sass it prints,
 per variant and kernel, the instructions of its SASS (cuobjdump) and the
 most frequent opcodes.
@@ -96,7 +96,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROLLED = "#define FP_CIOS_ROLLED\n"
 # the parts --only chooses from: library name prefix -> kernels timed
-PARTS = {"fp": "K1, K2", "tower": "K8, K9, the Miller doubling",
+PARTS = {"fp": "K1, K2", "tower": "K8, K9, the Miller steps",
          "mnt": "K12-K14", "curve": "K5-K7"}
 # library -> (source, words)
 LIBS = {"fp_kernels_w8": ("fp_kernels.cu", 8),
@@ -109,7 +109,7 @@ LIBS = {"fp_kernels_w8": ("fp_kernels.cu", 8),
         "curve_kernels_w12": ("curve_kernels.cu", 12)}
 BIG = 1 << 16                    # the lane count of the cross-variant check
 MNT_LANES = (255, 256, 512, BIG)
-# K8, K9 and the Miller doubling: the pairing and verify batches' lane
+# K8, K9 and the Miller steps: the pairing and verify batches' lane
 # counts, and more up to 2^16 for where a team kernel stops paying
 TOWER_LANES = (1024, 2048, 4096, 8192, 16384, 32768, BIG)
 # K1 and K2 per word count: the lane counts their paths launch them with
@@ -328,7 +328,10 @@ def main() -> int:
     libs, result = build_variants(variants, cuda_lib, {
         lib: sw for lib, sw in LIBS.items()
         if parts[lib.split("_kernels")[0]]}, args.sass)
-    use = binder(variants, libs, cuda_lib, cv)
+
+    def use(name):                    # bind variant name's libraries
+        cuda_lib._libs.update(libs[name])
+
     result = {"device": smi, **result, "ms": {}}
 
     rng = np.random.default_rng(5)
@@ -354,12 +357,15 @@ def main() -> int:
            for w in (8, 12)}
     XI = {8: tk.XI, 12: tk.XI_BLS}
     # Miller doubling points (X, Y, Z, xP, yP) per word count, Z = 0 on
-    # lanes 64..95
+    # lanes 64..95; the add's (X, Y, Z, x2, y2, xP, yP) on the same
     DBL = {w: tuple((rand(specs[w]), rand(specs[w])) for _ in range(3))
            + (rand(specs[w]), rand(specs[w])) for w in (8, 12)}
     for w in DBL:
         for c in DBL[w][2]:
             c[:, 64:96] = 0
+    ADD = {w: DBL[w][:3] + tuple((rand(specs[w]), rand(specs[w]))
+                                 for _ in range(2)) + DBL[w][3:]
+           for w in (8, 12)}
     ins = (A, B, X, Y, Z, xP, yP)
     FX = {w: (rand(specs[w]), rand(specs[w])) for w in FIELD_LANES}
     # P, Q (Jacobian) and Qa (affine) per word count, as chip_smoke.py's
@@ -384,9 +390,7 @@ def main() -> int:
         return smoke.cut(t, k, n)
 
     def curve_runs(k):
-        """(name, wrapper, plain version) of K5-K7 at k lanes; the
-        wrappers are looked up in ops.curve at each call (use swaps
-        jac_double for a variant whose K7 doubles once a launch)."""
+        """(name, wrapper, plain version) of K5-K7 at k lanes."""
         out = []
         for w, pts in PTS.items():
             if not any(k in c[w] for c in CURVE_LANES.values()):
@@ -417,9 +421,17 @@ def main() -> int:
         return (tk.miller_dbl_mtwist_plain if plain
                 else tk.miller_dbl_mtwist)(specs[w], *pts, XI[w])
 
+    def add(w, pts, plain=False):
+        """The Miller add of the word count's curve, as dbl."""
+        if w == 8:
+            return (tk.miller_add_plain if plain else tk.miller_add)(
+                specs[w], *pts)
+        return (tk.miller_add_mtwist_plain if plain
+                else tk.miller_add_mtwist)(specs[w], *pts, XI[w])
+
     def runs(k):
         """The wrappers timed at k lanes: K12-K14 at the MNT6753 lane
-        counts, K8, K9 and the Miller doubling at TOWER_LANES, K1 and K2
+        counts, K8, K9 and the Miller steps at TOWER_LANES, K1 and K2
         at FIELD_LANES, K5-K7 at CURVE_LANES."""
         out = {}
         if mnt and k in MNT_LANES:
@@ -442,6 +454,8 @@ def main() -> int:
                     specs[w], a, XI[w]))
                 out[f"K{10 if w == 8 else 11} dbl"] = (
                     lambda w=w, pts=cut(DBL[w], k): dbl(w, pts))
+                out[f"K{10 if w == 8 else 11} add"] = (
+                    lambda w=w, pts=cut(ADD[w], k): add(w, pts))
         for w, ks in FIELD_LANES.items():
             if field and k in ks:
                 x, y = cut(FX[w], k)
@@ -479,7 +493,8 @@ def main() -> int:
                 out += [tk.f12_mul_plain(specs[w], a, b, XI[w]),
                         tk.f12_sqr_plain(specs[w], a, XI[w]),
                         tk.f12_cyc_sqr_plain(specs[w], a, XI[w]),
-                        dbl(w, cut(DBL[w], k), plain=True)]
+                        dbl(w, cut(DBL[w], k), plain=True),
+                        add(w, cut(ADD[w], k), plain=True)]
         return _leaves(out + field_plain(k)
                        + [p() for _, _, p in curve_runs(k)])
 
@@ -521,12 +536,16 @@ def main() -> int:
                     a, empty(12, specs[w])], XI[w])
                 out[f"K9 @N{w}"] = ("k9_f12_cyc_sqr", specs[w], [
                     a, empty(12, specs[w])], XI[w])
-                X, Y, Z, xP, yP = cut(DBL[w], k)
-                out[f"K{10 if w == 8 else 11} dbl"] = (
+                X, Y, Z, x2, y2, xP, yP = cut(ADD[w], k)
+                kid, ints = (10, ()) if w == 8 else (11, XI[w])
+                xyz, p = torch.stack([*X, *Y, *Z]), torch.stack([xP, yP])
+                out[f"K{kid} dbl"] = (
                     "k10_miller_dbl" if w == 8 else "k11_miller_dbl_mtwist",
-                    specs[w], [torch.stack([*X, *Y, *Z]),
-                               torch.stack([xP, yP]), empty(12, specs[w])],
-                    () if w == 8 else XI[w])
+                    specs[w], [xyz, p, empty(12, specs[w])], ints)
+                out[f"K{kid} add"] = (
+                    "k10_miller_add" if w == 8 else "k11_miller_add_mtwist",
+                    specs[w], [xyz, torch.stack([*x2, *y2]), p,
+                               empty(12, specs[w])], ints)
         return out
 
     def stream_ms(fn, s, tensors, k, ints, reps=20):
@@ -744,38 +763,6 @@ def probe_proves(smoke, prove):
         _, k5, k7 = smoke.probe_curve_kernels(run)
         out[curve] = smoke.probed_shapes(curve_module(curve).fp_spec, k5, k7)
     return out
-
-
-def binder(variants, libs, cuda_lib, cv):
-    """use(name): bind variant `name`'s libraries for the wrappers.  A
-    variant whose curve library lacks `curve_kernels_revision` (older than
-    K7's `times` argument) has its k7_jac_dbl bound with the older
-    arguments, and while it is bound jac_double runs one launch a
-    doubling, as the window fold did then."""
-    jac_double = cv.jac_double
-
-    def one_a_launch(spec, p, times=1):
-        for _ in range(times):
-            p = cv._curve_call("k7_jac_dbl", cv.jac_double_plain, spec,
-                               tuple(p), 0)
-        return p
-
-    legacy = set()
-    for name in variants:
-        for lib, handle in libs[name].items():
-            if (not lib.startswith("curve_kernels")
-                    or hasattr(handle, "curve_kernels_revision")):
-                continue
-            legacy.add(name)            # k7_jac_dbl(6 planes, n, ...)
-            handle.k7_jac_dbl.argtypes = (
-                [ctypes.c_void_p] * 6
-                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p])
-
-    def use(name):
-        cuda_lib._libs.update(libs[name])
-        cv.jac_double = one_a_launch if name in legacy else jac_double
-    return use
 
 
 def verify_batches(smoke, names, use, rounds):

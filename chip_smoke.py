@@ -621,17 +621,26 @@ SQR_ADDS = 2 * F6_MUL_ADDS + 6 + 6 + 6 + 12
 DBL_ADDS = (8 * F2_MUL_ADDS + 6 * 3 + 2 * 9
             + 2 * (1 + 3 + chain(9) + chain(4) + 1 + chain(3) + 2 + 2
                    + chain(36) + chain(27) + chain(8) + 2))
+# the Miller add's team kernel: 11 Karatsuba F2 products (three combining
+# subs each) and their 12 distinct operand sums (y2, Z, x2, th, lm, D, C, X,
+# H, G - H, E and Y, each summed once whichever products share it), 2
+# complex squares (the difference th0 - th1 or lm0 - lm1 and a doubling
+# each; their sums are th's and lm's); then per component th = y2 Z - Y and
+# lm = x2 Z - X, c_0 = th x2 - lm y2, c_x xP = -(th xP), H = F - 2G - E
+# (three), G - H and Y' = th (G - H) - E Y
+ADD_ADDS = 11 * 3 + 12 + 2 * 2 + 2 * (2 + 1 + 1 + 3 + 1 + 1)
 # per C entry point of the tower kernels: (Montgomery products, modular
 # adds and subs besides those of xi, multiplications by xi), counted from
 # csrc/tower_kernels.cu's formulas (small multiples as double-and-add
-# chains); K8's square and the doubling from what their results need, a
-# sum of operands counted once where the team's product items share it
+# chains); K8's square and the Miller steps from what their results need,
+# a sum of operands counted once where the team's product items share it
 TOWER_OPS = {
     "k8_f12_mul": (54, 182, 7), "k8_f12_sqr": (36, SQR_ADDS, 6),
     "k9_f12_cyc_sqr": (18, 83, 4),
-    "k10_miller_dbl": (44, DBL_ADDS, 0), "k10_miller_add": (41, 79, 0),
+    "k10_miller_dbl": (44, DBL_ADDS, 0),
+    "k10_miller_add": (41, ADD_ADDS, 0),
     "k11_miller_dbl_mtwist": (44, DBL_ADDS, 1),
-    "k11_miller_add_mtwist": (41, 79, 1),
+    "k11_miller_add_mtwist": (41, ADD_ADDS, 1),
 }
 
 

@@ -599,6 +599,21 @@ def test_k7_jac_dbl_refuses_no_doublings(libs, curve_name):
         curve.jac_double(spec, P, 0)
 
 
+def _affine_planes(m, U, Z, sl):
+    """The two planes of the F2 value U / Z on the lanes sl."""
+    spec = m.fp_spec
+
+    def vals(p):
+        return [spec.from_mont(v)
+                for v in limbs_to_ints(fp.to_numpy(p[:, sl]))]
+
+    uz = [m.F2.mul((u0, u1), m.F2.inv((z0, z1)))
+          for u0, u1, z0, z1 in zip(*(vals(p) for p in (*U, *Z)))]
+    return [fp.planes(ints_to_limbs_fast([spec.to_mont(v[k]) for v in uz],
+                                         spec.n_limbs), "cpu")
+            for k in range(2)]
+
+
 def _tower(libs, fn, spec, groups, ints, n=N):
     ops = [torch.stack(g)[..., :n].contiguous() for g in groups]
     out = torch.empty((tk.N12, spec.n_limbs, n), dtype=torch.int32)
@@ -631,15 +646,8 @@ def test_tower_and_miller_kernels(libs, curve_name):
     for c in Z:                               # lanes 4..7: Z = 0
         c[:, 4:8] = 0
     sl = slice(8, 12)                         # lanes 8..11: x2 = X/Z
-
-    def vals(p):
-        return [spec.from_mont(v) for v in limbs_to_ints(fp.to_numpy(p[:, sl]))]
-
-    xz = [m.F2.mul((u0, u1), m.F2.inv((z0, z1)))
-          for u0, u1, z0, z1 in zip(*(vals(p) for p in (*X, *Z)))]
-    for k in range(2):
-        x2[k][:, sl] = fp.planes(ints_to_limbs_fast(
-            [spec.to_mont(v[k]) for v in xz], spec.n_limbs), "cpu")
+    for c, v in zip(x2, _affine_planes(m, X, Z, sl)):
+        c[:, sl] = v
     if curve_name == "bn128":
         fns, extra, other = cuda_lib.KERNELS["K10"][1], (), "K11"
         plains = (tk.miller_dbl_plain(spec, X, Y, Z, xP, yP),
@@ -839,6 +847,212 @@ def test_miller_dbl_team_kernel(libs, curve_name, n):
     rc, out = _tower(libs, fn, spec, [[*X, *Y, *Z], [xP, yP]], extra, n)
     assert rc == 0
     assert_equal(tk._step_out(out, spec.n_limbs, (n,)), plain)
+
+
+def _miller_add_lanes(m, seed):
+    """The Miller add's operands over N lanes, (X, Y, Z, x2, y2, xP, yP):
+    the edge values on lanes 0..3 of every plane, Z = 0 on lanes 4..7,
+    x2 = X/Z (lambda = x2 Z - X = 0) on 8..11, y2 = Y/Z (theta = 0) on
+    12..15 and both (Q equal to the current point) on 16..19."""
+    spec = m.fp_spec
+    X, Y, Z, x2, y2 = [(rand(spec, seed + 2 * k), rand(spec, seed + 1 + 2 * k))
+                       for k in range(5)]
+    xP, yP = rand(spec, seed + 10), rand(spec, seed + 11)
+    for c in Z:
+        c[:, 4:8] = 0
+    for (U, V), lo in (((X, x2), 8), ((Y, y2), 12), ((X, x2), 16),
+                       ((Y, y2), 16)):
+        sl = slice(lo, lo + 4)
+        for c, v in zip(V, _affine_planes(m, U, Z, sl)):
+            c[:, sl] = v
+    return X, Y, Z, x2, y2, xP, yP
+
+
+def _miller_add(libs, spec, pts, n):
+    """The curve's Miller add (K10 at 8 words, K11 with xi = 1 + u at 12) on
+    n lanes of pts through the host library, and its plain version."""
+    X, Y, Z, x2, y2, xP, yP = pts
+    if spec.n_limbs == 16:
+        fn, extra = "k10_miller_add", ()
+        plain = tk.miller_add_plain(spec, *pts)
+    else:
+        fn, extra = "k11_miller_add_mtwist", tk.XI_BLS
+        plain = tk.miller_add_mtwist_plain(spec, *pts, tk.XI_BLS)
+    rc, out = _tower(libs, fn, spec, [[*X, *Y, *Z], [*x2, *y2], [xP, yP]],
+                     extra, n)
+    assert rc == 0
+    return tk._step_out(out, spec.n_limbs, (n,)), plain
+
+
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+@pytest.mark.parametrize("n", [1, 13, 30, 96])
+def test_miller_add_team_kernel(libs, curve_name, n):
+    """The Miller add as a team kernel on n lanes of _miller_add_lanes: the
+    D twist (K10) at BN128's 8 words, the M twist (K11, xi = 1 + u) at
+    BLS12-381's 12, against miller_add_plain / miller_add_mtwist_plain: one
+    (random) lane, ragged lane groups (13 and 30 are not multiples of its 8
+    lanes a block) and full ones, with the edge values, Z = 0, lambda = 0,
+    theta = 0 and Q = the current point lanes."""
+    m = CURVES[curve_name]()
+    pts = _cut(_miller_add_lanes(m, 340), n)
+    out, plain = _miller_add(libs, m.fp_spec, pts, n)
+    assert_equal(out, plain)
+    if n >= 20:                 # Q = the current point: lambda = theta = 0
+        line = plain[0]
+        assert all(int(c[:, 16:20].abs().sum()) == 0
+                   for c in (*line[0], *line[1], *line[2]))
+
+
+# A host build of the tower kernels that logs the field operations they run:
+# every product (mont_mul_nc), add, sub and small multiple (mul_small, whose
+# own adds stay unlogged: chip_smoke.py counts them as chains) with its
+# operands and result, which tower_op_log copies out and clears.  fp.cuh
+# comes first, so that the wrappers call its functions; team.cuh after the
+# macros, so that a product stage's operand sums are logged.
+_LOG_OPS = r"""
+#include "fp.cuh"
+#include <vector>
+struct OpRec { uint32_t kind, a[24], b[24], r[24]; };
+static std::vector<OpRec> g_log;
+template <int N>
+static void log_op(uint32_t kind, const Fe<N>& a, const Fe<N>& b,
+                   const Fe<N>& r) {
+  OpRec o{kind, {}, {}, {}};
+  for (int k = 0; k < N; ++k) {
+    o.a[k] = a.w[k];
+    o.b[k] = b.w[k];
+    o.r[k] = r.w[k];
+  }
+  g_log.push_back(o);
+}
+template <int N, class Word>
+Fe<N> logged_mont_mul_nc(const Field<N>& f, const Fe<N>& a, Word b) {
+  Fe<N> bb;
+  for (int k = 0; k < N; ++k) bb.w[k] = b(k);
+  const Fe<N> r = mont_mul_nc<N>(f, a, b);
+  log_op<N>(0, a, bb, r);
+  return r;
+}
+template <int N>
+Fe<N> logged_add(const Field<N>& f, const Fe<N>& a, const Fe<N>& b) {
+  const Fe<N> r = add(f, a, b);
+  log_op<N>(1, a, b, r);
+  return r;
+}
+template <int N>
+Fe<N> logged_sub(const Field<N>& f, const Fe<N>& a, const Fe<N>& b) {
+  const Fe<N> r = sub(f, a, b);
+  log_op<N>(2, a, b, r);
+  return r;
+}
+template <int N>
+Fe<N> logged_mul_small(const Field<N>& f, const Fe<N>& a, int k) {
+  Fe<N> kk = fe_zero<N>();
+  kk.w[0] = (uint32_t)k;
+  const Fe<N> r = mul_small(f, a, k);
+  log_op<N>(3, a, kk, r);
+  return r;
+}
+extern "C" long long tower_op_log(uint32_t* out, long long cap) {
+  const long long n = (long long)g_log.size();
+  for (long long i = 0; i < n && i < cap; ++i) {
+    const OpRec& o = g_log[i];
+    uint32_t* p = out + 73 * i;
+    p[0] = o.kind;
+    for (int k = 0; k < 24; ++k) {
+      p[1 + k] = o.a[k];
+      p[25 + k] = o.b[k];
+      p[49 + k] = o.r[k];
+    }
+  }
+  g_log.clear();
+  return n;
+}
+#define mont_mul_nc logged_mont_mul_nc
+#define add logged_add
+#define sub logged_sub
+#define mul_small logged_mul_small
+#include "team.cuh"
+"""
+
+
+@pytest.fixture(scope="module")
+def logging_libs(tmp_path_factory):
+    """The tower libraries built with _LOG_OPS."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    libs = build_host_libs(tmp_path_factory.mktemp("tower_logging"),
+                           only=("tower_kernels_w8", "tower_kernels_w12"),
+                           prefix=_LOG_OPS)
+    for lib in libs.values():
+        lib.tower_op_log.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+        lib.tower_op_log.restype = ctypes.c_longlong
+    return libs
+
+
+def _live_ops(lib, outputs):
+    """The operations of the log that the outputs need: walked back from
+    the outputs' values through the operations that produce each value,
+    an operation on the same operands counted once however often it ran.
+    Every value on the way must have one producer, a multiple by 1 (the
+    value itself) aside, so that the walk is the kernel's own dataflow.
+    Returns (products, adds and subs, the multipliers of the live small
+    multiples)."""
+    buf = np.zeros((4096, 73), np.uint32)
+    count = lib.tower_op_log(buf.ctypes.data, len(buf))
+    assert 0 < count <= len(buf)
+    producers = {}
+    for rec in buf[:count]:
+        key = (int(rec[0]), rec[1:25].tobytes(), rec[25:49].tobytes())
+        producers.setdefault(rec[49:73].tobytes(), set()).add(key)
+    todo, seen, live = list(outputs), set(), set()
+    while todo:
+        v = todo.pop()
+        if v in seen:
+            continue
+        seen.add(v)
+        keys = producers.get(v, set())
+        assert len({k for k in keys if k[0] != 3 or k[1] != v}) <= 1
+        for key in keys - live:
+            live.add(key)
+            todo += [key[1]] + ([key[2]] if key[0] != 3 else [])
+    kinds = [k for k, _, _ in live]
+    smalls = [int(np.frombuffer(b, np.uint32)[0]) for k, _, b in live
+              if k == 3]
+    return kinds.count(0), kinds.count(1) + kinds.count(2), smalls
+
+
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+def test_chip_smoke_counts_miller_add_ops(logging_libs, curve_name):
+    """chip_smoke.py's TOWER_OPS for the Miller add (the rows' bound)
+    against what the team kernel's results need on one random lane: the
+    products and adds and subs that its outputs depend on, each counted
+    once (logging_libs).  On the M twist the multiplication by xi = 1 + u
+    adds its two multiples by 1 and a sub and an add, which chip_smoke.py
+    counts apart (xi_ops); the D twist has none."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    m = CURVES[curve_name]()
+    spec = m.fp_spec
+    lib = logging_libs[f"tower_kernels_w{spec.n_limbs // 2}"]
+    lib.tower_op_log(None, 0)
+    out, plain = _miller_add(logging_libs, spec,
+                             _cut(_miller_add_lanes(m, 360), 1), 1)
+    assert_equal(out, plain)
+    words = []                  # each output as its record's 24 words
+    for c in leaves(out):
+        limbs = c[:, 0].numpy().astype(np.uint32)
+        w = np.zeros(24, np.uint32)
+        w[:len(limbs) // 2] = limbs[0::2] | limbs[1::2] << 16
+        words.append(w.tobytes())
+    prods, adds, smalls = _live_ops(lib, words)
+    mtwist = curve_name == "bls12381"
+    fn = cuda_lib.KERNELS["K11" if mtwist else "K10"][1][1]
+    want_prods, want_adds, n_xi = chip_smoke.TOWER_OPS[fn]
+    assert n_xi == int(mtwist)
+    assert (prods, adds, smalls) == (want_prods, want_adds + 2 * n_xi,
+                                     [1, 1] * n_xi)
 
 
 def _mnt(libs, fn, spec, groups, n_out, n=N):

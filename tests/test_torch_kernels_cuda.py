@@ -2,10 +2,10 @@
 at BN128's 8 words, K1-K3 over BLS12-381's Fr (8 words), K1, K2, K4-K9
 and K11 over BLS12-381's Fq (12 words), and K1, K2, K4 and K12-K14 over
 MNT6753's Fq (24 words); the team kernels of K8's product and square, K9,
-the Miller doubling of K10 and K11 and K12-K14, K1 and K2 at 24 words and
-K6 at 8 and 12, also at the lane counts of their paths; K5 on promoted
-affine points, as the prove gives it, and K7 with several doublings a
-launch.
+the Miller doubling and add of K10 and K11 and K12-K14, K1 and K2 at 24
+words and K6 at 8 and 12, also at the lane counts of their paths; K5 on
+promoted affine points, as the prove gives it, and K7 with several
+doublings a launch.
 
 Marked `cuda`: they need an NVIDIA card and nvcc, and skip elsewhere.  On
 the card, where jax is not installed and tests/conftest.py would import
@@ -21,6 +21,8 @@ from wasmsnark_tpu_torch.models.bn128 import bn128
 from wasmsnark_tpu_torch.models.mnt6753 import mnt6753
 from wasmsnark_tpu_torch.ops import cuda_lib, curve, fp, ntt, towers
 from wasmsnark_tpu_torch.ops import tower_kernels as tk
+from wasmsnark_tpu_torch.utils.serialize import (ints_to_limbs_fast,
+                                                 limbs_to_ints)
 
 pytestmark = pytest.mark.cuda
 
@@ -293,6 +295,51 @@ def test_k8_sqr_and_miller_dbl_team_kernels_match_plain(dev, which, n):
     else:
         _assert_equal(tk.miller_dbl_mtwist(spec, X, Y, Z, xP, yP, xi),
                       tk.miller_dbl_mtwist_plain(spec, X, Y, Z, xP, yP, xi))
+
+
+@pytest.mark.parametrize("which", ["fp", "bls_fq"])
+@pytest.mark.parametrize("n", [1, 1024, 4096, 1 << 16])
+def test_miller_add_team_kernel_matches_plain(dev, which, n):
+    """The Miller add (K10's D twist at 8 words, K11's M twist at 12) as a
+    team kernel at the pairing batch's 1,024 lanes, at 4,096, at 2^16 and
+    on one lane (a random one): the edge values on lanes 0..3, Z = 0 on
+    4..7, x2 = X/Z (lambda = 0) on 8..11, y2 = Y/Z (theta = 0) on 12..15
+    and both (Q equal to the current point) on 16..19."""
+    m = bn128() if which == "fp" else bls12381()
+    spec = m.fp_spec
+    xi = tk.XI if which == "fp" else tk.XI_BLS
+    big = max(n, 64)
+    X, Y, Z, x2, y2 = [(_rand(spec, big, s, "cpu"), _rand(spec, big, s + 1,
+                                                           "cpu"))
+                       for s in range(130, 140, 2)]
+    xP, yP = _rand(spec, big, 140, "cpu"), _rand(spec, big, 141, "cpu")
+    for c in Z:
+        c[:, 4:8] = 0
+
+    def vals(p, sl):
+        return [spec.from_mont(v)
+                for v in limbs_to_ints(fp.to_numpy(p[:, sl]))]
+
+    for (U, V), lo in (((X, x2), 8), ((Y, y2), 12), ((X, x2), 16),
+                       ((Y, y2), 16)):
+        sl = slice(lo, lo + 4)
+        uz = [m.F2.mul((u0, u1), m.F2.inv((z0, z1))) for u0, u1, z0, z1 in
+              zip(*(vals(p, sl) for p in (*U, *Z)))]
+        for k, c in enumerate(V):
+            c[:, sl] = fp.planes(ints_to_limbs_fast(
+                [spec.to_mont(v[k]) for v in uz], spec.n_limbs), "cpu")
+    lo = 0 if n >= 20 else big - n
+    X, Y, Z, x2, y2, xP, yP = tuple(
+        tuple(c[:, lo:lo + n].contiguous().to(dev) for c in v)
+        if isinstance(v, tuple) else v[:, lo:lo + n].contiguous().to(dev)
+        for v in (X, Y, Z, x2, y2, xP, yP))
+    if which == "fp":
+        _assert_equal(tk.miller_add(spec, X, Y, Z, x2, y2, xP, yP),
+                      tk.miller_add_plain(spec, X, Y, Z, x2, y2, xP, yP))
+    else:
+        _assert_equal(
+            tk.miller_add_mtwist(spec, X, Y, Z, x2, y2, xP, yP, xi),
+            tk.miller_add_mtwist_plain(spec, X, Y, Z, x2, y2, xP, yP, xi))
 
 
 def test_mnt_kernels_match_plain(dev):

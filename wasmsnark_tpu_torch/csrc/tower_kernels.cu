@@ -38,18 +38,17 @@
 // operations.  But the verify and pairing batches launch K8-K11 on
 // 1,024-4,096 lanes, where one thread per lane (64-thread blocks) fills
 // 16-64 of the 132 SMs and waits on its chain of 36-54 dependent base
-// products.  So K8, K9 and the Miller doubling of K10 and K11 run a team of
+// products.  So K8, K9 and the Miller steps of K10 and K11 run a team of
 // threads per lane (team.cuh): the lane's values in shared memory and its
 // base products in rounds, one a thread: one round for K8 and K9, three for
-// the doubling.  K8's product keeps its one-thread design for more than
-// K8_TEAM_MAX_LANES lanes at 8 words, where every SM is busy and one
-// thread's chain is the cheaper, and K8's product and square run it for an
-// xi other than its build's curve's.  The Miller add steps of K10 and K11
-// run one thread per lane: the F2 products are __noinline__ functions,
-// which keeps the build in seconds; their call boundaries cost stack that
-// -Xptxas -v reports (the build log).  This source defines no
-// FP_CIOS_ROLLED, so fp.cuh's and team.cuh's CIOS loops are unrolled here
-// (the team kernels run 5-9 % slower rolled).
+// the doubling, four for the add.  K8's product keeps its one-thread design
+// for more than K8_TEAM_MAX_LANES lanes at 8 words, where every SM is busy
+// and one thread's chain is the cheaper, and K8's product and square run it
+// for an xi other than its build's curve's.  That design's F2 and F6
+// products are __noinline__ functions, which keeps the build in seconds;
+// their call boundaries cost stack that -Xptxas -v reports (the build
+// log).  This source defines no FP_CIOS_ROLLED, so fp.cuh's and team.cuh's
+// CIOS loops are unrolled here (the team kernels run 5-9 % slower rolled).
 
 #include "team.cuh"
 
@@ -85,23 +84,12 @@ __device__ __forceinline__ F2<N> f2_sub(const Field<N>& f, const F2<N>& a,
   return {sub(f, a.c0, b.c0), sub(f, a.c1, b.c1)};
 }
 
-template <int N>
-__device__ __forceinline__ F2<N> f2_neg(const Field<N>& f, const F2<N>& a) {
-  return {sub(f, fe_zero<N>(), a.c0), sub(f, fe_zero<N>(), a.c1)};
-}
-
 // (c0 a0 - c1 a1) + (c1 a0 + c0 a1) u
 template <int N>
 __device__ __forceinline__ F2<N> f2_mul_xi(const Field<N>& f, Xi xi,
                                            const F2<N>& a) {
   return {sub(f, mul_small(f, a.c0, xi.c0), mul_small(f, a.c1, xi.c1)),
           add(f, mul_small(f, a.c0, xi.c1), mul_small(f, a.c1, xi.c0))};
-}
-
-template <int N>
-__device__ __forceinline__ F2<N> f2_mul_base(const Field<N>& f, const F2<N>& a,
-                                             const Fe<N>& b) {
-  return {mont_mul(f, a.c0, b), mont_mul(f, a.c1, b)};
 }
 
 // Karatsuba: 3 base products.
@@ -112,13 +100,6 @@ __device__ __noinline__ F2<N> f2_mul(const Field<N>& f, const F2<N>& a,
   Fe<N> m1 = mont_mul(f, a.c1, b.c1);
   Fe<N> t = mont_mul(f, add(f, a.c0, a.c1), add(f, b.c0, b.c1));
   return {sub(f, m0, m1), sub(f, sub(f, t, m0), m1)};
-}
-
-// Complex squaring: (a0 + a1)(a0 - a1) + 2 a0 a1 u, 2 base products.
-template <int N>
-__device__ __noinline__ F2<N> f2_sqr(const Field<N>& f, const F2<N>& a) {
-  Fe<N> ab = mont_mul(f, a.c0, a.c1);
-  return {mont_mul(f, add(f, a.c0, a.c1), sub(f, a.c0, a.c1)), add(f, ab, ab)};
 }
 
 // -- F6 -------------------------------------------------------------------------
@@ -731,35 +712,146 @@ __global__ void __launch_bounds__(kDblLanes * kDblTeam)
 }
 
 // In: xyz = (X, Y, Z) [6, L, n], q = (x2, y2) [4, L, n], p = (xP, yP).
-// th = y2 Z - Y, lm = x2 Z - X; line c_y = lm, c_x = -th,
-// c_0 = th x2 - lm y2; C = th^2, D = lm^2, E = lm D, F = Z C, G = X D,
-// H = F - 2G - E; X' = lm H, Y' = th (G - H) - E Y, Z' = Z E.
+// The Pallas kernel's formulas: th = y2 Z - Y, lm = x2 Z - X; line c_y =
+// lm, c_x = -th, c_0 = th x2 - lm y2; C = th^2, D = lm^2, E = lm D,
+// F = Z C, G = X D, H = F - 2G - E; X' = lm H, Y' = th (G - H) - E Y,
+// Z' = Z E at planes 6..11 of out [12, L, n].
+//
+// By a team of kAddTeam threads per lane over kAddLanes lanes a block, in
+// four levels of F2 products, each followed by its combine:
+//   P1  y2 Z, x2 Z                     -> th, lm, th0 - th1, lm0 - lm1
+//   P2  th^2, lm^2, th x2, lm y2, lm yP -> C, D, c_0, the line's a0
+//   P3  lm D, Z C, X D, th xP          -> E, F, G, c_x xP = -(th xP);
+//                                         then H and G - H
+//   P4  lm H, th (G - H), E Y, Z E     -> X', Y', Z'
+// 6 + 12 + 11 + 12 = 41 base products (th xP waits for P3 so that no level
+// needs more than 12 threads); the squares are the complex ones, with
+// u0 - u1 in a slot of its own.  Every value is canonical, so -(th xP) =
+// (-th) xP, xi (lm yP) = (xi lm) yP and a square are the Pallas kernel's
+// field elements, and the new point is its representative.  The M twist's
+// xi is a runtime Xi (xi_coef), so both twists run one body.  Slots: X 0,
+// Y 2, Z 4, x2 6, y2 8, xP 10, yP 11, th 12, lm 14, their differences 16
+// and 17, C 18 (then F), D 20 (then G), E 22, H 24, G - H 26, and the raw
+// base products of the level in flight from kAddRaw (12 slots).  8 lanes
+// a block (96 threads) run fastest at the pairing batches' 1,024 lanes; 4
+// are 2 % slower there and 16 3-6 %, but 16 are the faster from 2,048
+// lanes on (9-20 % at 2^16), 4 slower at every count (chip_cios_unroll.py,
+// PERF.md §6).
+constexpr int kAddLanes = 8;
+constexpr int kAddTeam = 12;
+constexpr int kAddRaw = 28;
+constexpr int kAddSlots = kAddRaw + 12;
+
+__constant__ Prod kAddProds[41] = {
+    // P1
+    F2_PRODS(8, 4, kAddRaw), F2_PRODS(6, 4, kAddRaw + 3),
+    // P2
+    F2_SQR(12, 16, kAddRaw), F2_SQR(14, 17, kAddRaw + 2),
+    F2_PRODS(12, 6, kAddRaw + 4), F2_PRODS(14, 8, kAddRaw + 7),
+    F2_SCAL(14, 11, kAddRaw + 10),
+    // P3
+    F2_PRODS(14, 20, kAddRaw), F2_PRODS(4, 18, kAddRaw + 3),
+    F2_PRODS(0, 20, kAddRaw + 6), F2_SCAL(12, 10, kAddRaw + 9),
+    // P4
+    F2_PRODS(14, 24, kAddRaw), F2_PRODS(12, 26, kAddRaw + 3),
+    F2_PRODS(22, 2, kAddRaw + 6), F2_PRODS(4, 22, kAddRaw + 9)};
+__constant__ int kAddLevel[5] = {0, 6, 18, 29, 41};   // P1-P4 in kAddProds
+
+template <int N, int G, bool kMTwist>
+__device__ __forceinline__ void add_combine(const Field<N>& f, Xi xi,
+                                            const Slots<N, G>& s, int level,
+                                            uint32_t* __restrict__ out,
+                                            int64_t base, int64_t n) {
+  using S = LineSlots<kMTwist>;
+  constexpr int r = kAddRaw;
+  switch (level) {
+    case 0:
+      team_for<G>(4, base, n, [&](int c, int g) {   // th = y2 Z - Y,
+        const int k = c / 2;                         // lm = x2 Z - X
+        s.put(12 + c, g, sub(f, f2_coef<N, G>(f, s, r + 3 * k, c % 2, g),
+                             s.get(2 - 2 * k + c % 2, g)));
+      });
+      team_for<G>(2, base, n, [&](int k, int g) {   // th0 - th1, lm0 - lm1
+        const int o = r + 3 * k, y = 2 - 2 * k;
+        s.put(16 + k, g,
+              sub(f, sub(f, f2_coef<N, G>(f, s, o, 0, g), s.get(y, g)),
+                  sub(f, f2_coef<N, G>(f, s, o, 1, g), s.get(y + 1, g))));
+      }, warp_after(4, G));
+      break;
+    case 1:
+      team_for<G>(4, base, n, [&](int c, int g) {   // C = th^2, D = lm^2
+        s.put(18 + c, g, f2_sqr_coef<N, G>(f, s, r + 2 * (c / 2), c % 2, g));
+      });
+      team_for<G>(2, base, n, [&](int j, int g) {   // c_0 = th x2 - lm y2
+        st<N>(out, S::k0 + j, n, base + g,
+              sub(f, f2_coef<N, G>(f, s, r + 4, j, g),
+                  f2_coef<N, G>(f, s, r + 7, j, g)));
+      }, warp_after(4, G));
+      team_for<G>(2, base, n, [&](int j, int g) {   // a0 = lm yP, xi lm yP
+        Fe<N> a0 = s.get(r + 10 + j, g);
+        if constexpr (kMTwist)
+          a0 = xi_coef(f, xi, s.get(r + 10, g), s.get(r + 11, g), j);
+        st<N>(out, j, n, base + g, a0);
+      }, warp_after(4, G) + warp_after(2, G));
+      break;
+    case 2:
+      team_for<G>(6, base, n, [&](int c, int g) {   // E, F over C, G over D
+        const int i = c / 2;
+        s.put((i == 0 ? 22 : 16 + 2 * i) + c % 2, g,
+              f2_coef<N, G>(f, s, r + 3 * i, c % 2, g));
+      });
+      team_for<G>(2, base, n, [&](int j, int g) {   // c_x xP = -(th xP)
+        st<N>(out, S::kX + j, n, base + g,
+              sub(f, fe_zero<N>(), s.get(r + 9 + j, g)));
+      }, warp_after(6, G));
+      __syncthreads();
+      team_for<G>(4, base, n, [&](int c, int g) {   // H = F - 2G - E, G - H
+        const int j = c % 2;
+        const Fe<N> gj = s.get(20 + j, g);
+        const Fe<N> h = sub(f, sub(f, s.get(18 + j, g), add(f, gj, gj)),
+                            s.get(22 + j, g));
+        s.put(24 + c, g, select(c < 2, h, sub(f, gj, h)));
+      });
+      break;
+    default:
+      team_for<G>(4, base, n, [&](int c, int g) {   // X' = lm H, Z' = Z E
+        const int i = c / 2;
+        st<N>(out, 6 + 4 * i + c % 2, n, base + g,
+              f2_coef<N, G>(f, s, r + 9 * i, c % 2, g));
+      });
+      team_for<G>(2, base, n, [&](int j, int g) {   // Y' = th (G - H) - E Y
+        st<N>(out, 8 + j, n, base + g,
+              sub(f, f2_coef<N, G>(f, s, r + 3, j, g),
+                  f2_coef<N, G>(f, s, r + 6, j, g)));
+      }, warp_after(4, G));
+  }
+}
+
 template <int N, bool kMTwist>
-__global__ void __launch_bounds__(kTowerThreads)
+__global__ void __launch_bounds__(kAddLanes * kAddTeam)
     miller_add_kernel(Field<N> f, Xi xi, const uint32_t* __restrict__ xyz,
                       const uint32_t* __restrict__ q,
                       const uint32_t* __restrict__ p,
                       uint32_t* __restrict__ out, int64_t n) {
-  using S = LineSlots<kMTwist>;
-  LANE_LOOP(i, n) {
-    F2<N> X = ld2<N>(xyz, 0, n, i), Y = ld2<N>(xyz, 2, n, i),
-          Z = ld2<N>(xyz, 4, n, i);
-    F2<N> x2 = ld2<N>(q, 0, n, i), y2 = ld2<N>(q, 2, n, i);
-    F2<N> th = f2_sub(f, f2_mul(f, y2, Z), Y);
-    F2<N> lm = f2_sub(f, f2_mul(f, x2, Z), X);
-    st2<N>(out, 0, n, i,
-           f2_mul_base(f, kMTwist ? f2_mul_xi(f, xi, lm) : lm,
-                       ld<N>(p, 1, n, i)));
-    st2<N>(out, S::kX, n, i, f2_mul_base(f, f2_neg(f, th), ld<N>(p, 0, n, i)));
-    st2<N>(out, S::k0, n, i, f2_sub(f, f2_mul(f, th, x2), f2_mul(f, lm, y2)));
-    F2<N> C = f2_sqr(f, th), D = f2_sqr(f, lm);
-    F2<N> E = f2_mul(f, lm, D);
-    F2<N> Fv = f2_mul(f, Z, C), G = f2_mul(f, X, D);
-    F2<N> H = f2_sub(f, f2_sub(f, Fv, f2_add(f, G, G)), E);
-    st2<N>(out, 6, n, i, f2_mul(f, lm, H));
-    st2<N>(out, 8, n, i,
-           f2_sub(f, f2_mul(f, th, f2_sub(f, G, H)), f2_mul(f, E, Y)));
-    st2<N>(out, 10, n, i, f2_mul(f, Z, E));
+  constexpr int G = kAddLanes;
+  __shared__ uint32_t sm[kAddSlots * Slots<N, G>::kStride];
+  const Slots<N, G> s{sm};
+  for (int64_t base = (int64_t)blockIdx.x * G; base < n;
+       base += (int64_t)gridDim.x * G) {
+    team_for<G>(12, base, n, [&](int c, int g) {   // X, Y, Z, x2, y2, xP, yP
+      const uint32_t* src = c < 6 ? xyz : c < 10 ? q : p;
+      s.put(c, g, ld<N>(src, c < 6 ? c : c < 10 ? c - 6 : c - 10, n,
+                        base + g));
+    });
+    __syncthreads();
+#pragma unroll 1
+    for (int level = 0; level < 4; ++level) {
+      prod_stage<N, G>(f, s, kAddProds + kAddLevel[level],
+                       kAddLevel[level + 1] - kAddLevel[level], base, n);
+      __syncthreads();
+      add_combine<N, G, kMTwist>(f, xi, s, level, out, base, n);
+      __syncthreads();
+    }
   }
 }
 
@@ -794,7 +886,8 @@ int miller_add(const void* xyz, const void* q, const void* p, void* out,
   if (n == 0) return 0;
   Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
   miller_add_kernel<kN, kMTwist>
-      <<<tower_grid(n), kTowerThreads, 0, (cudaStream_t)stream>>>(
+      <<<team_grid(n, kAddLanes), kAddLanes * kAddTeam, 0,
+         (cudaStream_t)stream>>>(
           f, xi, (const uint32_t*)xyz, (const uint32_t*)q, (const uint32_t*)p,
           (uint32_t*)out, n);
   return (int)cudaGetLastError();
@@ -904,7 +997,8 @@ int k11_miller_add_mtwist(const void* xyz, const void* q, const void* p,
 // doubling, the Miller add): the occupancy report of chip_cios_unroll.py.
 void tower_block_threads(int* threads) {
   const int t[5] = {kK8Lanes * kK8Team, kSqrLanes * kSqrTeam,
-                    kK9Lanes * kK9Team, kDblLanes * kDblTeam, kTowerThreads};
+                    kK9Lanes * kK9Team, kDblLanes * kDblTeam,
+                    kAddLanes * kAddTeam};
   for (int k = 0; k < 5; ++k) threads[k] = t[k];
 }
 
