@@ -51,8 +51,15 @@ count and the first variant's at 2^16 lanes, bit for bit.  K1 and K2
 (the add-and-sub pair, as chip_smoke.py's row) are timed the same way at
 24 words at FIELD_LANES[24] lanes (the MNT6753 paths' and 2^16) and at 8
 and 12 words at their paths' lane counts and 2^16, each checked against
-its plain version at every lane count.  With --only and a comma-separated
-list of fp (K1, K2), tower (K8, K9 and the Miller steps of K10 and K11),
+its plain version at every lane count; K3 as the transforms of the prove
+(NTT_RUNS: NTTDevice's 2^16-point fft, odd-coset fft and ifft and its
+2^17-point ifft over BN128's Fr), each checked against ntt_pass_plain:
+the passes of the transform kernel, or under a field library without
+k3_ntt_pass (a --baseline from before it) the per-stage loop, which then
+runs every NTT, the proves' too (loop_transform: a gather, one
+k3_butterfly a stage, a mirror gather and a K1 product by 1/N).  With
+--only and a comma-separated
+list of fp (K1-K3), tower (K8, K9 and the Miller steps of K10 and K11),
 mnt (K12-K14) and curve (K5-K7), only those libraries are built and only
 their kernels timed; tower builds tower_kernels.cu.
 With --sass it prints,
@@ -96,7 +103,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROLLED = "#define FP_CIOS_ROLLED\n"
 # the parts --only chooses from: library name prefix -> kernels timed
-PARTS = {"fp": "K1, K2", "tower": "K8, K9, the Miller steps",
+PARTS = {"fp": "K1-K3", "tower": "K8, K9, the Miller steps",
          "mnt": "K12-K14", "curve": "K5-K7"}
 # library -> (source, words)
 LIBS = {"fp_kernels_w8": ("fp_kernels.cu", 8),
@@ -125,6 +132,12 @@ FIELD_LANES = {24: (255, 256, 510, 1024, 1530, 2048, 3072, 4096, 6120, BIG),
 # 1,114,112 and 2,228,156; K7's 4, with the fold's doublings a launch,
 # "K7 fold", and with one) and 2^16 (K5 on chip_smoke.py's random-Z
 # points, the general case; K7 one doubling a launch)
+# K3 (BN128's Fr): the transforms the prove runs, at its two sizes — the
+# 2^16-point fft, odd-coset fft and ifft and the 2^17-point ifft — as
+# (name, odd coset, inverse)
+NTT_RUNS = {BIG: (("fft", False, False), ("odd fft", True, False),
+                  ("ifft", False, True)),
+            2 * BIG: (("ifft", False, True),)}
 CURVE_LANES = {"K5 path": {8: (2_444_827,), 12: (2_388_711,)},
                "K5": {w: (BIG,) for w in (8, 12)},
                "K6": {w: (4, 68, 1_114_112, 2_228_156, BIG) for w in (8, 12)},
@@ -304,7 +317,7 @@ def main() -> int:
     from wasmsnark_tpu_torch.models.bn128 import bn128
     from wasmsnark_tpu_torch.models.mnt6753 import mnt6753
     from wasmsnark_tpu_torch.ops import curve as cv
-    from wasmsnark_tpu_torch.ops import cuda_lib, fp, tower_kernels as tk
+    from wasmsnark_tpu_torch.ops import cuda_lib, fp, ntt, tower_kernels as tk
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -329,8 +342,16 @@ def main() -> int:
         lib: sw for lib, sw in LIBS.items()
         if parts[lib.split("_kernels")[0]]}, args.sass)
 
+    transform = ntt.NTTDevice._transform
+
     def use(name):                    # bind variant name's libraries
         cuda_lib._libs.update(libs[name])
+        # a field library from before the transform kernel (a --baseline)
+        # runs every NTT, the proves' too, one k3_butterfly a stage
+        lib = libs[name].get("fp_kernels_w8")
+        ntt.NTTDevice._transform = (
+            loop_transform if lib is not None
+            and not hasattr(lib, "k3_ntt_pass") else transform)
 
     result = {"device": smi, **result, "ms": {}}
 
@@ -368,6 +389,21 @@ def main() -> int:
            for w in (8, 12)}
     ins = (A, B, X, Y, Z, xP, yP)
     FX = {w: (rand(specs[w]), rand(specs[w])) for w in FIELD_LANES}
+    # K3: 2 * BIG random points of BN128's Fr, their first k at k points
+    fr = bn128().fr_spec
+    NTT = ntt.NTTDevice(bn128().ntt_spec, fp.FpDevice(fr, DEVICE))
+    a = rng.integers(0, 1 << 16, size=(fr.n_limbs, 2 * n), dtype=np.uint32)
+    a[-1] = rng.integers(0, fr.q_limbs[-1], size=2 * n, dtype=np.uint32)
+    XR = fp.planes(a, DEVICE)
+
+    def k3(x, odd, inverse):
+        return (NTT.ifft if inverse else NTT.fft)(x, odd)
+
+    def k3_plain(x, odd, inverse):
+        bits = x.shape[1].bit_length() - 1
+        p = NTT.plan(bits, odd, inverse)
+        return ntt.ntt_pass_plain(fr, x, p["tw"], 0, bits, True,
+                                  p.get("invn"))
     # P, Q (Jacobian) and Qa (affine) per word count, as chip_smoke.py's
     PTS = {w: smoke.curve_inputs(m, rng, DEVICE, n)
            for w, m in ((8, bn128()), (12, bls12381()))} if curves else {}
@@ -463,6 +499,9 @@ def main() -> int:
                 out[f"K1 @N{w}"] = lambda s=s, x=x, y=y: fp.mont_mul(s, x, y)
                 out[f"K2 @N{w}"] = lambda s=s, x=x, y=y: (
                     fp.mod_add(s, x, y), fp.mod_sub(s, x, y))
+        for name, odd, inverse in (NTT_RUNS.get(k, ()) if field else ()):
+            out[f"K3 {name}"] = (lambda x=XR[:, :k].contiguous(), o=odd,
+                                 i=inverse: k3(x, o, i))
         out.update({name: fn for name, fn, _ in curve_runs(k)})
         return out
 
@@ -495,7 +534,9 @@ def main() -> int:
                         tk.f12_cyc_sqr_plain(specs[w], a, XI[w]),
                         dbl(w, cut(DBL[w], k), plain=True),
                         add(w, cut(ADD[w], k), plain=True)]
-        return _leaves(out + field_plain(k)
+        k3s = [k3_plain(XR[:, :k].contiguous(), odd, inverse)
+               for _, odd, inverse in (NTT_RUNS.get(k, ()) if field else ())]
+        return _leaves(out + field_plain(k) + k3s
                        + [p() for _, _, p in curve_runs(k)])
 
     def raw(k):
@@ -567,8 +608,8 @@ def main() -> int:
     if args.pairings or args.batches:
         cuda_lib.build()              # the field and curve libraries
     lanes = sorted(set(MNT_LANES + TOWER_LANES).union(
-        *FIELD_LANES.values(), *[ks for c in CURVE_LANES.values()
-                                 for ks in c.values()]))
+        NTT_RUNS, *FIELD_LANES.values(), *[ks for c in CURVE_LANES.values()
+                                           for ks in c.values()]))
     small = {k: plain(k) for k in lanes if k != n}
     first = None
     order = list(variants) + list(variants)[::-1]
@@ -606,6 +647,34 @@ def main() -> int:
             smoke, list(libs), use, args.batches)
     print(json.dumps(result))
     return 0
+
+
+_STAGE_TABLES: dict = {}
+
+
+def loop_transform(nd, x, tw, invn):
+    """NTTDevice._transform in K3's one-stage design: a bit-reverse gather,
+    one k3_butterfly launch a stage, and where invn is given a mirror
+    gather and a K1 product by 1/N; the stages' tables cut from the
+    transform's table once."""
+    import torch
+    from wasmsnark_tpu_torch.ops import fp, ntt
+    n = x.shape[1]
+    bits = n.bit_length() - 1
+    key = (tw.data_ptr(), bits)
+    if key not in _STAGE_TABLES:
+        _STAGE_TABLES[key] = (
+            [tw[:, (1 << s) - 1:(2 << s) - 1].contiguous()
+             for s in range(bits)],
+            torch.from_numpy(ntt._bitrev(bits)).to(x.device),
+            (-torch.arange(n, device=x.device)) % n)
+    tabs, rev, mirror = _STAGE_TABLES[key]
+    y = torch.index_select(x, 1, rev)
+    for t in tabs:
+        y = ntt.butterfly(nd.field, y, t)
+    if invn is not None:
+        y = fp.mont_mul(nd.field, torch.index_select(y, 1, mirror), invn)
+    return y
 
 
 def turns(names, rounds):
@@ -689,8 +758,8 @@ def pairing_batches(smoke, names, use, rounds):
 
 def device_ms(run):
     """The card's kernel time in one call of run(), from torch.profiler:
-    the sum over its kernels, and the five that take most of it (ms); a
-    total of None where the profiler recorded no device time."""
+    the sum over its kernels, and each kernel's, most first (ms); a total
+    of None where the profiler recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -700,11 +769,11 @@ def device_ms(run):
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
           if e.device_type == DeviceType.CUDA]
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:5]
+    ev = sorted(ev, key=lambda e: -e.self_device_time_total)
     return {"total_ms": sum(e.self_device_time_total for e in ev) / 1e3
             or None,
-            "top_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                       for e in top}}
+            "kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                           for e in ev}}
 
 
 def bls_verify_lanes(smoke):

@@ -14,14 +14,18 @@ Runs from the root of a checkout, with nothing prebuilt:
      numpy generator plus edge values (0, 1, q-1, q-2; zero, equal and
      opposite points for the curve kernels; Z = 0 and x2 = X/Z lanes for
      the Miller steps; cyclotomic elements for K13), requiring bit
-     equality, and times both with CUDA events;
+     equality, and times both with CUDA events; K3 (over each curve's Fr)
+     as one stage and as the transforms of CALC_H (the 2^16 fft and
+     odd-coset fft, the 2^17 ifft), timed for BN128 with a 2^21
+     ifft(fft(x)) round trip that must return x;
 
 then, for BN128 and then for BLS12-381, at each curve's full widths:
 
   4. runs the trusted setup of a 2^16-constraint circuit on the card;
   5. proves twice through build_<curve>().groth16_gen_proof with a fixed
      rng, with every launch counter set to 0 just before the first prove
-     and read just after it — each of K1-K7 must have launched; the first
+     and read just after it — each of K1-K7 must have launched, K3 once
+     a pass of CALC_H's five transforms (ops/ntt.py ntt_passes); the first
      prove's K5 and K7 calls are probed (their wrappers wrapped, the
      launches unchanged): K5's lanes counted by kind (k5_lane_kinds: P
      zero, Q zero, Z1 = one or not, P = Q, P = -Q, an add) and K7's
@@ -115,6 +119,8 @@ BUDGET_S = 840                   # under the 900 s outer timeout: a hang
                                  # prints its stack before it is killed
 LOG_2N = 16                      # circuit domain 2^16
 N_LANES = 1 << 16                # lanes of each kernel check
+ROUND_TRIP_LOG = 21              # K3's ifft(fft(x)) round trip, 2^21
+                                 # points (the JAX package's test_scale)
 SEED = 20261017
 DEVICE = "cuda"                  # the card (a host rehearsal sets "cpu")
 
@@ -147,7 +153,8 @@ OTHER_DESIGN = {"k1_mont_mul": "mont_mul_team_kernel",
                 "k8_f12_mul": "f12_mul_thread_kernel"}
 ENTRY_KERNEL = {
     "k1_mont_mul": "mont_mul_kernel", "k2_mod_add": "addsub_kernel",
-    "k2_mod_sub": "addsub_kernel", "k3_butterfly": "butterfly_kernel",
+    "k2_mod_sub": "addsub_kernel", "k3_butterfly": "ntt_pass_kernel",
+    "k3_ntt_pass": "ntt_pass_kernel",
     "k4_cneg": "cneg_kernel", "k5_jac_madd": "jac_madd_kernel",
     "k6_jac_add": "jac_add_kernel", "k7_jac_dbl": "jac_dbl_kernel",
     "k8_f12_mul": "f12_mul_kernel", "k8_f12_sqr": "f12_sqr_kernel",
@@ -340,8 +347,11 @@ def at_path_lanes(kr):
         for k, v in c.items():
             total[k] = total.get(k, 0) + v
     lanes = sorted(total, key=lambda k: (-total[k], k))[:PATH_LANES]
-    # the row's own path: the one its launches count
-    counts = next((c for c in kr["lanes_by_path"].values() if c), {})
+    # the row's own path: the one its launches count, as calls of the row
+    # (K3's transform is a launch a pass: kr["launches_per_call"])
+    per_call = kr.get("launches_per_call", lambda k: 1)
+    counts = {k: v / per_call(k) for k, v in next(
+        (c for c in kr["lanes_by_path"].values() if c), {}).items()}
     rest = [k for k in counts if k not in lanes]
     if rest:
         lanes.append(max(rest, key=lambda k: (counts[k] * k, k)))
@@ -495,7 +505,7 @@ def check_kernels(dev):
     out = []
 
     def record(curve, spec, kid, name, source, line, fn_k, fn_p, args,
-               nbytes, ops, fns=None):
+               nbytes, ops, fns=None, **extra):
         a, b = fn_k(*args), fn_p(*args)
         torch.cuda.synchronize()
         bad, err = mismatch(a, b)
@@ -516,7 +526,7 @@ def check_kernels(dev):
             "bytes": nbytes, "ops": ops, "ops_of": ops_of, "lanes": n,
             "n_words": nw,
             "curve": curve, "fns": fns or cuda_lib.KERNELS[kid][1],
-            "run": (fn_k, fn_p, args)})
+            "run": (fn_k, fn_p, args), **extra})
         say(f"{label}: {bad} mismatched lanes, {ms:.4f} ms "
             f"(plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
 
@@ -560,23 +570,8 @@ def check_curve_kernels(curve, m, dev, rng, rand, record, n):
         lambda x, y: (fp.mod_add_plain(Fq, x, y),
                       fp.mod_sub_plain(Fq, x, y)),
         (x, y), 2 * 3 * E * n, 2 * AS * n)
-    # K3 at the first stage (h = 1), a middle one (h = 2^7) and the last
-    # (h = n/2, timed): below the last, lanes pair across groups g > 0
-    for h in (1, 1 << 7, n // 2):
-        tw = rand(Fr, h)
-        a, b = ntt.butterfly(Fr, xr, tw), ntt.butterfly_plain(Fr, xr, tw)
-        torch.cuda.synchronize()
-        if mismatch(a, b)[0]:
-            raise AssertionError(f"butterfly disagrees with its plain "
-                                 f"version at h = {h} over {curve} Fr")
-    if words(Fq) == words(Fr):
-        Er = elem_bytes(Fr)
-        record(curve, Fr, "K3", "butterfly", "fp_kernels.cu",
-               "wasmsnark_tpu/ops/fp_pallas.py:500",
-               lambda x, t: ntt.butterfly(Fr, x, t),
-               lambda x, t: ntt.butterfly_plain(Fr, x, t), (xr, tw),
-               (2 * n + n // 2) * Er,
-               (n // 2) * (mm_ops(Fr) + 2 * as_ops(Fr)))
+    check_ntt_kernels(curve, m, dev, rand, record, n,
+                      timed=words(Fq) == words(Fr))
     flag = torch.from_numpy(rng.integers(0, 2, size=n).astype(bool)).to(dev)
     rec("K4", "cneg", "fp_kernels.cu",
         "wasmsnark_tpu/ops/fp_pallas.py:374",
@@ -601,6 +596,107 @@ def check_curve_kernels(curve, m, dev, rng, rand, record, n):
         lambda P: cv.jac_double_plain(Fq, P), (P,),
         6 * E * n, functools.partial(k7_ops, Fq, 1))
     check_tower_kernels(curve, m, rand, rec, n)
+
+
+def ntt_ops(spec, n, inverse):
+    """Operations of an n-point transform: n/2 butterflies a stage (a
+    product, an add and a sub), and an inverse's n products by 1/N."""
+    bits = n.bit_length() - 1
+    return ((n // 2) * bits * (mm_ops(spec) + 2 * as_ops(spec))
+            + (n * mm_ops(spec) if inverse else 0))
+
+
+def ntt_bytes(spec, n, inverse):
+    """Bytes an n-point transform must move: its planes read once and
+    written once, its n - 1 twiddles (and an inverse's 1/N) read once."""
+    return (3 * n - 1 + int(inverse)) * elem_bytes(spec)
+
+
+def check_ntt_kernels(curve, m, dev, rand, record, n, timed):
+    """K3 over the curve's Fr (8 words): one stage (k3_butterfly) at the
+    first width (h = 1), a middle one (h = 2^7) and the last (h = n/2;
+    below it lanes pair across groups g > 0); then the transforms CALC_H
+    runs, through NTTDevice (k3_ntt_pass, two passes each): the n-point
+    fft and odd-coset fft and the 2n-point ifft, each bit-equal to
+    ntt_pass_plain over all of its stages on the card.  Where `timed`
+    (BN128), the K3 row: the n-point fft, its path-lane timing on the ifft
+    (which the prove runs at both of its sizes; its launches counted as
+    transforms, a launch a pass), the three transforms' ms, plain ms and
+    bounds under "transforms", and the 2^ROUND_TRIP_LOG ifft(fft(x)) round
+    trip, timed, which must return x."""
+    import torch
+    from wasmsnark_tpu_torch.ops import fp, ntt
+
+    Fr = m.fr_spec
+    xr = rand(Fr)
+    for h in (1, 1 << 7, n // 2):
+        tw = rand(Fr, h)
+        a, b = ntt.butterfly(Fr, xr, tw), ntt.butterfly_plain(Fr, xr, tw)
+        torch.cuda.synchronize()
+        if mismatch(a, b)[0]:
+            raise AssertionError(f"butterfly disagrees with its plain "
+                                 f"version at h = {h} over {curve} Fr")
+    nd = ntt.NTTDevice(m.ntt_spec, fp.FpDevice(Fr, dev))
+
+    def transform(odd, inverse):
+        """The transform and its plain version on [L, 2^bits] planes."""
+        def run(x):
+            return (nd.ifft if inverse else nd.fft)(x, odd)
+
+        def plain(x):
+            bits = x.shape[1].bit_length() - 1
+            p = nd.plan(bits, odd, inverse)
+            return ntt.ntt_pass_plain(Fr, x, p["tw"], 0, bits, True,
+                                      p.get("invn"))
+        return run, plain
+
+    transforms = {}
+    for name, size, odd, inverse in (("fft", n, False, False),
+                                     ("odd fft", n, True, False),
+                                     ("ifft", 2 * n, False, True)):
+        x = xr if size == n else rand(Fr, size)
+        run, plain = transform(odd, inverse)
+        bad, err = mismatch(run(x), plain(x))
+        torch.cuda.synchronize()
+        if bad:
+            raise AssertionError(f"{name} at {size} disagrees with its "
+                                 f"plain version over {curve} Fr")
+        if timed:
+            b_ms, b_by = bound(ntt_bytes(Fr, size, inverse),
+                               ntt_ops(Fr, size, inverse))
+            transforms[f"{name} {size}"] = {
+                "launches": len(ntt.ntt_passes(size.bit_length() - 1)),
+                "max_abs_err": err, "ms": time_cuda(lambda: run(x), 50),
+                "plain_ms": time_cuda(lambda: plain(x), 3), "bound_ms": b_ms,
+                "bound_by": b_by}
+    if not timed:
+        return
+    big = 1 << ROUND_TRIP_LOG
+    x = rand(Fr, big)
+    (fwd, fwd_plain), (inv, inv_plain) = (transform(False, False),
+                                          transform(False, True))
+    same = torch.equal(inv(fwd(x)), x)
+    torch.cuda.synchronize()
+    if not same:
+        raise AssertionError(f"ifft(fft(x)) != x at 2^{ROUND_TRIP_LOG} over "
+                             f"{curve} Fr")
+    b_ms, b_by = bound(ntt_bytes(Fr, big, False) + ntt_bytes(Fr, big, True),
+                       ntt_ops(Fr, big, False) + ntt_ops(Fr, big, True))
+    transforms[f"round trip {big}"] = {
+        "launches": 2 * len(ntt.ntt_passes(ROUND_TRIP_LOG)),
+        "returns_input": same, "ms": time_cuda(lambda: inv(fwd(x)), 10),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del x
+    for name, t in transforms.items():
+        say(f"K3 {name}: {t['ms']:.4f} ms in {t['launches']} launches "
+            f"(bound {t['bound_ms']:.4f} ms by {t['bound_by']})")
+    record(curve, Fr, "K3", "ntt_pass", "fp_kernels.cu",
+           "wasmsnark_tpu/ops/fp_pallas.py:500", fwd, fwd_plain, (xr,),
+           ntt_bytes(Fr, n, False), lambda x: ntt_ops(Fr, x.shape[1], False),
+           transforms=transforms, path_run=(inv, inv_plain, (xr,)),
+           path_ops_of=lambda x: ntt_ops(Fr, x.shape[1], True),
+           launches_per_call=lambda k: len(ntt.ntt_passes(
+               k.bit_length() - 1)))
 
 
 # modular adds and subs of one Karatsuba F2 product (two operand sums,
@@ -1274,6 +1370,7 @@ def run_curve(curve, phases):
     from wasmsnark_tpu_torch.groth16.pkey import write_witness
     from wasmsnark_tpu_torch.models import curve_module
     from wasmsnark_tpu_torch.ops import cuda_lib
+    from wasmsnark_tpu_torch.ops.ntt import ntt_passes
 
     m = curve_module(curve)
     R = m.Fr.q
@@ -1313,6 +1410,12 @@ def run_curve(curve, phases):
     if missing:
         raise AssertionError(f"kernels never launched on the {curve} "
                              f"prove: {missing}")
+    # CALC_H's five transforms (two inverse and two odd-coset at 2^LOG_2N,
+    # one inverse at twice that), each one K3 launch a pass
+    k3 = (4 * len(ntt_passes(LOG_2N)) + len(ntt_passes(LOG_2N + 1)))
+    if launches["K3"] != k3 or cuda_lib.fn_launches["k3_butterfly"]:
+        raise AssertionError(f"{curve} prove: {launches['K3']} K3 launches, "
+                             f"not its transforms' {k3} passes")
     # what K5's and K7's launches on the prove were given: K5's lanes by
     # kind (its path-lane row takes their shares), K7's doublings a launch
     phases.update(probed_shapes(m.fp_spec, k5_calls, k7_calls))
@@ -1776,6 +1879,8 @@ def main() -> int:
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
+    phases["k3_transforms"] = {k["name"]: k["transforms"] for k in kernels
+                               if "transforms" in k}
 
     by_path = {}
     for curve in CURVES:

@@ -24,7 +24,8 @@ kernel phase on 128 lanes; the whole script runs at small sizes with
 
     PYTHONPATH=. python tests/test_torch_csrc_host.py
 
-(a few minutes; N_LANES 256, LOG_2N 5, N_VERIFY 16, N_MNT 4).
+(a few minutes; N_LANES 256, LOG_2N 5, N_VERIFY 16, N_MNT 4,
+ROUND_TRIP_LOG 10).
 """
 
 import ctypes
@@ -322,6 +323,83 @@ def test_butterfly_over_fr_and_no_12_word_build(libs, curve_name):
     xq = rand(fq, 5)
     assert call(libs, "k3_butterfly", fq,
                 (xq, rand(fq, 6, 4), torch.empty_like(xq)), (4,)) == 1
+
+
+def _ntt_splits(bits):
+    """Splits of stages 0..bits-1 into passes (s0, s1, tile_log):
+    ntt_passes's (one pass up to 2^10, two above), halves on the largest
+    tiles and thirds on the smallest, 2^(s1 - s0) elements (one column a
+    tile; some passes of no stages where bits < 3)."""
+    a, b = bits // 3, 2 * bits // 3
+    t = ntt.TILE_LOG
+    splits = [ntt.ntt_passes(bits), [(0, bits // 2, t), (bits // 2, bits, t)],
+              [(0, a, a), (a, b, b - a), (b, bits, bits - b)]]
+    return [s for k, s in enumerate(splits) if s not in splits[:k]]
+
+
+def _ntt_chain(libs, spec, x, tw, invn, split, gather, mirror):
+    """The K3 passes of `split` over x on the host build: the first gathers
+    where `gather`, the last mirrors and scales where `mirror`, a pass that
+    does neither runs in place."""
+    cur = x.clone()
+    for k, (s0, s1, tile_log) in enumerate(split):
+        g, m = gather and k == 0, mirror and k == len(split) - 1
+        out = torch.empty_like(cur) if g or m else cur
+        assert call(libs, "k3_ntt_pass", spec, (cur, tw, invn, out),
+                    (s0, s1, int(g) | m << 1, tile_log), n=x.shape[1]) == 0
+        cur = out
+    return cur
+
+
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381"])
+@pytest.mark.parametrize("bits", range(1, 13))
+def test_ntt_pass_kernel(libs, curve_name, bits):
+    """K3's transform kernel over the curve's Fr, a 2^bits domain: every
+    split of _ntt_splits, with and without the bit-reverse gather and the
+    mirror-and-scale epilogue, with the plain and the odd-coset twiddles of
+    NTTDevice.plan, bit-identical to ntt_pass_plain over all the stages in
+    one call."""
+    m = CURVES[curve_name]()
+    fr = m.fr_spec
+    nd = ntt.NTTDevice(m.ntt_spec, fp.FpDevice(fr, "cpu"))
+    x = rand(fr, 40 + bits, 1 << bits)
+    for odd in (False, True):
+        plan = nd.plan(bits, odd, inverse=True)
+        tw, invn = plan["tw"], plan["invn"]
+        for gather in (False, True):
+            for mirror in (False, True):
+                want = ntt.ntt_pass_plain(fr, x, tw, 0, bits, gather,
+                                          invn if mirror else None)
+                for split in _ntt_splits(bits):
+                    got = _ntt_chain(libs, fr, x, tw, invn, split, gather,
+                                     mirror)
+                    assert torch.equal(got, want), (odd, gather, mirror,
+                                                    split)
+
+
+def test_ntt_pass_refuses(libs):
+    """k3_ntt_pass returns cudaErrorInvalidValue (1) on the 12- and 24-word
+    builds, for a domain that is not a power of two, a tile larger than
+    the kernel's, a pass of more stages than its tile holds, a stage past
+    the domain, stages out of order and unknown flags."""
+    fr = bn128().fr_spec
+    x = rand(fr, 50, 1 << 12)
+    tw, out = rand(fr, 51, (1 << 12) - 1), torch.empty_like(x)
+    for spec in (bls12381().fp_spec, mnt6753().fp_spec):
+        xs = rand(spec, 52, 64)
+        assert call(libs, "k3_ntt_pass", spec, (xs, rand(spec, 53, 63),
+                                                xs[:, :1].contiguous(),
+                                                torch.empty_like(xs)),
+                    (0, 6, 0, 6), n=64) == 1
+    t = ntt.TILE_LOG
+    for n, s0, s1, flags, tile_log in (
+            (96, 0, 5, 0, t), (1 << 12, 0, t + 1, 0, t + 1),
+            (1 << 12, 0, 6, 0, 5), (1 << 12, 1, 13, 0, t),
+            (1 << 12, 0, 4, 4, t), (1 << 12, 5, 4, 0, t)):
+        assert call(libs, "k3_ntt_pass", fr, (x, tw, x, out),
+                    (s0, s1, flags, tile_log), n=n) == 1, (n, s0, s1, flags)
+    assert call(libs, "k3_ntt_pass", fr, (x, tw, x, out), (0, 10, 3, t),
+                n=1 << 12) == 0
 
 
 def _points(m, seed):
@@ -1296,6 +1374,61 @@ def test_chip_smoke_mnt_kernel_phase_rehearsal(libs, monkeypatch):
     assert spec.n_limbs == 48
 
 
+def test_chip_smoke_ntt_phase_rehearsal(libs, monkeypatch):
+    """chip_smoke.py's K3 phase on the host libraries at n = 1,024: one
+    stage at h = 1, 2^7 and n/2, the 1,024-point fft and odd-coset fft (one
+    pass each) and the 2,048-point ifft (two) bit-equal to their plain
+    versions, the 2^11 round trip returning its input, and the K3 row:
+    timed on the fft, with the transforms' launches and bounds, and its
+    path-lane run on the ifft at the prove's two sizes."""
+    smoke = rehearse(monkeypatch, libs, ROUND_TRIP_LOG=11)
+    rng = np.random.default_rng(smoke.SEED)
+    m = bn128()
+    fr = m.fr_spec
+    rows = []
+
+    def rnd(spec, k=1024):
+        a = rng.integers(0, 1 << 16, size=(spec.n_limbs, k), dtype=np.uint32)
+        a[-1] = rng.integers(0, spec.q_limbs[-1], size=k, dtype=np.uint32)
+        return fp.planes(a, "cpu")
+
+    def record(curve, spec, kid, name, source, line, fn_k, fn_p, args,
+               nbytes, ops, **extra):
+        bad, err = smoke.mismatch(fn_k(*args), fn_p(*args))
+        rows.append({"name": f"{kid} {name}", "mismatched_lanes": bad,
+                     "max_abs_err": err, "lanes": 1024, "bytes": nbytes,
+                     "ops": ops(*args), "ms": 0.5, "run": (fn_k, fn_p, args),
+                     "bound_ms": smoke.bound(nbytes, ops(*args))[0],
+                     **extra})
+
+    cuda_lib.reset_launches()
+    smoke.check_ntt_kernels("bn128", m, "cpu", rnd, record, 1024,
+                            timed=True)
+    assert cuda_lib.fn_launches["k3_butterfly"] > 0
+    (row,) = rows
+    assert row["name"] == "K3 ntt_pass" and row["mismatched_lanes"] == 0
+    t = row["transforms"]
+    assert list(t) == ["fft 1024", "odd fft 1024", "ifft 2048",
+                       "round trip 2048"]
+    assert [v["launches"] for v in t.values()] == [1, 1, 2, 4]
+    assert t["round trip 2048"]["returns_input"] is True
+    assert all(v.get("max_abs_err", 0) == 0 for v in t.values())
+    assert t["ifft 2048"]["bound_ms"] == smoke.bound(
+        3 * 2048 * 64, 1024 * 11 * 328 + 2048 * 280)[0]
+    assert smoke.ntt_ops(fr, 1 << 16, False) == 16 * (1 << 15) * 328
+    row["lanes_by_path"] = {"prove": {1024: 4, 2048: 2}}
+    cuda_lib.reset_launches()
+    smoke.at_path_lanes(row)
+    assert row["lanes_at_path"] == [1024, 2048]
+    assert row["bound_ms_at_path"][2048] == smoke.bound(
+        row["bytes"] * 2, smoke.ntt_ops(fr, 2048, True))[0]
+    # four 1,024-point transforms of one launch, one 2,048-point of two
+    ms, bd = row["ms_at_path"], row["bound_ms_at_path"]
+    assert row["path_loss_ms"] == pytest.approx(
+        4 * (ms[1024] - bd[1024]) + (ms[2048] - bd[2048]))
+    assert cuda_lib.lane_launches[("k3_ntt_pass", 8, 2048)] > 0
+
+
 def test_chip_smoke_times_rows_at_path_lanes(libs, monkeypatch):
     """chip_smoke.py's path-lane timing on the host libraries: the launch
     counters by lane count, the three most frequent lane counts of a row
@@ -1390,7 +1523,7 @@ if __name__ == "__main__":
             pytest.MonkeyPatch.context() as mp:
         host = build_host_libs(tmp)
         smoke = rehearse(mp, host, N_LANES=256, LOG_2N=5, N_VERIFY=16,
-                         N_MNT=4, DEVICE="cpu")
+                         N_MNT=4, ROUND_TRIP_LOG=10, DEVICE="cpu")
         mp.setattr(smoke.subprocess, "run", lambda *a, **k: type(
             "R", (), {"stdout": "host rehearsal, 0 W"})())
         mp.setattr(smoke, "ptxas_summary", lambda d: {})

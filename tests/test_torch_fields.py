@@ -113,6 +113,32 @@ def test_inverse_and_pow_vs_oracle(which):
     assert cube == [pow(v, 3, q) for v in vals]
 
 
+@pytest.mark.parametrize("field", ["bn128_fp", "bn128_fr", "bls_fq",
+                                   "bls_fr", "mnt_fq"])
+def test_mont_mul_plain_carry_chains(field):
+    """mont_mul_plain where U = x y + m q ends in a carry that runs through
+    every limb of its low half (1 times R mod q over BLS12-381's Fr: U = R,
+    so 16 limbs of 2^16 - 1 pass on the carry of a limb that also carries),
+    against the integers: x y R^-1 mod q.  One lane a call: the carry
+    rounds run until the batch's largest column is small enough, so other
+    lanes in the batch could hide a chain."""
+    from wasmsnark_tpu_torch.models.bls12381 import bls12381
+    from wasmsnark_tpu_torch.models.mnt6753 import mnt6753
+    curve, kind = field.split("_")
+    m = {"bn128": tbn128, "bls": bls12381, "mnt": mnt6753}[curve]()
+    s = m.fp_spec if kind == "fq" or kind == "fp" else m.fr_spec
+    q, R = s.q, 1 << (16 * s.n_limbs)
+    xs = [1, 2, 3, q - 1, q - 2, q // 2, 65535, 65536]
+    ys = [R % q, R * R % q, (q - 1) * R % q, 1]
+    for x in xs:
+        for y in ys:
+            tx, ty = (tfp.planes(np.array([s.limbs(v)], dtype=np.uint32).T,
+                                 CPU) for v in (x, y))
+            got = tser.limbs_to_ints(tfp.to_numpy(
+                tfp.mont_mul_plain(s, tx, ty)))
+            assert got == [x * y * pow(R, -1, q) % q], (x, y)
+
+
 def test_reduce_wide_sum_and_construct_lc_vs_jax():
     """construct_lc with duplicate destinations and empty buckets (the case
     of tests/test_groth16_e2e.py) equals the JAX package's planes."""

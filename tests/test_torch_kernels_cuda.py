@@ -1,11 +1,12 @@
 """The CUDA kernels K1-K14 against their plain versions on the card: K1-K10
 at BN128's 8 words, K1-K3 over BLS12-381's Fr (8 words), K1, K2, K4-K9
 and K11 over BLS12-381's Fq (12 words), and K1, K2, K4 and K12-K14 over
-MNT6753's Fq (24 words); the team kernels of K8's product and square, K9,
-the Miller doubling and add of K10 and K11 and K12-K14, K1 and K2 at 24
-words and K6 at 8 and 12, also at the lane counts of their paths; K5 on
-promoted affine points, as the prove gives it, and K7 with several
-doublings a launch.
+MNT6753's Fq (24 words); K3 also as NTTDevice's transforms and their
+passes over both curves' Fr, up to 2^17 points, and a 2^21 round trip;
+the team kernels of K8's product and square, K9, the Miller doubling and
+add of K10 and K11 and K12-K14, K1 and K2 at 24 words and K6 at 8 and
+12, also at the lane counts of their paths; K5 on promoted affine
+points, as the prove gives it, and K7 with several doublings a launch.
 
 Marked `cuda`: they need an NVIDIA card and nvcc, and skip elsewhere.  On
 the card, where jax is not installed and tests/conftest.py would import
@@ -68,6 +69,54 @@ def test_field_kernels_match_plain(dev, which):
     f = torch.arange(4099, device=dev) % 3 == 0
     assert torch.equal(towers.mod_cneg(spec, f, x),
                        towers.mod_cneg_plain(spec, f, x))
+
+
+@pytest.mark.parametrize("which", ["fr", "bls_fr"])
+@pytest.mark.parametrize("bits", [1, 5, 10, 11, 16, 17])
+def test_ntt_transform_kernel_match_plain(dev, which, bits):
+    """K3's transform kernel over the curve's Fr: NTTDevice.fft and ifft
+    with the plain and the odd-coset twiddles (ntt_passes: one pass up to
+    2^10, two above), and the passes of a split in halves and in thirds
+    with and without the gather and the mirror-and-scale epilogue, against
+    ntt_pass_plain over all stages, bit for bit."""
+    from wasmsnark_tpu_torch.models import curve_module
+    m = curve_module("bn128" if which == "fr" else "bls12381")
+    spec = SPECS[which]()
+    nd = ntt.NTTDevice(m.ntt_spec, fp.FpDevice(spec, dev))
+    x = _rand(spec, 1 << bits, 30 + bits, dev)
+    a, b = bits // 3, 2 * bits // 3
+    for odd in (False, True):
+        p = nd.plan(bits, odd, inverse=True)
+        tw, invn = p["tw"], p["invn"]
+        assert torch.equal(nd.fft(x, odd), ntt.ntt_pass_plain(
+            spec, x, tw, 0, bits, True))
+        assert torch.equal(nd.ifft(x, odd), ntt.ntt_pass_plain(
+            spec, x, tw, 0, bits, True, invn))
+        for split in ([(0, bits // 2), (bits // 2, bits)],
+                      [(0, a), (a, b), (b, bits)]):
+            for gather in (False, True):
+                for mirror in (False, True):
+                    cur = x
+                    for k, (s0, s1) in enumerate(split):
+                        cur = ntt.ntt_pass(
+                            spec, cur, tw, s0, s1, gather and k == 0,
+                            invn if mirror and k == len(split) - 1
+                            else None)
+                    assert torch.equal(cur, ntt.ntt_pass_plain(
+                        spec, x, tw, 0, bits, gather,
+                        invn if mirror else None)), (odd, split, gather,
+                                                     mirror)
+
+
+def test_ntt_round_trip_2_21(dev):
+    """ifft(fft(x)) == x at 2^21 points over BN128's Fr (the JAX package's
+    tests/test_scale.py at the port): three K3 launches each way."""
+    m = bn128()
+    nd = ntt.NTTDevice(m.ntt_spec, fp.FpDevice(m.fr_spec, dev))
+    x = _rand(m.fr_spec, 1 << 21, 40, dev)
+    cuda_lib.reset_launches()
+    assert torch.equal(nd.ifft(nd.fft(x)), x)
+    assert cuda_lib.fn_launches["k3_ntt_pass"] == 6
 
 
 @pytest.mark.parametrize("n", [255, 256, 510])

@@ -73,3 +73,42 @@ def test_calc_h_bit_identical():
     tp = TProver(CPU)
     got = tp.calc_h(proving_key_from_numpy(jpk), tfp.planes(wit, CPU))
     np.testing.assert_array_equal(tfp.to_numpy(got), want)
+
+
+@pytest.fixture(scope="module")
+def host_fp(tmp_path_factory):
+    """The 8-word field library (K1-K4) built by g++ for the host."""
+    import shutil
+    from test_torch_csrc_host import build_host_libs
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    return build_host_libs(tmp_path_factory.mktemp("ntt_host"),
+                           only=("fp_kernels_w8",))
+
+
+@pytest.mark.parametrize("bits,tile_log", [(3, 10), (7, 4), (10, 6),
+                                           (11, 10)])
+def test_fft_ifft_through_k3_host_build(host_fp, monkeypatch, bits,
+                                        tile_log):
+    """NTTDevice.fft / ifft as on the card, every pass a launch of K3's
+    transform kernel (the host build, through chip_smoke.py's rehearsal
+    hooks), with TILE_LOG set to tile_log for the pass split: one pass,
+    five, three and two; bit for bit against the JAX package's
+    NTTDevice on the same input, with no other kernel launched."""
+    from test_torch_csrc_host import rehearse
+    from wasmsnark_tpu_torch.ops import cuda_lib, ntt as tntt
+    rehearse(monkeypatch, host_fp)
+    monkeypatch.setattr(tntt, "TILE_LOG", tile_log)
+    x = _input(bits, 100 + bits)
+    want = [np.asarray(w) for w in _jax_transforms_jit(x)]
+    tx = tfp.planes(x, CPU)
+    cuda_lib.reset_launches()
+    f, fo = TN.fft(tx), TN.fft(tx, odd=True)
+    got = [f, fo, TN.ifft(f), TN.ifft(fo, odd=True)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(tfp.to_numpy(g), w)
+    passes = len(tntt.ntt_passes(bits))
+    assert passes == {3: 1, 7: 5, 10: 3, 11: 2}[bits]
+    assert {k: v for k, v in cuda_lib.launches.items() if v} == {
+        "K3": 4 * passes}
+    assert cuda_lib.fn_launches["k3_ntt_pass"] == 4 * passes

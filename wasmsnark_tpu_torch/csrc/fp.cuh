@@ -293,8 +293,8 @@ __device__ __forceinline__ void st(uint32_t* __restrict__ p, int c, int64_t n,
 // threads a block instead: the fewest whole warps that cover n lanes in at
 // most kSMs blocks, at most kThreads.  255 lanes run as 8 one-warp blocks
 // on 8 SMs, 6,120 lanes as 96 blocks of 64, and from kSMs * kThreads =
-// 33,792 lanes on this is grid_for's shape again.  K3 and K4 keep
-// grid_for's shape: their paths launch them on 2^16 lanes and more.
+// 33,792 lanes on this is grid_for's shape again.  K4 keeps grid_for's
+// shape: its path launches it on 2^21 lanes and more.
 constexpr int kThreads = 256;
 constexpr int kSMs = 132;                       // H100 SXM
 constexpr int kWarp = 32;

@@ -4,8 +4,9 @@
 //               (mont_mul_pallas): batched CIOS x*y*R^-1 mod q.
 // K2 mod_add/sub replaces fp_pallas.py _mod_addsub_kernel
 //               (mod_add_pallas / mod_sub_pallas): (x +/- y) mod q.
-// K3 butterfly  replaces fp_pallas.py _butterfly_kernel (butterfly_pallas):
-//               one radix-2 NTT stage, (u + v*w, u - v*w) mod r.
+// K3 ntt_pass   replaces fp_pallas.py _butterfly_kernel (butterfly_pallas):
+//               radix-2 NTT stages, (u + v*w, u - v*w) mod r, up to ten a
+//               launch in shared memory (below); butterfly, one stage.
 // K4 cneg       replaces fp_pallas.py _cneg_kernel (mod_cneg_pallas):
 //               flag ? q - y : y with -0 = 0.
 //
@@ -15,10 +16,10 @@
 // instructions) against 3 planes of 64 bytes each, so at one lane per
 // thread they sit near the integer-issue limit, not the byte limit.
 //
-// Design: one thread per lane, the element held in registers as N 32-bit
-// words, a grid-stride loop over lanes; K1 and K2 in blocks sized by
-// fp.cuh's spread_threads, so that the few hundred lanes the pairing paths
-// launch them with run on many SMs and not on one.  K1 at 24 words
+// Design (K1, K2, K4): one thread per lane, the element held in
+// registers as N 32-bit words, a grid-stride loop over lanes; K1 and K2 in
+// blocks sized by fp.cuh's spread_threads, so that the few hundred lanes
+// the pairing paths launch them with run on many SMs and not on one.  K1 at 24 words
 // (MNT6753) has a second design for such batches, up to kK1TeamMaxLanes
 // lanes: one lane's product spread over a team of 24 threads (below).
 //
@@ -340,22 +341,179 @@ mont_mul_team_kernel(Field<N> f, WideInv<N> inv,
 #endif
 
 #if WORDS == 8
-// One NTT stage over the whole domain.  x and out are [L, n] planes; the
-// stage pairs lane u = g*2h + j with v = u + h (h = half the group size)
-// and multiplies v by twiddle j of the [L, h] table tw.
+// K3: radix-2 NTT stages in shared memory.
+//
+// The TPU kernel runs one stage a call, (u + v w, u - v w) over the whole
+// domain; run that way on the card, a 2^16 transform is 16 launches that
+// each read and write the whole 4 MB of planes again, plus a bit-reverse
+// gather before them and, for an inverse, a mirror gather and a 1/N
+// product after.  Here one launch, a pass, runs stages [s0, s1) of the
+// bit-reversed-input DIT on tiles held in shared memory.  Stage s (from 0)
+// pairs element u with u + 2^s, so stages s0..s1-1 combine only elements
+// that agree on every index bit outside [s0, s1): a tile fixes those bits
+// and takes all 2^(s1-s0) rows of the bits inside, for C consecutive low
+// indices (its columns), and for G whole groups where one group's columns
+// leave room.  Pass 1 (s0 = 0, C = 1) takes runs of 2^k consecutive
+// elements; a later pass takes C >= 4 columns, runs of at least 16 bytes
+// of each limb plane, and consecutive threads take consecutive columns.
+// A tile holds up to kNttTile elements (32 KB of static shared memory, so
+// at most 10 stages a pass); the caller picks a smaller tile where the
+// domain would otherwise leave SMs idle (ops/ntt.py ntt_passes: 512
+// elements and two passes at 2^16, 1,024 and two at 2^17, three passes
+// at 2^21).
+//
+// The ends of a transform ride on its passes: pass 1 loads element i from
+// x[rev(i)] (the bit-reverse gather), and an inverse's last pass stores
+// element i at (n - i) mod n times 1/N (the mirror and the scale).
+// Twiddles come from one table per transform, stage s's 2^s entries at
+// column 2^s - 1 of [L, n - 1] planes (ops/ntt.py NTTDevice.plan); a pass
+// reads its stages' entries through L1 and L2.
+//
+// What bounds it: per butterfly one 8-word Montgomery product (~2N^2 wide
+// multiply-adds) and an add and a sub, against 64 bytes of planes read and
+// written once a pass, so the SM's integer multiply-add pipe: a stage
+// costs what one tile's butterflies cost its SM, about the same with 8 or
+// 16 warps a block (PERF.md §6).  Every value stays canonical, so any
+// split into passes gives the plain version's planes bit for bit.  In
+// shared memory an element is 8 words of 32 bits, word-major (word w of
+// element e at s[w * kNttTile + e]), so the threads of a warp read
+// neighbouring banks.
+//
+// K3's one-stage entry point k3_butterfly runs the same kernel over one
+// stage of any width h dividing n/2, with the [L, h] table of that stage.
+//
+// The loops over a tile are `for (w = threadIdx.x; ...; w += blockDim.x)`
+// with a __syncthreads() after each that every thread reaches, and no warp
+// primitives: tests/cuda_host_shim runs the same code on one thread.
+constexpr int kNttTileLog = 10;
+constexpr int kNttTile = 1 << kNttTileLog;       // elements a tile at most
+constexpr int kNttThreads = kNttTile / 2;        // a butterfly a thread
+
+// The geometry of one pass over [L, n] planes: the stages of half-width
+// H, 2H, ..., 2^(k-1) H, a tile of 2^logG groups x 2^k rows x 2^logC
+// columns; element (g, r, c) of tile t is element ((g0 + g) 2^k + r) H + l0
+// + c of the domain, g0 = (t / chunks) 2^logG, l0 = (t % chunks) 2^logC.
+struct NttPass {
+  int64_t n;          // elements of the domain
+  int64_t H;          // half-width of the pass's first stage: the columns
+  int64_t groups;     // n / (2^k H): runs that the pass combines within
+  int64_t chunks;     // tiles across one group's columns, ceil(H / 2^logC)
+  int64_t tiles;
+  int64_t tw_stride;  // elements in a plane of the twiddle table
+  int64_t tw_bias;    // twiddle j of the stage of half-width hs at hs - bias + j
+  int k, logC, logG;
+  int rev_bits;       // > 0: element i loads from x[rev(i)] over rev_bits bits
+  int mirror;         // element i stores at (n - i) mod n, times scale
+};
+
+// The low `bits` bits of v in reverse order (bits <= 32); the shim has no
+// __brev, so the swaps are written out.
+__host__ __device__ inline uint32_t reverse_bits(uint32_t v, int bits) {
+  v = ((v >> 1) & 0x55555555u) | ((v & 0x55555555u) << 1);
+  v = ((v >> 2) & 0x33333333u) | ((v & 0x33333333u) << 2);
+  v = ((v >> 4) & 0x0F0F0F0Fu) | ((v & 0x0F0F0F0Fu) << 4);
+  v = ((v >> 8) & 0x00FF00FFu) | ((v & 0x00FF00FFu) << 8);
+  v = (v >> 16) | (v << 16);
+  return bits ? v >> (32 - bits) : 0;
+}
+
 template <int N>
-__global__ void butterfly_kernel(Field<N> f, const uint32_t* __restrict__ x,
-                                 const uint32_t* __restrict__ tw,
-                                 uint32_t* __restrict__ out, int64_t n,
-                                 int64_t h) {
-  LANE_LOOP(t, n / 2) {
-    int64_t g = t / h, j = t - g * h;
-    int64_t iu = g * 2 * h + j, iv = iu + h;
-    Fe<N> u = load_fe<N>(x, n, iu);
-    Fe<N> v = mont_mul(f, load_fe<N>(x, n, iv), load_fe<N>(tw, h, j));
-    store_fe(out, n, iu, add(f, u, v));
-    store_fe(out, n, iv, sub(f, u, v));
+__global__ void __launch_bounds__(kNttThreads)
+ntt_pass_kernel(Field<N> f, const uint32_t* x, const uint32_t* __restrict__ tw,
+                const uint32_t* __restrict__ scale, uint32_t* out, NttPass p) {
+  // x and out may be one buffer (a pass without gather or mirror reads and
+  // writes the same elements of a tile): no __restrict__ on them
+  __shared__ uint32_t s[N * kNttTile];
+  const int R = 1 << p.k, C = 1 << p.logC;
+  const int elems = R << (p.logC + p.logG);
+  const Fe<N> invn = p.mirror ? load_fe<N>(scale, 1, 0) : fe_zero<N>();
+  for (int64_t t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int64_t g0 = (t / p.chunks) << p.logG;
+    const int64_t l0 = (t % p.chunks) << p.logC;
+    // element e of the tile in the domain, or -1 past a group's columns or
+    // past the last group
+    auto index = [&](int e) -> int64_t {
+      const int64_t g = g0 + (e >> (p.k + p.logC)), l = l0 + (e & (C - 1));
+      if (g >= p.groups || l >= p.H) return -1;
+      return (g * R + ((e >> p.logC) & (R - 1))) * p.H + l;
+    };
+    for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+      const int64_t i = index(e);
+      if (i < 0) continue;
+      const int64_t src = p.rev_bits ? reverse_bits((uint32_t)i, p.rev_bits)
+                                     : i;
+#pragma unroll
+      for (int w = 0; w < N; ++w)
+        s[w * kNttTile + e] = (x[2 * w * p.n + src] & 0xFFFFu)
+                              | (x[(2 * w + 1) * p.n + src] << 16);
+    }
+    __syncthreads();
+    for (int st = 0; st < p.k; ++st) {
+      const int low = (1 << st) - 1;
+      for (int b = threadIdx.x; b < elems / 2; b += blockDim.x) {
+        // butterfly b: column c, rows r and r + 2^st of group g
+        const int c = b & (C - 1), rest = b >> p.logC;
+        const int rr = rest & (R / 2 - 1), g = rest >> (p.k - 1);
+        const int r = (rr & ~low) << 1 | (rr & low);
+        const int eu = ((g << p.k | r) << p.logC) | c;
+        const int ev = eu + (C << st);
+        if (index(eu) < 0) continue;
+        const int64_t j = (int64_t)(r & low) * p.H + l0 + c;
+        const Fe<N> w = load_fe<N>(tw, p.tw_stride,
+                                   (p.H << st) - p.tw_bias + j);
+        Fe<N> u, v;
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          u.w[k] = s[k * kNttTile + eu];
+          v.w[k] = s[k * kNttTile + ev];
+        }
+        const Fe<N> vw = mont_mul(f, v, w);
+        const Fe<N> sum = add(f, u, vw), dif = sub(f, u, vw);
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          s[k * kNttTile + eu] = sum.w[k];
+          s[k * kNttTile + ev] = dif.w[k];
+        }
+      }
+      __syncthreads();
+    }
+    for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+      const int64_t i = index(e);
+      if (i < 0) continue;
+      Fe<N> a;
+#pragma unroll
+      for (int w = 0; w < N; ++w) a.w[w] = s[w * kNttTile + e];
+      if (p.mirror) a = mont_mul(f, a, invn);
+      store_fe(out, p.n, p.mirror ? (p.n - i) & (p.n - 1) : i, a);
+    }
+    __syncthreads();
   }
+}
+
+// Fills p for the stages of half-width H .. 2^(k-1) H over n elements
+// on tiles of up to 2^tile_log elements (2^k H divides n, k <= tile_log
+// <= kNttTileLog): as many columns as fit, up to H, and then as many
+// groups as fit, up to all of them.  Returns the threads a block.
+inline int ntt_geometry(NttPass& p, int64_t n, int64_t H, int k,
+                        int tile_log) {
+  const int tile = 1 << tile_log;
+  p.n = n;
+  p.H = H;
+  p.k = k;
+  p.groups = n / (H << k);
+  p.logC = 0;
+  while ((2LL << p.logC) <= H && (2 << (p.logC + k)) <= tile) ++p.logC;
+  p.chunks = (H + (1LL << p.logC) - 1) >> p.logC;
+  p.logG = 0;
+  if (p.chunks == 1)
+    while ((1LL << p.logG) < p.groups
+           && (2 << (p.logG + p.logC + k)) <= tile)
+      ++p.logG;
+  p.tiles = ((p.groups + (1LL << p.logG) - 1) >> p.logG) * p.chunks;
+  const int half = (1 << (k + p.logC + p.logG)) / 2;
+  const int threads = (half + kWarp - 1) / kWarp * kWarp;
+  return threads < kWarp ? kWarp : threads > kNttThreads ? kNttThreads
+                                                          : threads;
 }
 #endif
 
@@ -417,16 +575,65 @@ int k2_mod_sub(const void* x, const void* y, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
+#if WORDS == 8
+// One pass of K3 with geometry p over a tile grid, on the stream.
+static int ntt_launch(NttPass& p, int threads, const void* x, const void* tw,
+                      const void* scale, void* out, const void* consts,
+                      void* stream) {
+  Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
+  const unsigned blocks = grid_for(p.tiles, 1);
+  ntt_pass_kernel<kN><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      f, (const uint32_t*)x, (const uint32_t*)tw, (const uint32_t*)scale,
+      (uint32_t*)out, p);
+  return (int)cudaGetLastError();
+}
+#endif
+
+// One stage: lane u = g*2h + j with u + h, twiddle j of the [L, h] table tw.
 int k3_butterfly(const void* x, const void* tw, void* out, long long n,
                  long long h, int n_limbs, const void* consts, void* stream) {
 #if WORDS == 8
   if (bad_args(n_limbs, n) || h < 1 || n % (2 * h) != 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  Field<kN> f = field_from_words<kN>((const uint32_t*)consts);
-  butterfly_kernel<kN><<<grid_for(n / 2), kThreads, 0, (cudaStream_t)stream>>>(
-      f, (const uint32_t*)x, (const uint32_t*)tw, (uint32_t*)out, n, h);
-  return (int)cudaGetLastError();
+  NttPass p;
+  const int threads = ntt_geometry(p, n, h, 1, kNttTileLog);
+  p.tw_stride = h;
+  p.tw_bias = h;
+  p.rev_bits = 0;
+  p.mirror = 0;
+  return ntt_launch(p, threads, x, tw, tw, out, consts, stream);
+#else
+  return (int)cudaErrorInvalidValue;
+#endif
+}
+
+// Stages [s0, s1) of a transform of n = 2^bits elements on tiles of up to
+// 2^tile_log elements, twiddles from the transform's [L, n - 1] table tw;
+// flags bit 0: load element i from x[rev(i)] first; bit 1: store element
+// i at (n - i) mod n times the [L, 1] planes scale.  s1 - s0 <= tile_log
+// <= kNttTileLog.
+int k3_ntt_pass(const void* x, const void* tw, const void* scale, void* out,
+                long long n, long long s0, long long s1, long long flags,
+                long long tile_log, int n_limbs, const void* consts,
+                void* stream) {
+#if WORDS == 8
+  if (bad_args(n_limbs, n) || (n & (n - 1)) != 0 || s0 < 0 || s1 < s0
+      || tile_log > kNttTileLog || s1 - s0 > tile_log || flags < 0
+      || flags > 3 || n > (1LL << 32))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  int bits = 0;
+  while ((1LL << bits) < n) ++bits;
+  if (s1 > bits) return (int)cudaErrorInvalidValue;
+  NttPass p;
+  const int threads = ntt_geometry(p, n, 1LL << s0, (int)(s1 - s0),
+                                   (int)tile_log);
+  p.tw_stride = n - 1;
+  p.tw_bias = 1;
+  p.rev_bits = (flags & 1) ? bits : 0;
+  p.mirror = (flags & 2) ? 1 : 0;
+  return ntt_launch(p, threads, x, tw, scale, out, consts, stream);
 #else
   return (int)cudaErrorInvalidValue;
 #endif

@@ -52,7 +52,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = {
     "K1": ("fp_kernels", ("k1_mont_mul",)),
     "K2": ("fp_kernels", ("k2_mod_add", "k2_mod_sub")),
-    "K3": ("fp_kernels", ("k3_butterfly",)),
+    "K3": ("fp_kernels", ("k3_butterfly", "k3_ntt_pass")),
     "K4": ("fp_kernels", ("k4_cneg",)),
     "K5": ("curve_kernels", ("k5_jac_madd",)),
     "K6": ("curve_kernels", ("k6_jac_add",)),
@@ -72,10 +72,11 @@ _ENTRY = {fn: (lib, kid) for kid, (lib, fns) in KERNELS.items() for fn in fns}
 # in order (tensors first, then the ints, then the constants and stream);
 # the first int is the lanes, k7_jac_dbl's second the doublings a launch
 # (the window fold's fori_loop over window_bits, wasmsnark_tpu/ops/msm.py
-# fold_windows_device)
+# fold_windows_device), k3_ntt_pass's the first and end stage, the
+# gather / mirror flags and the log2 of a tile's elements
 _SIGNATURES = {
     "k1_mont_mul": (3, 1), "k2_mod_add": (3, 1), "k2_mod_sub": (3, 1),
-    "k3_butterfly": (3, 2), "k4_cneg": (3, 1),
+    "k3_butterfly": (3, 2), "k3_ntt_pass": (4, 5), "k4_cneg": (3, 1),
     "k5_jac_madd": (8, 1), "k6_jac_add": (9, 1), "k7_jac_dbl": (6, 2),
     "k8_f12_mul": (3, 3), "k8_f12_sqr": (2, 3), "k9_f12_cyc_sqr": (2, 3),
     "k10_miller_dbl": (3, 1), "k10_miller_add": (4, 1),

@@ -161,10 +161,13 @@ def _lookahead(g, p):
 
 def normalize_plain(x):
     """Carry-propagate int64 columns [K, n] (each >= 0) to 16-bit limbs.
+    Carry rounds run until every column is below 2^17 - 1, so a column
+    that carries a bit (>= 2^16) cannot also pass one on (low limb 2^16 -
+    1): the lookahead's generate and propagate bits are disjoint.
     Returns (limbs int64 [K, n], carry out int64 [n])."""
     top = torch.zeros_like(x[0])
     hi = x >> LIMB_BITS
-    while x.shape[1] and int(hi.max()) > 1:
+    while x.shape[1] and int(x.max()) >= 2 * LIMB_MASK + 1:
         x = x & LIMB_MASK
         x[1:] += hi[:-1]
         top = top + hi[-1]
