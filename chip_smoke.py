@@ -90,11 +90,37 @@ then, for every kernel row:
      before it is timed (est_check); and against the
      floor of as many calls as it makes at its word count (K2 on one
      lane, one call or the add-and-sub pair, timed the same way,
-     call_floor_ms among the phases): ms_above_floor_at_path.
+     call_floor_ms among the phases): ms_above_floor_at_path.  A K2 row
+     times the add-and-sub pair, so its path's launches count two a call
+     in the lost ms (as K3's count a pass a launch).
      K1 at 24 words runs one thread a lane at 2^16 lanes and its team
      product at the MNT6753 paths' lane counts, and K8's product at 8
      words one thread a lane at 2^16 and a team kernel at the BN128
      paths' lane counts, so the two checks hold both of their designs.
+
+then, after every row's path launches are read (so these count toward no
+row), each step's record on a line "<step> (<card, power limit>) {...}"
+with its ms (median of REPS CUDA-event runs) and its launches per entry
+point:
+
+ 14. ladders: times_scalar_signed_device (c = 4) and times_scalar_device
+     on N_LADDER lanes of BN128 and BLS12-381 G1, each lane its own point
+     and full-width scalar (edge lanes: a zero point, a zero scalar, r - 1
+     and a scalar whose windows all carry), and on N_LADDER_MNT lanes of
+     MNT6753 G1 with RHO_BITS scalars: the two ladders agree on every lane,
+     the sample and edge lanes match the host oracle, tree_reduce of the
+     lanes matches the oracle's sum; FpDynamic.exp on N_EXP lanes of BN128
+     Fq (254-bit exponents) and N_LADDER_MNT of MNT6753 Fq (RHO_BITS)
+     against pow on sampled lanes;
+ 15. complete: CompleteCurveDevice over BN128 G1 and its F2 twist on
+     N_COMPLETE lanes with equal, opposite and zero lanes, against the
+     oracle on sampled lanes;
+ 16. f1: build_f1 over BN128's r and 2^127 - 1 (whose 4-word field kernels
+     are built at first use, their build seconds recorded), every method
+     against Python ints on N_F1 lanes, bench_mul's products a second;
+ 17. finexp_scan: final_exponentiation_scan against final_exponentiation
+     on four lanes of Miller-loop values of steps 8 and 11, on all three
+     pairing engines.
 
 Any failure prints its traceback and exits non-zero.  Without a CUDA
 device, or outside the repository, it exits non-zero and prints no
@@ -145,6 +171,15 @@ PATH_LANES = 3                   # lane counts each kernel row is also
                                  # timed at: its paths' most frequent
 PROVE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
 CURVES = ("bn128", "bls12381")
+N_LADDER = 1024                  # G1 lanes of the scalar ladders (N_VERIFY)
+N_LADDER_MNT = 256               # MNT6753 G1 lanes (N_MNT), RHO_BITS scalars
+RHO_BITS = 128                   # rho's width (models/mnt6753_runtime.py)
+N_EXP = 1 << 16                  # FpDynamic lanes over BN128 Fq
+N_COMPLETE = 1 << 16             # complete-law lanes
+N_F1 = 1024                      # F1Runtime lanes
+F1_BENCH_MULS = 1 << 24
+REPS = 5                         # CUDA-event runs of each step 14-17 timing
+MILLER: dict = {}                # curve -> 4 lanes of Miller-loop values
 
 # the kernel function behind each C entry point (ptxas reports by kernel);
 # K1 at 24 words also launches its team product, mont_mul_team_kernel, and
@@ -168,6 +203,12 @@ ENTRY_KERNEL = {
     "k14_mnt_miller_dbl": "mnt_miller_dbl_kernel",
     "k14_mnt_miller_add": "mnt_miller_add_kernel",
 }
+
+
+def k2_launches_per_call(lanes):
+    """A K2 row times the add-and-sub pair, so its path's launches count
+    as calls of the row two a call (as K3's count as transforms)."""
+    return 2
 
 
 def words(spec):
@@ -569,7 +610,8 @@ def check_curve_kernels(curve, m, dev, rng, rand, record, n):
         lambda x, y: (fp.mod_add(Fq, x, y), fp.mod_sub(Fq, x, y)),
         lambda x, y: (fp.mod_add_plain(Fq, x, y),
                       fp.mod_sub_plain(Fq, x, y)),
-        (x, y), 2 * 3 * E * n, 2 * AS * n)
+        (x, y), 2 * 3 * E * n, 2 * AS * n,
+        launches_per_call=k2_launches_per_call)
     check_ntt_kernels(curve, m, dev, rand, record, n,
                       timed=words(Fq) == words(Fr))
     flag = torch.from_numpy(rng.integers(0, 2, size=n).astype(bool)).to(dev)
@@ -853,7 +895,8 @@ def check_mnt_kernels(rand, rec, n):
         lambda x, y: (fp.mod_add(Fq, x, y), fp.mod_sub(Fq, x, y)),
         lambda x, y: (fp.mod_add_plain(Fq, x, y),
                       fp.mod_sub_plain(Fq, x, y)),
-        (x, y), 2 * 3 * E * n, 2 * AS * n)
+        (x, y), 2 * 3 * E * n, 2 * AS * n,
+        launches_per_call=k2_launches_per_call)
 
     src, pl = "mnt_kernels.cu", "wasmsnark_tpu/ops/tower_pallas.py"
     a = tk.unflatten6([rand(Fq) for _ in range(6)])
@@ -1325,6 +1368,9 @@ def pairing_batch(rt, vk, pub, proof, phases):
     if mismatch(e_prep, e_full)[0] or not bool(pd.is_one(e_full).all()):
         raise AssertionError("pairing_product and pairing_product_prepared "
                              "disagree on a good proof's four pairs")
+    # the four pairs' Miller-loop values, four lanes, for step 17
+    MILLER[rt.CURVE] = map_leaf(pd.miller_loop(g1p, g2_4),
+                                lambda a: a.reshape(a.shape[0], 4))
     say(f"{rt.CURVE} pairing: all lanes equal e(G1, G2)^63; unprepared = "
         "prepared on a proof's four pairs, bit for bit")
     return by_lanes
@@ -1765,6 +1811,9 @@ def mnt_pairing_batch(rt, lanes, phases):
             e_full, pd.pack_f6([mm["expected"]])).all()):
         raise AssertionError("pairing_products and pairing_products_prepared "
                              "disagree on a good proof's five pairs")
+    # four of the five pairs' Miller-loop values, four lanes, for step 17
+    MILLER["mnt6753"] = map_leaf(pd.miller_loop(g1, g2), lambda a: a.reshape(
+        a.shape[0], -1)[:, :4].contiguous())
     say("mnt6753 pairing: all lanes equal e(G1, G2)^63 and 1; unprepared = "
         "prepared on a proof's five pairs, bit for bit")
     return by_lanes, fused_lanes
@@ -1840,6 +1889,353 @@ def run_mnt(phases):
         rt, lanes, phases)
     mnt_against_oracle(rt, lanes, phases)
     return by_path
+
+
+# ---------------------------------------------------------------------------
+# steps 14-17: the per-lane ladders, the complete group law, F1Runtime and
+# the full-exponent final exponentiation (after every kernel row's path
+# launches are read, so none of theirs counts toward a row)
+# ---------------------------------------------------------------------------
+
+def timed(fn, reps=REPS):
+    """(fn's result, its median ms over reps CUDA-event runs, the launches
+    of one run per C entry point)."""
+    import torch
+    from wasmsnark_tpu_torch.ops import cuda_lib
+    before = dict(cuda_lib.fn_launches)
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in cuda_lib.fn_launches.items()
+                if v != before[k]}
+    return out, time_cuda(fn, reps), launches
+
+
+def lane_points(G, gen, r, rng, n):
+    """n oracle points c_i gen, c_i = a + i h mod r (one add a lane from
+    the last), lane 0 the zero point (c_0 = 0); returns (affine points or
+    None, the c_i)."""
+    a, h = (int.from_bytes(rng.bytes(32), "little") % r for _ in range(2))
+    H = G.times_scalar(gen, h)
+    P = G.times_scalar(gen, a)
+    pts, cs = [None], [0]
+    for i in range(1, n):
+        pts.append(G.affine(P)[:2])
+        cs.append((a + (i - 1) * h) % r)
+        P = G.add(P, H)
+    return pts, cs
+
+
+def pack_points(F, pts):
+    """Affine oracle points (None for zero) -> (X, Y, Z) Montgomery planes
+    with Z = 1, zero as (0, 1, 0)."""
+    return (F.pack_mont([0 if p is None else p[0] for p in pts]),
+            F.pack_mont([1 if p is None else p[1] for p in pts]),
+            F.pack_mont([0 if p is None else 1 for p in pts]))
+
+
+def lane_scalars(r, rng, n, bits=None):
+    """n scalars below r (or of `bits` bits): lane 1 zero, lane 2 r - 1
+    (2^bits - 1), lane 3 the 0xFFFF8001 pattern, whose 4-bit windows all
+    carry, over the width less 32 bits."""
+    width = bits or r.bit_length()
+    top = r if bits is None else 1 << bits
+    ks = [int.from_bytes(rng.bytes(48), "little") % top for _ in range(n)]
+    ks[1], ks[2] = 0, top - 1
+    ks[3] = sum(0xFFFF8001 << (32 * i) for i in range(width // 32 - 1))
+    return ks
+
+
+def check_lanes(name, G, F, out, pts, ks, lanes):
+    """The ladder's points on `lanes` against the oracle's k_i P_i, after
+    affine normalisation (zero exactly where Z = 0)."""
+    xs, ys, zs = (F.unpack_mont(c[:, list(lanes)]) for c in out)
+    for i, x, y, z in zip(lanes, xs, ys, zs):
+        w = (G.zero() if pts[i] is None
+             else G.times_scalar(G.from_affine(*pts[i]), ks[i]))
+        got = None if z == 0 else G.affine((x, y, z))[:2]
+        if got != (None if G.is_zero(w) else G.affine(w)[:2]):
+            raise AssertionError(f"{name}: lane {i} differs from the "
+                                 f"oracle's k P")
+
+
+def ladder_curve(name, m, Gd, n, bits, rng, dev):
+    """Both scalar ladders on n lanes of one G1 (`Gd` the device, m's
+    oracle): they agree on every lane (eq, the affine comparison), the
+    sample lanes and the edge lanes match the oracle, and tree_reduce of
+    the n results is the oracle's sum (sum k_i c_i) gen."""
+    from wasmsnark_tpu_torch.ops import curve as cv, fp, msm
+    from wasmsnark_tpu_torch.utils.serialize import ints_to_limbs_fast
+
+    r = m.fr_spec.q
+    G = m.G1
+    F = Gd.F.fp
+    pts, cs = lane_points(G, m.g1_gen, r, rng, n)
+    ks = lane_scalars(r, rng, n, bits)
+    P = pack_points(F, pts)
+    n_limbs = (bits or 16 * m.fr_spec.n_limbs) // 16
+    S = fp.planes(ints_to_limbs_fast(ks, n_limbs), dev)
+    signed, s_ms, s_l = timed(
+        lambda: msm.times_scalar_signed_device(Gd, P, S, 4))
+    plain, p_ms, p_l = timed(lambda: fp.times_scalar_device(Gd, P, S))
+    if not bool(Gd.eq(signed, plain).all()):
+        raise AssertionError(f"{name}: the signed and the plain ladder "
+                             f"differ on some lane")
+    lanes = sorted({0, 1, 2, 3, *sample_lanes(n)})
+    check_lanes(f"{name} signed ladder", G, F, signed, pts, ks, lanes)
+    red, r_ms, r_l = timed(lambda: cv.tree_reduce(Gd, signed, n))
+    want = G.times_scalar(m.g1_gen, sum(k * c for k, c in zip(ks, cs)) % r)
+    x, y, z = (F.unpack_mont(c)[0] for c in red)
+    if G.affine((x, y, z))[:2] != G.affine(want)[:2]:
+        raise AssertionError(f"{name}: tree_reduce differs from the "
+                             f"oracle's sum")
+    return {"lanes": n, "scalar_bits": bits or r.bit_length(),
+            "signed_ms": s_ms, "signed_launches": s_l,
+            "plain_ms": p_ms, "plain_launches": p_l,
+            "tree_reduce_ms": r_ms, "tree_reduce_launches": r_l}
+
+
+def run_ladders(dev):
+    """Step 14: times_scalar_signed_device (c = 4) and times_scalar_device
+    on N_LADDER lanes of BN128 and BLS12-381 G1 (K4, K6, K7) and N_LADDER_MNT
+    lanes of MNT6753 G1 with RHO_BITS scalars (ProjectiveDevice: K1, K2 at
+    24 words), then FpDynamic.exp on N_EXP lanes of BN128 Fq with 254-bit
+    exponents and N_LADDER_MNT lanes of MNT6753 Fq with RHO_BITS ones,
+    against pow on the sample lanes."""
+    import numpy as np
+    from wasmsnark_tpu_torch.models.bls12381 import bls12381
+    from wasmsnark_tpu_torch.models.bn128 import bn128
+    from wasmsnark_tpu_torch.models.mnt6753 import mnt6753
+    from wasmsnark_tpu_torch.models.mnt6753_constants import A as MNT_A
+    from wasmsnark_tpu_torch.ops import curve as cv, fp
+    from wasmsnark_tpu_torch.ops.towers import FpAdapter
+    from wasmsnark_tpu_torch.utils.serialize import ints_to_limbs_fast
+
+    rng = np.random.default_rng(SEED + 14)
+    out = {}
+    for name, m in (("bn128", bn128()), ("bls12381", bls12381())):
+        Gd = cv.JacobianDevice(FpAdapter(fp.FpDevice(m.fp_spec, dev)))
+        out[name] = ladder_curve(name, m, Gd, N_LADDER, None, rng, dev)
+    m = mnt6753()
+    F = fp.FpDevice(m.fp_spec, dev)
+    a_mont = F.pack_mont([MNT_A])
+    Gd = cv.ProjectiveDevice(FpAdapter(F), lambda z: F.mont_mul(z, a_mont))
+    out["mnt6753"] = ladder_curve("mnt6753", m, Gd, N_LADDER_MNT, RHO_BITS,
+                                  rng, dev)
+    for name, spec, n, bits in (("bn128_fq", bn128().fp_spec, N_EXP, 254),
+                                ("mnt6753_fq", m.fp_spec, N_LADDER_MNT,
+                                 RHO_BITS)):
+        F = fp.FpDevice(spec, dev)
+        L = spec.n_limbs
+        a = rng.integers(0, 1 << 16, size=(L, n), dtype=np.uint32)
+        a[L - 1] = rng.integers(0, spec.q_limbs[-1], size=n, dtype=np.uint32)
+        e = rng.integers(0, 1 << 16, size=(bits // 16 + 1, n),
+                         dtype=np.uint32)
+        e[-1] &= (1 << (bits % 16)) - 1
+        e[:, 1] = 0                               # x^0 = 1
+        x, ep = fp.planes(a, dev), fp.planes(e, dev)
+        got, ms, launches = timed(lambda: fp.FpDynamic(F).exp(x, ep, bits))
+        lanes = sorted({0, 1, *sample_lanes(n)})
+        xs = [spec.from_mont(v) for v in F.unpack(x[:, lanes])]
+        es = F.unpack(ep[:, lanes])
+        if F.unpack_mont(got[:, lanes]) != [pow(v, k, spec.q)
+                                             for v, k in zip(xs, es)]:
+            raise AssertionError(f"FpDynamic.exp over {name} differs from "
+                                 f"pow")
+        out[f"exp_{name}"] = {"lanes": n, "exponent_bits": bits, "ms": ms,
+                              "launches": launches}
+    return out
+
+
+def complete_inputs(field, pack, pts, rng, n, dev, rand_z):
+    """Projective (X, Y, Z) of P and Q on n lanes over `field` (a plain
+    adapter: the inputs are not under test): the affine points `pts`
+    tiled at random, a random Z each (X = x Z, Y = y Z); lanes 0-31 Q = P
+    (another Z), 32-63 Q = -P, 64-95 P zero, 96-127 Q zero, 128-159 both
+    zero.  Returns (P, Q, ip, iq), ip / iq the lanes' indices into pts."""
+    import torch
+    from wasmsnark_tpu_torch.ops.curve import map_leaf
+
+    ip = rng.integers(0, len(pts), size=n)
+    iq = rng.integers(0, len(pts), size=n)
+    iq[:64] = ip[:64]
+    X, Y = pack([p[0] for p in pts]), pack([p[1] for p in pts])
+
+    def lanes(a, b):
+        return torch.zeros(n, dtype=torch.bool, device=dev).index_fill_(
+            0, torch.arange(a, b, device=dev), True)
+
+    def point(idx, y_neg, zero):
+        t = torch.from_numpy(idx).to(dev)
+        x, y = (map_leaf(c, lambda a: a[:, t]) for c in (X, Y))
+        y = field.select(y_neg, field.neg(y), y)
+        z = rand_z(n)
+        pt = (field.mul(x, z), field.mul(y, z), z)
+        return (field.select(zero, field.zero_like(x), pt[0]),
+                field.select(zero, field.one_like(y), pt[1]),
+                field.select(zero, field.zero_like(z), pt[2]))
+
+    none = lanes(0, 0)
+    P = point(ip, none, lanes(64, 96) | lanes(128, 160))
+    Q = point(iq, lanes(32, 64), lanes(96, 160))
+    return P, Q, ip, iq
+
+
+def complete_want(G, pts, ip, iq, i):
+    """The oracle's affine P + Q of lane i of complete_inputs (None for
+    zero)."""
+    def point(k, zero, neg):
+        if zero:
+            return G.zero()
+        x, y = pts[k]
+        return G.from_affine(x, G.F.neg(y) if neg else y)
+    w = G.add(point(ip[i], 64 <= i < 96 or 128 <= i < 160, False),
+              point(iq[i], 96 <= i < 160, 32 <= i < 64))
+    return None if G.is_zero(w) else G.affine(w)[:2]
+
+
+def run_complete(dev):
+    """Step 15: CompleteCurveDevice over BN128 G1 (b3 = 9: a chain of K2
+    adds) and over its F2 twist (b3 = 3 b': an F2 product) on N_COMPLETE
+    lanes of random projective points with equal, opposite and zero lanes
+    (complete_inputs): P + Q on 48 lanes against the oracle, and P + Q =
+    Q + P (eq) on every lane."""
+    import numpy as np
+    from wasmsnark_tpu_torch.models.bn128 import TWIST_COEF_B, bn128
+    from wasmsnark_tpu_torch.ops import fp
+    from wasmsnark_tpu_torch.ops.curve import map_leaf
+    from wasmsnark_tpu_torch.ops.curve_complete import CompleteCurveDevice
+    from wasmsnark_tpu_torch.ops.towers import F2Device, FpAdapter
+
+    m = bn128()
+    spec, q, n = m.fp_spec, m.fp_spec.q, N_COMPLETE
+    rng = np.random.default_rng(SEED + 15)
+    Fd = fp.FpDevice(spec, dev)
+    base, plain = FpAdapter(Fd), FpAdapter(fp.PlainFp(spec, dev))
+    F2, F2p = F2Device(base, base.neg), F2Device(plain, plain.neg)
+    b3 = tuple(Fd.pack_mont([3 * c % q]) for c in TWIST_COEF_B)
+
+    def mul_b3_f2(a):
+        return F2.mul(a, tuple(c.reshape((c.shape[0],) + (1,) * (
+            a[0].dim() - 1)).expand(a[0].shape) for c in b3))
+
+    def rand_fp(k):
+        return Fd.pack_mont([int.from_bytes(rng.bytes(40), "little") % q
+                             for _ in range(k)])
+
+    def unpack_f2(c):
+        return list(zip(Fd.unpack_mont(c[0]), Fd.unpack_mont(c[1])))
+
+    out = {}
+    for name, G, gen, field, fplain, mul_b3, pack, unpack, rand_z in (
+            ("g1", m.G1, m.g1_gen, base, plain,
+             lambda a: base.mul_small(a, 9), Fd.pack_mont, Fd.unpack_mont,
+             rand_fp),
+            ("g2", m.G2, m.g2_gen, F2, F2p, mul_b3_f2,
+             lambda v: tuple(Fd.pack_mont([c[j] for c in v])
+                             for j in range(2)),
+             unpack_f2, lambda k: (rand_fp(k), rand_fp(k)))):
+        C = CompleteCurveDevice(field, mul_b3)
+        pts = lane_points(G, gen, m.fr_spec.q, rng, 1025)[0][1:]
+        P, Q, ip, iq = complete_inputs(fplain, pack, pts, rng, n, dev,
+                                       rand_z)
+        s, ms, launches = timed(lambda: C.add(P, Q))
+        if not bool(C.eq(s, C.add(Q, P)).all()):
+            raise AssertionError(f"complete add over {name}: P + Q != Q + P "
+                                 f"on some lane")
+        lanes = sorted({0, 32, 64, 96, 128, 200,
+                        *rng.integers(0, n, size=42).tolist()})
+        X, Y, Z = (unpack(map_leaf(c, lambda a: a[:, lanes])) for c in s)
+        Fo = G.F
+        for j, i in enumerate(lanes):
+            got = None if Fo.is_zero(Z[j]) else (
+                Fo.mul(X[j], Fo.inv(Z[j])), Fo.mul(Y[j], Fo.inv(Z[j])))
+            if got != complete_want(G, pts, ip, iq, i):
+                raise AssertionError(f"complete add over {name}: lane {i} "
+                                     f"differs from the oracle")
+        out[name] = {"lanes": n, "add_ms": ms, "add_launches": launches,
+                     "lanes_checked": len(lanes)}
+    return out
+
+
+def run_f1(dev):
+    """Step 16: F1Runtime (build_f1) over BN128's r and over 2^127 - 1 on
+    N_F1 lanes, every method against Python ints; bench_mul over r; the
+    4-word field's fp_kernels built at its first launch (its seconds)."""
+    import numpy as np
+    import wasmsnark_tpu_torch
+    from wasmsnark_tpu_torch.models.bn128 import bn128
+    from wasmsnark_tpu_torch.ops import cuda_lib
+
+    rng = np.random.default_rng(SEED + 16)
+    out = {}
+    for name, q in (("bn128_r", bn128().fr_spec.q), ("p127", (1 << 127) - 1)):
+        t = time.perf_counter()
+        rt = wasmsnark_tpu_torch.build_f1(q)
+        xs = [int.from_bytes(rng.bytes(40), "little") % q
+              for _ in range(N_F1)]
+        ys = [int.from_bytes(rng.bytes(40), "little") % q
+              for _ in range(N_F1)]
+        xs[:4], ys[:4] = [0, 1, q - 1, q - 2], [q - 1, 0, q - 1, 1]
+        before = dict(cuda_lib.lane_launches)
+        first = rt.mul(xs, ys)
+        first_s = time.perf_counter() - t
+        w = rt.spec.n_limbs // 2
+        checks = {
+            "mul": (first, [a * b % q for a, b in zip(xs, ys)]),
+            "square": (rt.square(xs), [a * a % q for a in xs]),
+            "add": (rt.add(xs, ys), [(a + b) % q for a, b in zip(xs, ys)]),
+            "sub": (rt.sub(xs, ys), [(a - b) % q for a, b in zip(xs, ys)]),
+            "neg": (rt.neg(xs), [(-a) % q for a in xs]),
+            "inverse": (rt.inverse(xs), [pow(a, -1, q) if a else 0
+                                         for a in xs]),
+            "inverse_gcd": (rt.inverse_gcd(xs), [pow(a, -1, q) if a else 0
+                                                 for a in xs]),
+            "divmod": (rt.divmod(xs, ys), (
+                [a // b if b else 0 for a, b in zip(xs, ys)],
+                [a % b if b else a for a, b in zip(xs, ys)]))}
+        bad = [k for k, (got, want) in checks.items() if got != want]
+        if bad:
+            raise AssertionError(f"F1Runtime over {name} differs from Python "
+                                 f"ints: {bad}")
+        fns = sorted({fn for (fn, ww, _), v in cuda_lib.lane_launches.items()
+                      if ww == w and v != before.get((fn, ww, _), 0)})
+        if not {"k1_mont_mul", "k2_mod_add", "k2_mod_sub"} <= set(fns):
+            raise AssertionError(f"F1Runtime over {name} did not launch K1 "
+                                 f"and K2 at {w} words: {fns}")
+        rec = {"words": w, "lanes": N_F1, "first_call_s": first_s,
+               "entry_points": fns}
+        lib = f"fp_kernels_w{w}"
+        if w not in cuda_lib.SOURCES["fp_kernels"][1]:
+            if lib not in cuda_lib._libs:
+                raise AssertionError(f"{lib} was not loaded at first use")
+            # None where an earlier process of this checkout built it
+            rec["build_s"] = cuda_lib.build_seconds.get(lib)
+        if name == "bn128_r":
+            b = rt.bench_mul(F1_BENCH_MULS)
+            rec.update(bench_muls=b["muls"], bench_s=b["seconds"],
+                       muls_per_s=b["muls_per_sec"])
+        out[name] = rec
+    return out
+
+
+def run_finexp_scan():
+    """Step 17: on each pairing engine, final_exponentiation_scan (the
+    full exponent by K8's, or K12's, square and product) against
+    final_exponentiation on four lanes of Miller-loop values of one
+    proof's pairs (MILLER, filled by steps 8 and 11), bit for bit."""
+    from wasmsnark_tpu_torch.ops.pairing import pairing_device
+
+    out = {}
+    for curve, f in MILLER.items():
+        pd = pairing_device(curve)
+        want = pd.final_exponentiation(f)
+        got, ms, launches = timed(lambda: pd.final_exponentiation_scan(f), 3)
+        if mismatch(got, want)[0]:
+            raise AssertionError(f"{curve}: final_exponentiation_scan differs "
+                                 f"from final_exponentiation")
+        out[curve] = {"lanes": 4, "exponent_bits": len(pd.finexp_bits),
+                      "ms": ms, "launches": launches}
+    return out
 
 
 def main() -> int:
@@ -1925,6 +2321,15 @@ def main() -> int:
     phases["path_loss_model"] = {
         kr["name"]: {k_: kr[k_] for k_ in ("path_loss_ms", "path_loss_est_ms",
                                            "est_check")} for kr in kernels}
+
+    for step, run in (("ladders", lambda: run_ladders(dev)),
+                      ("complete", lambda: run_complete(dev)),
+                      ("f1", lambda: run_f1(dev)),
+                      ("finexp_scan", run_finexp_scan)):
+        t = time.perf_counter()
+        phases[step] = run()
+        phases[step]["s"] = time.perf_counter() - t
+        say(f"{step} ({smi}) {json.dumps(phases[step])}")
 
     phases["wall_s"] = time.perf_counter() - _T0
     say("phases " + json.dumps(phases))

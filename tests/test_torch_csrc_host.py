@@ -143,6 +143,56 @@ def test_field_kernels(libs, curve_name, field):
     assert torch.equal(out, towers.mod_cneg_plain(spec, flag, y))
 
 
+def _on_demand_lib(out, w):
+    """fp_kernels.cu compiled by g++ at w words (a width SOURCES does not
+    list, as cuda_lib builds it at first use), bound like the loader's."""
+    out = pathlib.Path(out)
+    for name in cuda_lib.HEADERS:
+        shutil.copy(os.path.join(cuda_lib.CSRC, name), out / name)
+    lib = f"fp_kernels_w{w}"
+    p = _gxx(out, lib, "fp_kernels.cu", w)
+    _, err = p.communicate()
+    assert p.returncode == 0, err.decode()[-3000:]
+    return {lib: cuda_lib._bind(ctypes.CDLL(str(out / f"lib{lib}.so")))}
+
+
+@pytest.mark.parametrize("q", [(1 << 127) - 1, (1 << 61) - 1])
+def test_field_kernels_at_on_demand_widths(tmp_path, monkeypatch, q):
+    """K1, K2 and K4 of fp_kernels.cu at 4 words (2^127 - 1, whose top word
+    is 2^31 - 1: one spare bit) and 2 words (2^61 - 1) against their plain
+    versions, then F1Runtime's methods through that library, its K1 and K2
+    launched, against Python ints."""
+    from wasmsnark_tpu_torch.fields.runtime import F1Runtime
+    from wasmsnark_tpu_torch.fields.spec import FieldSpec
+    spec = FieldSpec(q)
+    w = spec.n_limbs // 2
+    assert w not in cuda_lib.SOURCES["fp_kernels"][1]
+    libs = _on_demand_lib(tmp_path, w)
+    x, y = rand(spec, 1), rand(spec, 2).flip(1).contiguous()
+    for fn, plain in (("k1_mont_mul", fp.mont_mul_plain),
+                      ("k2_mod_add", fp.mod_add_plain),
+                      ("k2_mod_sub", fp.mod_sub_plain)):
+        out = torch.empty_like(x)
+        assert call(libs, fn, spec, (x, y, out)) == 0
+        assert torch.equal(out, plain(spec, x, y)), fn
+    flag = torch.arange(N) % 3 == 0
+    out = torch.empty_like(y)
+    assert call(libs, "k4_cneg", spec, (flag, y, out)) == 0
+    assert torch.equal(out, towers.mod_cneg_plain(spec, flag, y))
+    rehearse(monkeypatch, libs)
+    cuda_lib.reset_launches()
+    rt = F1Runtime(q, "cpu")
+    xs = [0, 1, q - 1, q - 2, 12345, q // 3]
+    ys = [q - 1, 7, q - 1, 2, 0, q // 5]
+    assert rt.mul(xs, ys) == [a * b % q for a, b in zip(xs, ys)]
+    assert rt.square(xs) == [a * a % q for a in xs]
+    assert rt.sub(xs, ys) == [(a - b) % q for a, b in zip(xs, ys)]
+    assert rt.inverse(xs) == [pow(a, -1, q) if a else 0 for a in xs]
+    assert cuda_lib.fn_launches["k1_mont_mul"] > 0
+    assert cuda_lib.fn_launches["k2_mod_sub"] > 0
+    assert {k[1] for k in cuda_lib.lane_launches} == {w}
+
+
 def k1_team_max_lanes():
     """kK1TeamMaxLanes of fp_kernels.cu: above it K1 @N24 runs one thread a
     lane, up to it the team product."""
@@ -1347,9 +1397,12 @@ def test_chip_smoke_mnt_kernel_phase_rehearsal(libs, monkeypatch):
     rows = []
 
     def record(kid, name, source, line, fn_k, fn_p, args, nbytes, ops,
-               fns=None):
+               fns=None, **extra):
         bad, err = smoke.mismatch(fn_k(*args), fn_p(*args))
         rows.append((kid, name, bad, err, smoke.bound(nbytes, ops)))
+        per_call = extra.get("launches_per_call", lambda k: 1)
+        # the K2 row times the add-and-sub pair: two launches a call
+        assert per_call(128) == (2 if kid == "K2" else 1), kid
 
     spec = mnt6753().fp_spec
 
@@ -1372,6 +1425,60 @@ def test_chip_smoke_mnt_kernel_phase_rehearsal(libs, monkeypatch):
     assert all(any(key[:2] == (fn, 24) for key in cuda_lib.lane_launches)
                for fn in cuda_lib.KERNELS["K14"][1])
     assert spec.n_limbs == 48
+
+
+@pytest.mark.parametrize("step", ["ladders", "complete", "f1",
+                                  "finexp_scan"])
+def test_chip_smoke_module_steps_rehearsal(libs, tmp_path, monkeypatch,
+                                           step):
+    """chip_smoke.py's steps 14-17 on the host libraries at small sizes:
+    the ladders (16 G1 lanes, 16 MNT6753 lanes, FpDynamic on 64), the
+    complete law (256 lanes), F1Runtime (16 lanes, the 4-word library
+    given as built at first use) and, on BN128, the full-exponent scan
+    against final_exponentiation on four lanes; every check of the script
+    passes and the records carry their times and launches."""
+    libs = dict(libs)
+    w4 = _on_demand_lib(tmp_path, 4)
+    smoke = rehearse(monkeypatch, {**libs, **w4}, N_LADDER=16,
+                     N_LADDER_MNT=16, N_EXP=64, N_COMPLETE=256, N_F1=16,
+                     F1_BENCH_MULS=1 << 10, REPS=1)
+    monkeypatch.setattr(cuda_lib, "build_seconds", {"fp_kernels_w4": 0.0})
+    dev = torch.device("cpu")
+    if step == "finexp_scan":
+        from wasmsnark_tpu_torch.ops.pairing import pairing_device
+        pd = pairing_device("bn128")
+        m = pd.m
+        pts = [m.G1.affine(m.G1.times_scalar(m.g1_gen, k))[:2]
+               for k in (2, 3, 5, 7)]
+        f = pd.miller_loop(pd.pack_g1(pts), pd.pack_g2(
+            [m.G2.affine(m.g2_gen)[:2]] * 4))
+        monkeypatch.setattr(smoke, "MILLER", {"bn128": f})
+        rec = smoke.run_finexp_scan()["bn128"]
+        assert rec["exponent_bits"] == len(pd.finexp_bits)
+        assert set(rec["launches"]) == {"k8_f12_mul", "k8_f12_sqr"}
+        assert rec["launches"]["k8_f12_sqr"] == len(pd.finexp_bits) - 1
+        return
+    run = {"ladders": smoke.run_ladders, "complete": smoke.run_complete,
+           "f1": smoke.run_f1}[step]
+    rec = run(dev)
+    if step == "ladders":
+        assert set(rec) == {"bn128", "bls12381", "mnt6753",
+                            "exp_bn128_fq", "exp_mnt6753_fq"}
+        bn = rec["bn128"]
+        assert {"k4_cneg", "k6_jac_add", "k7_jac_dbl"} <= set(
+            bn["signed_launches"])
+        # c = 4 over 256-bit scalars: 64 windows below the carry's
+        assert bn["signed_launches"]["k7_jac_dbl"] == 64
+        assert bn["plain_launches"]["k7_jac_dbl"] == 256
+        assert set(rec["mnt6753"]["signed_launches"]) <= {
+            "k1_mont_mul", "k2_mod_add", "k2_mod_sub", "k4_cneg"}
+    elif step == "complete":
+        assert set(rec["g1"]["add_launches"]) == {"k1_mont_mul",
+                                                  "k2_mod_add", "k2_mod_sub"}
+        assert rec["g2"]["add_launches"]["k1_mont_mul"] == 3
+    else:
+        assert rec["p127"]["words"] == 4 and rec["p127"]["build_s"] == 0.0
+        assert rec["bn128_r"]["muls_per_s"] > 0
 
 
 def test_chip_smoke_ntt_phase_rehearsal(libs, monkeypatch):

@@ -149,11 +149,13 @@ def test_bls_modules_import_no_jax(rel):
         assert not set(tops) & {"jax", "jaxlib", "wasmsnark_tpu"}, rel
 
 
-def test_k11_entry_points_and_per_word_libraries():
+def test_k11_entry_points_and_per_word_libraries(monkeypatch):
     """K11 is registered beside K1-K10; every source builds once per word
     count its kernels serve (the field kernels at 8, 12 and 24, the curve
-    and F12 tower kernels at 8 and 12, the MNT6753 kernels at 24 only), and
-    a field of another width is refused before any build."""
+    and F12 tower kernels at 8 and 12, the MNT6753 kernels at 24 only); a
+    curve or tower kernel at another width is refused before any build,
+    and a field kernel at another width asks for its library at that
+    width alone (F1Runtime's fields)."""
     from wasmsnark_tpu_torch.ops import cuda_lib
     from wasmsnark_tpu_torch.fields.spec import FieldSpec
     assert cuda_lib.KERNELS["K11"] == (
@@ -172,16 +174,25 @@ def test_k11_entry_points_and_per_word_libraries():
     for fn in ("k11_miller_dbl_mtwist", "k11_miller_add_mtwist"):
         body = text[text.index(f"int {fn}("):]
         assert body.index("#if WORDS == 12") < body.index("}")
-    wide = FieldSpec((1 << 1000) + 1, "wide")      # 64 limbs: no build
+    wide = FieldSpec((1 << 1000) + 1, "wide")      # 64 limbs: on demand
     x = torch.zeros((wide.n_limbs, 1), dtype=torch.int32)
-    with pytest.raises(RuntimeError, match="no kernel build for 64 limbs"):
+    asked = []
+
+    def build(libs=None):
+        asked.append(libs)
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cuda_lib, "build", build)
+    assert "fp_kernels" in cuda_lib.ANY_WORDS
+    with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_lib.launch("k1_mont_mul", wide, (x, x, x), (1,))
+    assert asked == [{"fp_kernels_w32": ("fp_kernels.cu", 32)}]
     mnt = FieldSpec((1 << 752) + 1155, "mnt-width")  # 48 limbs
     y = torch.zeros((mnt.n_limbs, 1), dtype=torch.int32)
     for fn in ("k8_f12_mul", "k5_jac_madd"):       # no 24-word build
         with pytest.raises(RuntimeError, match="no kernel build for 48"):
             cuda_lib.launch(fn, mnt, (y, y, y), (1,))
-    assert not cuda_lib._libs
+    assert len(asked) == 1 and not cuda_lib._libs
 
 
 def test_mnt_entry_points_and_modules():

@@ -414,3 +414,98 @@ def test_mnt_kernels_match_plain(dev):
     f12 = tk.unflatten12([a[0][0]] * 12)
     with pytest.raises(RuntimeError, match="no kernel build for 48 limbs"):
         tk.f12_mul(spec, f12, f12)
+
+
+def _points_on(m, n, seed, dev):
+    """n Jacobian G1 points k G with Z = 1 (lane 0 zero) and n scalars below
+    r (lane 1 zero, lane 2 r - 1), on `dev` and on the CPU."""
+    rng = np.random.default_rng(seed)
+    r = m.fr_spec.q
+    G = m.G1
+    pts = [None] + [G.affine(G.times_scalar(m.g1_gen, int(k)))[:2]
+                    for k in rng.integers(1, 1 << 62, size=n - 1)]
+    ks = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(n)]
+    ks[1], ks[2] = 0, r - 1
+    spec = m.fp_spec
+    cols = ([0 if p is None else spec.to_mont(p[0]) for p in pts],
+            [spec.one_mont if p is None else spec.to_mont(p[1]) for p in pts],
+            [0 if p is None else spec.one_mont for p in pts])
+    P = tuple(fp.planes(ints_to_limbs_fast(c, spec.n_limbs), dev)
+              for c in cols)
+    return P, ints_to_limbs_fast(ks, m.fr_spec.n_limbs)
+
+
+@pytest.mark.parametrize("which", ["fp", "bls_fq"])
+def test_scalar_ladders_match_cpu(dev, which):
+    """times_scalar_signed_device (K4, K6, K7 on the card) and
+    times_scalar_device on 64 lanes of G1, and tree_reduce of them, bit for
+    bit against the same ladders' plain versions on the CPU."""
+    from wasmsnark_tpu_torch.ops import msm
+    m = bn128() if which == "fp" else bls12381()
+    P, S = _points_on(m, 64, 90, dev)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        G = curve.JacobianDevice(towers.FpAdapter(fp.FpDevice(m.fp_spec,
+                                                              where)))
+        Pw = tuple(c.to(where) for c in P)
+        s = msm.times_scalar_signed_device(G, Pw, S, 4)
+        out[where.type] = (s, fp.times_scalar_device(G, Pw, S),
+                           G.tree_reduce(s, 64))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _assert_equal(tuple(c.cpu() for c in a), b)
+
+
+def test_fp_dynamic_and_complete_law_match_cpu(dev):
+    """FpDynamic.exp on 4,099 lanes of BN128 Fq with 254-bit exponents, and
+    CompleteCurveDevice's add over BN128 G1 on the same lanes' points,
+    bit for bit against the CPU."""
+    from wasmsnark_tpu_torch.ops.curve_complete import CompleteCurveDevice
+    spec = SPECS["fp"]()
+    n = 4099
+    x, e = _rand(spec, n, 91, dev), _rand(spec, n, 92, dev)
+    P = tuple(_rand(spec, n, 93 + j, dev) for j in range(3))
+    Q = tuple(_rand(spec, n, 96 + j, dev) for j in range(3))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        F = fp.FpDevice(spec, where)
+        base = towers.FpAdapter(F)
+        C = CompleteCurveDevice(base, lambda a: base.mul_small(a, 9))
+        mv = [t.to(where) for t in (x, e)]
+        out[where.type] = (fp.FpDynamic(F).exp(mv[0], mv[1], 254),
+                           C.add(tuple(c.to(where) for c in P),
+                                 tuple(c.to(where) for c in Q)))
+    _assert_equal(tuple(c.cpu() for c in (out["cuda"][0], *out["cuda"][1])),
+                  (out["cpu"][0], *out["cpu"][1]))
+
+
+def test_f1_runtime_builds_4_words_at_first_use(dev):
+    """build_f1(2^127 - 1) on the card: fp_kernels at 4 words is built at
+    its first launch, and every method matches Python ints."""
+    import wasmsnark_tpu_torch
+    q = (1 << 127) - 1
+    rt = wasmsnark_tpu_torch.build_f1(q)
+    xs = [0, 1, q - 1, q - 2] + [(k * 0x9E3779B97F4A7C15) % q
+                                 for k in range(1, 60)]
+    ys = list(reversed(xs))
+    assert rt.mul(xs, ys) == [a * b % q for a, b in zip(xs, ys)]
+    assert "fp_kernels_w4" in cuda_lib._libs
+    assert rt.square(xs) == [a * a % q for a in xs]
+    assert rt.add(xs, ys) == [(a + b) % q for a, b in zip(xs, ys)]
+    assert rt.sub(xs, ys) == [(a - b) % q for a, b in zip(xs, ys)]
+    assert rt.inverse(xs) == [pow(a, -1, q) if a else 0 for a in xs]
+    assert rt.inverse_gcd(xs) == [pow(a, -1, q) if a else 0 for a in xs]
+
+
+@pytest.mark.parametrize("curve_name", ["bn128", "bls12381", "mnt6753"])
+def test_final_exponentiation_scan_on_card(dev, curve_name):
+    """final_exponentiation_scan over the full exponent (K8 or K12) equals
+    final_exponentiation on 4 lanes of Miller-loop values."""
+    from wasmsnark_tpu_torch.ops.pairing import pairing_device
+    pd = pairing_device(curve_name)
+    m = pd.m
+    g1 = pd.pack_g1([m.G1.affine(m.G1.times_scalar(m.g1_gen, k))[:2]
+                     for k in (2, 3, 5, 7)])
+    g2 = pd.pack_g2([m.G2.affine(m.g2_gen)[:2]] * 4)
+    f = pd.miller_loop(g1, g2)
+    _assert_equal(pd.final_exponentiation_scan(f),
+                  pd.final_exponentiation(f))

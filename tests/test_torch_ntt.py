@@ -112,3 +112,18 @@ def test_fft_ifft_through_k3_host_build(host_fp, monkeypatch, bits,
     assert {k: v for k, v in cuda_lib.launches.items() if v} == {
         "K3": 4 * passes}
     assert cuda_lib.fn_launches["k3_ntt_pass"] == 4 * passes
+
+
+def test_vector_helpers_and_serialize_limbs_bit_identical():
+    """NTTDevice.mul_n, to_mont_n, from_mont_n and serialize_limbs
+    (build_fft.js:374-547) against the JAX package's on the same planes."""
+    from wasmsnark_tpu.ops.ntt import serialize_limbs as j_serialize
+    from wasmsnark_tpu_torch.ops.ntt import serialize_limbs
+    a, b = _input(5, 31), _input(5, 32)
+    ta, tb = tfp.planes(a, CPU), tfp.planes(b, CPU)
+    for got, want in ((TN.mul_n(ta, tb), JN.mul_n(a, b)),
+                      (TN.to_mont_n(ta), JN.to_mont_n(a)),
+                      (TN.from_mont_n(ta), JN.from_mont_n(a))):
+        assert np.array_equal(tfp.to_numpy(got), np.asarray(want))
+    vals = [0, 1, _jm.Fr.q - 1, 1 << 200]
+    assert np.array_equal(serialize_limbs(vals, 16), j_serialize(vals, 16))

@@ -13,6 +13,9 @@ Montgomery form, affine zero (0, 0)).
         (groth16_gen_proof / groth16_verify / groth16_verify_batch)
     build_mnt6753(device=None) -> Mnt6753Runtime
         (bowe_gabizon_verify_batch / verify / verify_fused / verify_sync)
+    build_f1(q, device=None) -> F1Runtime
+        (mul / square / add / sub / neg / inverse / divmod / inverse_gcd /
+         bench_mul)
 
 Entry points run on the CUDA card unless the caller passes device="cpu",
 where every kernel wrapper runs its plain PyTorch version.
@@ -20,4 +23,5 @@ where every kernel wrapper runs its plain PyTorch version.
 
 __version__ = "0.1.0"
 
-from .api import build_bls12381, build_bn128, build_mnt6753  # noqa: F401
+from .api import (build_bls12381, build_bn128, build_f1,  # noqa: F401
+                  build_mnt6753)

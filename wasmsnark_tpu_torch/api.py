@@ -8,6 +8,8 @@
                                       build_bls12381(device="cpu")
     await buildMnt6753()              build_mnt6753()        (CUDA card)
                                       build_mnt6753(device="cpu")
+    await buildF1(q)                  build_f1(q)            (CUDA card)
+                                      build_f1(q, device="cpu")
     bn128.groth16GenProof(w, pk)      rt.groth16_gen_proof(witness, pkey)
     bn128.groth16Verify(vk, in, prf)  rt.groth16_verify(vk, inputs, proof)
                                       rt.groth16_verify_batch(vk, inputs_list,
@@ -42,3 +44,13 @@ def build_mnt6753(device=None):
     card; raises where there is none)."""
     from .models.mnt6753_runtime import Mnt6753Runtime
     return Mnt6753Runtime(device)
+
+
+def build_f1(q: int, device=None):
+    """Single-field runtime over the odd modulus q on `device` (default:
+    the CUDA card; raises where there is none): batched canonical mul,
+    square, add, sub, neg, inverse, divmod, inverse_gcd and bench_mul.  On
+    the card a q whose word count has no prebuilt library builds the field
+    kernels at that width at its first launch."""
+    from .fields.runtime import F1Runtime
+    return F1Runtime(q, device)

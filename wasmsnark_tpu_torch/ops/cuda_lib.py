@@ -6,9 +6,12 @@ BN128 Fp/Fr and BLS12-381 Fr, 12 for BLS12-381 Fq, 24 for MNT6753 Fq), by
 one `nvcc -DWORDS=N` call into a shared library `lib<name>_w<N>.so` with a
 plain C interface (no PyTorch headers, no ninja), into
 `wasmsnark_tpu_torch/_build/<hash>/`, where <hash> covers every source,
-the word counts and the flags.  The libraries are built at first use, all in
-parallel, and loaded with ctypes.  Nothing here runs at import time: the
-CPU tests import every module on a machine with no `nvcc` and no card.
+the word counts and the flags.  The libraries are built at first use, all
+in parallel, and loaded with ctypes.  The field kernels (`ANY_WORDS`) serve
+any field: a launch at a word count SOURCES does not list builds
+fp_kernels at that width, alone, into the same directory, at its first
+use.  Nothing here runs at import time: the CPU tests import every module
+on a machine with no `nvcc` and no card.
 
 Every launch goes through `launch()`, which picks the library of the
 field's word count, passes the tensors' device pointers and PyTorch's
@@ -43,6 +46,11 @@ SOURCES = {"fp_kernels": ("fp_kernels.cu", (8, 12, 24)),
            "tower_kernels": ("tower_kernels.cu", (8, 12)),
            "mnt_kernels": ("mnt_kernels.cu", (24,))}
 HEADERS = ("fp.cuh", "team.cuh")
+# sources whose kernels serve any field (K1, K2, K4 read every constant from
+# the field's words), so that a launch at a word count SOURCES does not list
+# builds the library at that width at its first use (F1Runtime's fields);
+# the curve and tower kernels carry their curves' constants
+ANY_WORDS = ("fp_kernels",)
 # every word count some library is built for
 WORDS = tuple(sorted({w for _, ws in SOURCES.values() for w in ws}))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -133,14 +141,16 @@ def build_dir() -> str:
     return os.path.join(BUILD_ROOT, source_hash())
 
 
-def build():
-    """Compile every library that is not built yet (one nvcc per source and
+def build(libs=None):
+    """Compile every library of `libs` (name -> (source file, words);
+    default: libraries()) that is not built yet (one nvcc per source and
     word count, all started together, each logging to <build
     dir>/<library>.log) and load them."""
+    libs = libraries() if libs is None else libs
     with _lock:
         out_dir = build_dir()
         os.makedirs(out_dir, exist_ok=True)
-        todo = {lib: sw for lib, sw in libraries().items()
+        todo = {lib: sw for lib, sw in libs.items()
                 if lib not in _libs
                 and not os.path.exists(os.path.join(out_dir, f"lib{lib}.so"))}
         procs = {}
@@ -172,7 +182,7 @@ def build():
             print(f"wasmsnark_tpu_torch: built {sorted(todo)} in "
                   f"{time.perf_counter() - t0:.1f} s into {out_dir}",
                   file=sys.stderr, flush=True)
-        for lib in libraries():
+        for lib in libs:
             if lib not in _libs:
                 _libs[lib] = _bind(ctypes.CDLL(
                     os.path.join(out_dir, f"lib{lib}.so")))
@@ -214,13 +224,15 @@ def launch(fn: str, spec, tensors, ints):
 
     source, kid = _ENTRY[fn]
     w = spec.n_limbs // 2
-    built = SOURCES[source][1]
-    if spec.n_limbs % 2 or w not in built:
+    src, built = SOURCES[source]
+    if spec.n_limbs % 2 or w not in built and source not in ANY_WORDS:
         raise RuntimeError(f"{fn}: no kernel build for {spec.n_limbs} limbs "
                            f"({source} is built for {built} 32-bit words)")
     lib = f"{source}_w{w}"
     if lib not in _libs:
-        build()
+        # every prebuilt library at once; a width SOURCES does not list,
+        # its library alone
+        build(None if w in built else {lib: (src, w)})
     words = _words_cache.get(spec)
     if words is None:
         words = _words_cache[spec] = field_words(spec)

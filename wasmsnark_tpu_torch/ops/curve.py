@@ -2,8 +2,10 @@
 (JacobianDevice for a = 0, ProjectiveDevice for a != 0, map_leaf).
 
 Points are (X, Y, Z) tuples of field elements (tower tuples compose); zero
-is any Z = 0, canonical (0, one, 0).  Every degenerate case (zero operands,
-P == Q, P == -Q) is resolved per lane with masked selects.
+is any Z = 0, canonical (0, one, 0).  Every degenerate case (zero
+operands, P == Q, P == -Q) is resolved per lane with masked selects.  Both
+devices also give neg, sub, eq, cneg (the sign of a signed-digit pick) and
+double_times, and `tree_reduce` sums a power-of-two lane axis.
 
 For the Jacobian G1 (base field Fp) the three operations are fused kernels:
 K5 `jac_madd`, K6 `jac_add`, K7 `jac_double` (csrc/curve_kernels.cu; K7
@@ -54,6 +56,16 @@ class JacobianDevice:
     def select(self, mask, p, q):
         F = self.F
         return tuple(F.select(mask, a, b) for a, b in zip(p, q))
+
+    def neg(self, p):
+        """-p = (X, -Y, Z): one field negation of Y (on a kernel-backed G1
+        a K2 sub from zero)."""
+        return (p[0], self.F.neg(p[1]), p[2])
+
+    def cneg(self, mask, p):
+        """mask ? -p : p per lane, Y through the field's cneg (K4 on a
+        kernel-backed field)."""
+        return (p[0], self.F.cneg(mask, p[1]), p[2])
 
     def _fused_spec(self):
         """FieldSpec when the fused curve kernels apply (G1 over a kernel-
@@ -155,6 +167,26 @@ class JacobianDevice:
             return jac_add(spec, p, q)
         return self.add_composed(p, q)
 
+    def sub(self, p, q):
+        return self.add(p, self.neg(q))
+
+    def eq(self, p, q):
+        """Cross-normalised equality (build_curve_jacobian_a0.js:115-172):
+        X1 Z2^2 = X2 Z1^2 and Y1 Z2^3 = Y2 Z1^3, or both zero."""
+        F = self.F
+        Z1Z1, Z2Z2 = unstack(F.square(stack(p[2], q[2])), 2)
+        U1, U2, Z2c, Z1c = unstack(F.mul(stack(p[0], q[0], q[2], p[2]),
+                                         stack(Z2Z2, Z1Z1, Z2Z2, Z1Z1)), 4)
+        S1, S2 = unstack(F.mul(stack(p[1], q[1]), stack(Z2c, Z1c)), 2)
+        pz, qz = self.is_zero(p), self.is_zero(q)
+        return (F.eq(U1, U2) & F.eq(S1, S2) & ~(pz ^ qz)) | (pz & qz)
+
+    def tree_reduce(self, p, axis_size: int):
+        """Sum 2^k points along the last batch axis by halving (log depth,
+        one add a level: K6 on a kernel-backed G1).  Leaves [..., axis_size]
+        -> [..., 1]."""
+        return tree_reduce(self, p, axis_size)
+
     def madd(self, p, q):
         """Complete mixed addition: p Jacobian + q affine (X, Y), with the
         affine zero written (0, 0)."""
@@ -221,6 +253,11 @@ class ProjectiveDevice:
     def double(self, p):
         return self.select(self.is_zero(p), p, self._raw_double(p))
 
+    def double_times(self, p, times: int):
+        for _ in range(times):
+            p = self.double(p)
+        return p
+
     def add(self, p, q):
         # add-1998-cmo-2 (build_curve_projective.js:291-408), complete
         F = self.F
@@ -245,12 +282,29 @@ class ProjectiveDevice:
     def sub(self, p, q):
         return self.add(p, self.neg(q))
 
+    def cneg(self, mask, p):
+        return (p[0], self.F.cneg(mask, p[1]), p[2])
+
     def eq(self, p, q):
         F = self.F
         ex = F.eq(F.mul(p[0], q[2]), F.mul(q[0], p[2]))
         ey = F.eq(F.mul(p[1], q[2]), F.mul(q[1], p[2]))
         pz, qz = self.is_zero(p), self.is_zero(q)
         return (ex & ey & ~(pz ^ qz)) | (pz & qz)
+
+
+def tree_reduce(curve, p, axis_size: int):
+    """Sum 2^k points of any curve device along the last batch axis by
+    halving: leaves [..., axis_size] -> [..., 1]."""
+    n = axis_size
+    if n & (n - 1):
+        raise ValueError("tree_reduce needs a power-of-two axis")
+    while n > 1:
+        half = n // 2
+        p = curve.add(map_leaf(p, lambda a: a[..., :half]),
+                      map_leaf(p, lambda a: a[..., half:n]))
+        n = half
+    return p
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@ package's uint32 planes): PyTorch's uint32 tensors lack the indexing and
 arithmetic that the glue code needs on both devices.  `planes()` and
 `to_numpy()` convert at the package boundary.
 
-`batch_inv` and `FpSqrt` (the Euler criterion and the uniform Tonelli-
-Shanks root of the JAX package) compose the field ops.
+`batch_inv`, `FpSqrt` (the Euler criterion and the uniform Tonelli-
+Shanks root of the JAX package), `FpDynamic` (per-lane exponents) and
+`times_scalar_device` (per-lane scalars on any curve device) compose the
+field ops.
 
 Each kernel wrapper below (mont_mul = K1, mod_add / mod_sub = K2) launches
 its CUDA kernel on a CUDA tensor and runs its plain PyTorch version on a CPU
@@ -444,6 +446,64 @@ class FpDevice:
     def one_mont(self, *batch):
         return self.one_mont_t.reshape(
             (self.L,) + (1,) * len(batch)).expand((self.L,) + tuple(batch))
+
+
+# ---------------------------------------------------------------------------
+# per-lane ladders (f1m_exp / timesScalar parity): every lane its own scalar
+# ---------------------------------------------------------------------------
+
+def _scalar_bits_msb(scalar_limbs, n_bits: int):
+    """[Ls, *B] 16-bit limb planes -> int64 [n_bits, *B] bits, most
+    significant first (bits at or above 16 Ls are 0).  The shifts run in
+    int64: the CPU has no `>>` on uint32 tensors."""
+    s = scalar_limbs.long()
+    rows = []
+    for k in range(n_bits - 1, -1, -1):
+        li, off = divmod(k, LIMB_BITS)
+        rows.append((s[li] >> off) & 1 if li < s.shape[0]
+                    else torch.zeros_like(s[0]))
+    return torch.stack(rows, dim=0)
+
+
+class FpDynamic:
+    """Per-lane exponentiation on an FpDevice (the JAX package's FpDynamic,
+    f1m_exp parity): every lane raises its base to its own exponent by an
+    MSB-first ladder; each step squares, multiplies (two K1 launches on
+    the card) and keeps the product where the lane's bit is 1."""
+
+    def __init__(self, fp: FpDevice):
+        self.fp = fp
+
+    def exp(self, x, exp_limbs, n_bits=None):
+        """x [L, *B] Montgomery, exp_limbs [Ls, *B] canonical 16-bit planes
+        -> x^e per lane (Montgomery)."""
+        F = self.fp
+        e = planes(exp_limbs, x.device)
+        bits = _scalar_bits_msb(e, n_bits or e.shape[0] * LIMB_BITS)
+        r = F.one_mont(*x.shape[1:])
+        for bit in bits:
+            r = F.mont_sqr(r)
+            r = F.select(bit != 0, F.mont_mul(r, x), r)
+        return r
+
+
+def times_scalar_device(curve, points, scalar_limbs, n_bits=None):
+    """Batched double-and-add (g1m_timesScalar semantics): every lane
+    multiplies its point by its own scalar, MSB first; each step doubles
+    (K7 on a kernel-backed G1), adds the point (K6) and keeps the sum where
+    the lane's bit is 1.  The complete group law folds in zero points and
+    zero scalars.  points: (X, Y, Z) leaves [.., *B]; scalar_limbs
+    [Ls, *B]."""
+    like = points[0]
+    while isinstance(like, tuple):
+        like = like[0]
+    s = planes(scalar_limbs, like.device)
+    bits = _scalar_bits_msb(s, n_bits or s.shape[0] * LIMB_BITS)
+    acc = curve.zero_like(points)
+    for bit in bits:
+        acc = curve.double(acc)
+        acc = curve.select(bit != 0, curve.add(acc, points), acc)
+    return acc
 
 
 class FpSqrt:

@@ -1,6 +1,6 @@
 """Multi-scalar multiplication, PyTorch port of wasmsnark_tpu/ops/msm.py
-(window_digits, signed_window_digits, MSMDevice.msm / msm_point,
-fold_windows_device, fold_windows).
+(window_digits, signed_window_digits, times_scalar_signed_device,
+MSMDevice.msm / msm_point, fold_windows_device, fold_windows).
 
 A bucketed Pippenger with signed c-bit digits, as in the JAX package, with
 the TPU-only devices left out (row packing, the one-hot histogram, sublane
@@ -32,7 +32,9 @@ import torch
 
 from ..fields.spec import LIMB_BITS
 from .curve import map_leaf, map_leaf2
+from .fp import planes
 from .scan import seg_scan, reduce_last
+from .towers import stack
 
 
 def window_digits(scalar_limbs, c: int):
@@ -70,6 +72,45 @@ def signed_window_digits(scalar_limbs, c: int):
     mags.append(carry)
     negs.append(torch.zeros_like(negs[0]))
     return torch.stack(mags, dim=0), torch.stack(negs, dim=0)
+
+
+def times_scalar_signed_device(curve, points, scalar_limbs,
+                               window_bits: int = 4):
+    """Batched signed-window scalar multiplication (the JAX package's
+    times_scalar_signed_device, the NAF ladder of build_timesscalarnaf.js):
+    every lane multiplies its point by its own scalar.  A table of the
+    2^(c-1) + 1 multiples 0, P, .., 2^(c-1) P is built with adds (K6 on a
+    kernel-backed G1); then per c-bit window, most significant first: the
+    c doublings (one K7 launch there, `double_times`), the lane's multiple
+    picked by one gather from the stacked table (the JAX package's K - 1
+    masked selects are a TPU workaround), its sign (one K4 launch) and one
+    add (K6).  Works over the Jacobian and projective devices alike.
+
+    points: (X, Y, Z) leaves [.., *B]; scalar_limbs: [Ls, *B] canonical
+    16-bit planes (numpy or a tensor)."""
+    c = window_bits
+    leaf = points[0]
+    while isinstance(leaf, tuple):
+        leaf = leaf[0]
+    mag, neg = signed_window_digits(planes(scalar_limbs, leaf.device), c)
+    T = [curve.zero_like(points), points]
+    for _ in range((1 << (c - 1)) - 1):
+        T.append(curve.add(T[-1], points))
+    table = stack(*T)                       # leaves [L, K, *B]
+
+    def pick(w):
+        def take(a):
+            idx = mag[w].reshape((1, 1) + tuple(mag.shape[1:]))
+            return torch.gather(a, 1, idx.expand(
+                (a.shape[0], 1) + tuple(a.shape[2:])))[:, 0]
+        return curve.cneg(neg[w], map_leaf(table, take))
+
+    # the top window's multiple starts the ladder: c doublings of zero and
+    # an add to zero would leave it unchanged
+    acc = pick(mag.shape[0] - 1)
+    for w in range(mag.shape[0] - 2, -1, -1):
+        acc = curve.add(curve.double_times(acc, c), pick(w))
+    return acc
 
 
 def _last(p):

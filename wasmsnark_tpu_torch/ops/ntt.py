@@ -217,3 +217,19 @@ class NTTDevice:
         if plan is None:
             plan = self.plan(bits, odd, inverse=True)
         return self._transform(x, plan["tw"], plan["invn"])
+
+    # -- vector helpers (build_fft.js:374-547) ---------------------------------
+
+    def mul_n(self, a, b):
+        return self.F.mont_mul(a, b)
+
+    def to_mont_n(self, a):
+        return self.F.to_mont(a)
+
+    def from_mont_n(self, a):
+        return self.F.from_mont(a)
+
+
+def serialize_limbs(vals, n_limbs) -> np.ndarray:
+    """ints -> uint32 [n_limbs, len(vals)] 16-bit limb planes."""
+    return ints_to_limbs_fast(vals, n_limbs)

@@ -187,6 +187,11 @@ class _PairingEngine:
         # prepared line coefficients of fixed G2 points (a verification
         # key's gamma2, delta2, beta2), filled by groth16.verifier
         self.vk_prep_cache: dict = {}
+        # the full exponent (q^12 - 1)/r, MSB first, for the self-check
+        # ladder final_exponentiation_scan
+        self.finexp_bits = np.array(
+            [int(b) for b in bin((Q ** 12 - 1) // m.fr_spec.q)[2:]],
+            dtype=np.uint32)
 
     @staticmethod
     def _bits(loop_count):
@@ -397,6 +402,17 @@ class _PairingEngine:
         t = self._f12_mul(self._f12_conj(f), self.F12d.inv(f))
         return self._f12_mul(self.frobenius(t, 2), t)
 
+    def final_exponentiation_scan(self, f):
+        """f^((q^12 - 1)/r) by square-and-multiply over the bits of
+        finexp_bits, the MSB implicit (f itself): the self-check reference
+        for final_exponentiation.  The JAX package scans every bit and
+        selects the product; the bits are static, so the product (K8) runs
+        only after a 1-bit, every square (K8) after each bit: the same
+        values."""
+        return _seg_square_multiply(self._f12_sqr,
+                                    lambda r: self._f12_mul(r, f), f,
+                                    self.finexp_bits[1:])
+
     def is_one(self, el):
         """Batched F12 == 1 (Montgomery form) -> bool [*B]."""
         return self.F12d.eq(el, self._f12_one(_leaf0(el)))
@@ -583,6 +599,11 @@ class Mnt6753PairingDevice:
         self.F3d, self.F6d, self.mulv = mnt_towers(self.base, NR)
         self.loop_bits = _PairingEngine._bits(ATE_LOOP_COUNT)
         self._w0 = FINAL_EXP_W0
+        # the full exponent (q^3 - 1)(q + 1)(q + w0), MSB first, for
+        # final_exponentiation_scan
+        self.finexp_bits = np.array(
+            [int(b) for b in bin((Q ** 3 - 1) * (Q + 1)
+                                 * (Q + FINAL_EXP_W0))[2:]], dtype=np.uint32)
         # F6-over-Fp Frobenius: component k (power of nr^(1/6), k = (0, 2,
         # 4, 1, 3, 5) across (a0, a1, a2, b0, b1, b2)) picks up the Fp
         # scalar nr^(k (q - 1)/6) (build_mnt6753.js:1008-1070); entry k-1
@@ -778,6 +799,14 @@ class Mnt6753PairingDevice:
         tw = _windowed_cyc_exp(self._f6_mul, self.cyclotomic_square, t,
                                self._w0, 4)
         return self._f6_mul(self.frobenius(t), tw)
+
+    def final_exponentiation_scan(self, f):
+        """The full exponent by square-and-multiply over finexp_bits (MSB
+        implicit), K12's square after each bit and its product after each
+        1-bit: the self-check reference for final_exponentiation."""
+        return _seg_square_multiply(self._f6_sqr,
+                                    lambda r: self._f6_mul(r, f), f,
+                                    self.finexp_bits[1:])
 
     def pairing_products(self, g1, g2):
         """prod_j e(P_j, Q_j) per batch lane: pairs on axis 1 (point leaves
