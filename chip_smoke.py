@@ -180,6 +180,15 @@ N_F1 = 1024                      # F1Runtime lanes
 F1_BENCH_MULS = 1 << 24
 REPS = 5                         # CUDA-event runs of each step 14-17 timing
 MILLER: dict = {}                # curve -> 4 lanes of Miller-loop values
+PROVE: dict = {}                 # curve -> step 4's key and witness bytes,
+                                 # step 5's proof, vk and public inputs
+MESH_WORLD = 4                   # step 18's ranks sharing the card (gloo)
+MESH_RANK_S = 240                # each rank's time limit in step 18
+MESH_BACKEND = "nccl"            # step 18's world of one (a host
+                                 # rehearsal sets "gloo")
+# step 18's rank command (this script, behind a flag; a host rehearsal
+# gives its own)
+MESH_RANK_CMD = [sys.executable, os.path.abspath(__file__), "--mesh-rank"]
 
 # the kernel function behind each C entry point (ptxas reports by kernel);
 # K1 at 24 words also launches its team product, mont_mul_team_kernel, and
@@ -1494,6 +1503,7 @@ def run_curve(curve, phases):
     phases["verify_s"] = time.perf_counter() - t
     say(f"{curve} verify: good True, tampered False "
         f"({phases['verify_s']:.1f} s)")
+    PROVE[curve] = (pkey, wbytes, proof, vk, pub)
 
     say(f"{curve} small circuit: card against the plain versions on the CPU")
     t = time.perf_counter()
@@ -2238,6 +2248,173 @@ def run_finexp_scan():
     return out
 
 
+# ---------------------------------------------------------------------------
+# step 18: the sharded prove (parallel/mesh.py), last
+# ---------------------------------------------------------------------------
+
+def tensor_bytes(obj):
+    """Bytes of the tensors in nested dicts, tuples and lists."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(tensor_bytes(o) for o in obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(tensor_bytes(o) for o in obj)
+    return 0
+
+
+def mesh_prove(prover, pkey, wbytes):
+    """Two proves of one rank (rng 7), the launch counters from 0 before
+    the first: {proof, first and steady wall, the steady prove's phases,
+    the first's launches and most lanes a launch per entry point, and the
+    bytes the rank holds on the card for the key and one witness}."""
+    import torch
+    from wasmsnark_tpu_torch.ops import cuda_lib
+
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    proof = prover.prove(wbytes, pkey, rng=7)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t
+    launches = {fn: v for fn, v in cuda_lib.fn_launches.items() if v}
+    lanes = {}
+    for fn, _, n in cuda_lib.lane_launches:
+        lanes[fn] = max(lanes.get(fn, 0), n)
+    breakdown = {}
+    t = time.perf_counter()
+    if prover.prove(wbytes, pkey, rng=7, timings=breakdown) != proof:
+        raise AssertionError("two sharded proves with the same rng differ")
+    steady = time.perf_counter() - t
+    (_, pk, dev), = prover._keys.values()
+    L = prover.Fr.L
+    return {"proof": proof, "prove_first_s": first, "prove_steady_s": steady,
+            "breakdown_s": breakdown, "launches": launches,
+            "max_lanes": lanes, "n_pad": dev["n_pad"],
+            "points_block": dev["g1"][0].shape[-1],
+            "upload_bytes": {
+                "points": tensor_bytes((dev["g1"], dev["points_b2"])),
+                "qap": tensor_bytes((dev["lca"], dev["lcb"])),
+                "witness": 4 * L * pk.n_signals}}
+
+
+def mesh_rank(rank, world, tmp) -> int:
+    """A rank of step 18's world on the card (this script with
+    --mesh-rank): gloo through a file store in tmp, step 4's key and
+    witness from tmp, mesh_prove's record to tmp/rank<rank>.json.  It
+    loads the kernels that step 2 built and builds none."""
+    faulthandler.dump_traceback_later(MESH_RANK_S, exit=True)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from wasmsnark_tpu_torch.groth16.prover import Groth16Prover
+    from wasmsnark_tpu_torch.ops import cuda_lib
+    from wasmsnark_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    with open(os.path.join(tmp, "pkey.bin"), "rb") as fh:
+        pkey = fh.read()
+    with open(os.path.join(tmp, "wit.bin"), "rb") as fh:
+        wbytes = fh.read()
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        rec = mesh_prove(Groth16Prover(mesh=make_mesh()), pkey, wbytes)
+    finally:
+        dist.destroy_process_group()
+    if cuda_lib.build_seconds:
+        raise AssertionError(f"rank {rank} built {cuda_lib.build_seconds}")
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+    return 0
+
+
+def run_ranks(tmp, world):
+    """Start `world` ranks (MESH_RANK_CMD, subprocesses), wait for them
+    within MESH_RANK_S, kill every one past it; any non-zero exit fails.
+    Returns their records and the spawn's wall."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
+               GLOO_SOCKET_IFNAME="lo")
+    procs = []
+    t = time.perf_counter()
+    try:
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.log"), "wb") as log:
+                procs.append(subprocess.Popen(
+                    MESH_RANK_CMD + [str(r), str(world), tmp], env=env,
+                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=max(0.1, MESH_RANK_S - (time.perf_counter() - t)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(tmp, f"rank{r}.log")) as log:
+                tail = log.read()[-4000:]
+            raise AssertionError(f"mesh rank {r} exited {p.returncode}:\n"
+                                 f"{tail}")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            recs.append(json.load(fh))
+    return recs, wall
+
+
+def run_mesh():
+    """Step 18: the BN128 prove of step 4's circuit over a mesh
+    (parallel/mesh.py) with step 5's rng, in a world of one rank on NCCL
+    in this process, then MESH_WORLD ranks sharing the card over gloo
+    (child processes); every proof must be step 5's, and a tampered copy
+    must not verify."""
+    import tempfile
+    import torch.distributed as dist
+    from wasmsnark_tpu_torch.groth16.prover import Groth16Prover
+    from wasmsnark_tpu_torch.groth16.verifier import groth16_verify
+    from wasmsnark_tpu_torch.parallel.mesh import make_mesh
+
+    pkey, wbytes, want, vk, pub = PROVE["bn128"]
+    out = {"circuit": f"bn128 square_chain_circuit(2^{LOG_2N} - 2)"}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(MESH_BACKEND, store=dist.FileStore(
+            os.path.join(tmp, "store1"), 1), rank=0, world_size=1)
+        try:
+            rec = mesh_prove(Groth16Prover(mesh=make_mesh(1)), pkey, wbytes)
+        finally:
+            dist.destroy_process_group()
+        if rec.pop("proof") != want:
+            raise AssertionError("the world of one's proof differs from "
+                                 "step 5's")
+        bad = json.loads(json.dumps(want))
+        bad["pi_c"][0] = str(int(bad["pi_c"][0]) + 1)
+        if groth16_verify(vk, pub, bad, curve="bn128") is not False:
+            raise AssertionError("a tampered sharded proof verifies")
+        out["world_of_one"] = {"backend": MESH_BACKEND, **rec}
+        say(f"mesh: world of one ({MESH_BACKEND}) "
+            f"{rec['prove_first_s']:.2f} s, steady "
+            f"{rec['prove_steady_s']:.2f} s, step 5's proof")
+
+        with open(os.path.join(tmp, "pkey.bin"), "wb") as fh:
+            fh.write(pkey)
+        with open(os.path.join(tmp, "wit.bin"), "wb") as fh:
+            fh.write(wbytes)
+        recs, wall = run_ranks(tmp, MESH_WORLD)
+    for r, rec in enumerate(recs):
+        if rec.pop("proof") != want:
+            raise AssertionError(f"mesh rank {r}'s proof differs from "
+                                 f"step 5's")
+    out["ranks"] = {
+        "world": MESH_WORLD, "backend": "gloo", "spawn_s": wall,
+        "prove_first_s": [r["prove_first_s"] for r in recs],
+        "prove_steady_s": [r["prove_steady_s"] for r in recs],
+        "upload_bytes": [r["upload_bytes"] for r in recs],
+        "rank0": recs[0]}
+    return out
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     import torch
@@ -2325,7 +2502,8 @@ def main() -> int:
     for step, run in (("ladders", lambda: run_ladders(dev)),
                       ("complete", lambda: run_complete(dev)),
                       ("f1", lambda: run_f1(dev)),
-                      ("finexp_scan", run_finexp_scan)):
+                      ("finexp_scan", run_finexp_scan),
+                      ("mesh", run_mesh)):
         t = time.perf_counter()
         phases[step] = run()
         phases[step]["s"] = time.perf_counter() - t
@@ -2352,4 +2530,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -25,7 +25,8 @@ kernel phase on 128 lanes; the whole script runs at small sizes with
     PYTHONPATH=. python tests/test_torch_csrc_host.py
 
 (a few minutes; N_LANES 256, LOG_2N 5, N_VERIFY 16, N_MNT 4,
-ROUND_TRIP_LOG 10).
+ROUND_TRIP_LOG 10, steps 14-17 at the sizes of their tier-1 rehearsal,
+step 18's ranks this file run with --mesh-rank).
 """
 
 import ctypes
@@ -1365,12 +1366,13 @@ def rehearse(mp, libs, **sizes):
     from wasmsnark_tpu_torch.groth16 import prover, setup, verifier
     from wasmsnark_tpu_torch.models import mnt6753_device, mnt6753_runtime
     from wasmsnark_tpu_torch.ops import pairing
+    from wasmsnark_tpu_torch.parallel import mesh
 
     def cpu(device=None):
         return torch.device("cpu")
 
     for mod in (fp, pairing, prover, setup, verifier, mnt6753_device,
-                mnt6753_runtime):
+                mnt6753_runtime, mesh):
         if hasattr(mod, "resolve_device"):
             mp.setattr(mod, "resolve_device", cpu)
     mp.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
@@ -1378,6 +1380,7 @@ def rehearse(mp, libs, **sizes):
     mp.setattr(torch.cuda, "current_stream",
                lambda *a, **k: type("S", (), {"cuda_stream": None})())
     mp.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    mp.setattr(torch.cuda, "set_device", lambda *a, **k: None)
     mp.setattr(torch.cuda, "_sleep", lambda *a, **k: None)
     mp.setattr(torch.cuda, "Event", _Event)
     mp.setattr(torch.cuda, "is_available", lambda: True)
@@ -1622,15 +1625,78 @@ def test_chip_smoke_times_rows_at_path_lanes(libs, monkeypatch):
         smoke.at_path_lanes(bad)
 
 
-if __name__ == "__main__":
-    # the whole of chip_smoke.py at small sizes on the host libraries
+def rehearse_mesh(mp, libs, **sizes):
+    """rehearse() for chip_smoke.py's step 18: its world of one on gloo,
+    its ranks this file run with --mesh-rank on the same host
+    libraries."""
     import sys
+    libdir = os.path.dirname(next(iter(libs.values()))._name)
+    smoke = rehearse(mp, libs, MESH_BACKEND="gloo", **sizes)
+    mp.setattr(smoke, "MESH_RANK_CMD", [sys.executable, __file__,
+                                        "--mesh-rank", libdir])
+    return smoke
+
+
+def test_chip_smoke_mesh_step_rehearsal(libs, monkeypatch):
+    """chip_smoke.py's step 18 on the host libraries, 2^5 - 2 constraints:
+    the world of one (gloo here) and two ranks of this file run as
+    subprocesses (--mesh-rank) return the unsharded proof, a tampered copy
+    does not verify, and the record carries every prove's wall, rank 0's
+    launches on its half of the points and the bytes each rank holds."""
+    import wasmsnark_tpu_torch
+    from wasmsnark_tpu_torch.groth16.setup import (
+        setup, square_chain_circuit, square_chain_witness)
+    from wasmsnark_tpu_torch.groth16.pkey import write_witness
+    smoke = rehearse_mesh(monkeypatch, libs, LOG_2N=5, MESH_WORLD=2)
+    m = bn128()
+    k = (1 << 5) - 2
+    pkey, vk, _ = setup(square_chain_circuit(k), seed=3, module=m)
+    wit = square_chain_witness(k, 3, r=m.Fr.q)
+    wbytes = write_witness(wit, m.fr_spec)
+    proof = wasmsnark_tpu_torch.build_bn128().groth16_gen_proof(
+        wbytes, pkey, rng=7)
+    monkeypatch.setattr(smoke, "PROVE", {"bn128": (
+        pkey, wbytes, proof, vk, [str(wit[1])])})
+    rec = smoke.run_mesh()
+    one, ranks = rec["world_of_one"], rec["ranks"]
+    n_pad = one["n_pad"]
+    assert one["backend"] == "gloo" and one["points_block"] == n_pad
+    assert ranks["world"] == 2 and len(ranks["prove_steady_s"]) == 2
+    rank0 = ranks["rank0"]
+    assert rank0["points_block"] == -(-n_pad // 2)
+    for fn in ("k3_ntt_pass", "k4_cneg", "k5_jac_madd", "k6_jac_add",
+               "k7_jac_dbl"):
+        assert one["launches"][fn] and rank0["launches"][fn], fn
+    assert rank0["max_lanes"]["k5_jac_madd"] < one["max_lanes"][
+        "k5_jac_madd"]
+    for up in ranks["upload_bytes"]:
+        assert up["points"] < one["upload_bytes"]["points"]
+        assert up["qap"] == one["upload_bytes"]["qap"]
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        # a rank of chip_smoke.py's step 18 on the host libraries in
+        # sys.argv[2]
+        with pytest.MonkeyPatch.context() as mp:
+            host = {lib: cuda_lib._bind(ctypes.CDLL(os.path.join(
+                sys.argv[2], f"lib{lib}.so"))) for lib in cuda_lib.libraries()}
+            smoke = rehearse(mp, host, DEVICE="cpu")
+            sys.exit(smoke.mesh_rank(int(sys.argv[3]), int(sys.argv[4]),
+                                     sys.argv[5]))
+    # the whole of chip_smoke.py at small sizes on the host libraries
     import tempfile
     with tempfile.TemporaryDirectory() as tmp, \
             pytest.MonkeyPatch.context() as mp:
-        host = build_host_libs(tmp)
-        smoke = rehearse(mp, host, N_LANES=256, LOG_2N=5, N_VERIFY=16,
-                         N_MNT=4, ROUND_TRIP_LOG=10, DEVICE="cpu")
+        host = {**build_host_libs(tmp), **_on_demand_lib(tmp, 4)}
+        smoke = rehearse_mesh(mp, host, N_LANES=256, LOG_2N=5, N_VERIFY=16,
+                              N_MNT=4, ROUND_TRIP_LOG=10, DEVICE="cpu",
+                              N_LADDER=16, N_LADDER_MNT=16, N_EXP=64,
+                              N_COMPLETE=256, N_F1=16,
+                              F1_BENCH_MULS=1 << 10, REPS=1)
+        # step 16's 4-word library stands for one built at first use
+        mp.setattr(cuda_lib, "build_seconds", {"fp_kernels_w4": 0.0})
         mp.setattr(smoke.subprocess, "run", lambda *a, **k: type(
             "R", (), {"stdout": "host rehearsal, 0 W"})())
         mp.setattr(smoke, "ptxas_summary", lambda d: {})

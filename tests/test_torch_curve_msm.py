@@ -232,3 +232,39 @@ def test_fold_windows_device_double_times_vs_jax(window_bits, monkeypatch):
                            for c in want))[0]
     assert same(m.G1, got, jgot)
     assert same(m.G1, fold_windows(m.G1, wins, window_bits), got)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 6, 8])
+def test_reduce_last_any_length_vs_jax(n):
+    """reduce_last sums an axis of any length (one not a power of two is
+    padded with zero points), as the JAX package's reduce_last does, over
+    BN128 G1 with a zero point among the inputs, compared affine; at 8
+    points the halving is unchanged: three launches of the add."""
+    from wasmsnark_tpu.ops.scan import reduce_last as jreduce
+    from wasmsnark_tpu_torch.ops import curve as curve_mod
+    from wasmsnark_tpu_torch.ops.scan import reduce_last
+    rnd = random.Random(50 + n)
+    pts = rand_g1(rnd, n)
+    if n > 2:
+        pts[1] = m.G1.zero()
+    calls = []
+    add = curve_mod.jac_add
+
+    def jac_add(spec, p, q):
+        calls.append(p[0].shape[-1])
+        return add(spec, p, q)
+
+    P = pack_g1(pts)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(curve_mod, "jac_add", jac_add)
+        got = unpack_g1(reduce_last(G1d, P))
+    assert len(got) == 1
+    assert calls == [2 ** k for k in range((n - 1).bit_length() - 1, -1, -1)]
+    jp = tuple(np.asarray(tfp.to_numpy(c)) for c in P)
+    want = jax.jit(lambda v: jreduce(JG1, v))(jp)
+    jgot = unpack_g1(tuple(tfp.planes(np.asarray(c), CPU) for c in want))
+    acc = m.G1.zero()
+    for p in pts:
+        acc = m.G1.add(acc, p)
+    assert same(m.G1, got[0], jgot[0])
+    assert same(m.G1, acc, got[0])

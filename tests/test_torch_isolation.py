@@ -307,3 +307,20 @@ def test_chip_smoke_without_a_card_fails_and_prints_no_result(tmp_path):
                              capture_output=True, text=True, timeout=300)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("rel", ["parallel/__init__.py", "parallel/mesh.py"])
+def test_mesh_modules_exist_and_import_no_jax(rel):
+    """The sharded MSM's package exists beside the JAX package's
+    parallel/ and imports neither jax nor the JAX package (the
+    subprocess test above imports it with jax blocked)."""
+    path = PORT / rel
+    assert (ROOT / "wasmsnark_tpu" / rel).exists()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            tops = {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            tops = {(node.module or "").split(".")[0]}
+        else:
+            continue
+        assert not tops & {"jax", "jaxlib", "wasmsnark_tpu"}, rel

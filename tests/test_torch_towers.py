@@ -89,3 +89,25 @@ def test_tower_mul_square_inv_match_oracle(tpd, tower):
     assert _unpack(tpd, D.square(ta), LANES) == [O.square(x) for x in a]
     assert _unpack(tpd, D.inv(ta), LANES) == [O.inv(x) for x in a]
     assert bool(D.eq(D.mul(ta, D.inv(ta)), D.one_like(ta)).all())
+
+
+@pytest.mark.parametrize("curve", ["bn128", "bls12381"])
+def test_oracle_cyclotomic_square_matches_jax(curve):
+    """The host oracles' Granger-Scott square, on f^((q^6 - 1)(q^2 + 1))
+    of a seeded F12 element (a cyclotomic element): the JAX models' value
+    and F12.mul(f, f)."""
+    from wasmsnark_tpu.models import bls12381 as jbls, bn128 as jbn
+    from wasmsnark_tpu_torch.models import curve_module
+    m = curve_module(curve)
+    jm = {"bn128": jbn.bn128, "bls12381": jbls.bls12381}[curve]()
+    rnd = random.Random(60)
+    q = m.F1.q
+    f = tuple(tuple((rnd.randrange(q), rnd.randrange(q)) for _ in range(3))
+              for _ in range(2))
+    F12 = m.F12
+    g = F12.mul(F12.conjugate(f), F12.inv(f))          # f^(q^6 - 1)
+    c = F12.mul(m.frobenius(g, 2), g)                  # ^(q^2 + 1)
+    got = m.cyclotomic_square(c)
+    assert got == jm.cyclotomic_square(c)
+    assert got == F12.mul(c, c)
+    assert m.cyclotomic_square(f) == jm.cyclotomic_square(f)

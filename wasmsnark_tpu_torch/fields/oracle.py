@@ -297,6 +297,39 @@ def frobenius12(F2, xi, q, f, power=1):
             (F2.mul(b0, g[0]), F2.mul(b1, g[2]), F2.mul(b2, g[4])))
 
 
+def gs_cyclotomic_square(B, mul_nr, f):
+    """Granger-Scott cyclotomic squaring of f in the quadratic-over-cubic
+    tower ((a0, a1, a2), (b0, b1, b2)), w^2 = v, v^3 = nr, over the oracle
+    field B: 9 squarings in B instead of a full square
+    (__cyclotomicSquare, build_bn128.js:980-1089).  It equals the square
+    only on the cyclotomic subgroup; elsewhere it is the same polynomial
+    map as the device version's (ops/towers.py)."""
+    (a0, a1, a2), (b0, b1, b2) = f
+
+    def two(x):
+        return B.add(x, x)
+
+    def three(x):
+        return B.add(two(x), x)
+
+    def sq2(x, y):
+        """(x^2, y^2, 2xy), the cross term from one more squaring."""
+        sx, sy = B.square(x), B.square(y)
+        return sx, sy, B.sub(B.sub(B.square(B.add(x, y)), sx), sy)
+
+    s_b1, s_a0, c_a0b1 = sq2(b1, a0)
+    s_a2, s_b0, c_a2b0 = sq2(a2, b0)
+    s_b2, s_a1, c_a1b2 = sq2(b2, a1)
+    t0 = B.add(mul_nr(s_b1), s_a0)
+    t2 = B.add(mul_nr(s_a2), s_b0)
+    t4 = B.add(mul_nr(s_b2), s_a1)
+    t8 = mul_nr(c_a1b2)
+    return ((B.sub(three(t0), two(a0)), B.sub(three(t2), two(a1)),
+             B.sub(three(t4), two(a2))),
+            (B.add(three(t8), two(b0)), B.add(three(c_a0b1), two(b1)),
+             B.add(three(c_a2b0), two(b2))))
+
+
 def _generic_exp(F, a, e: int):
     """Square-and-multiply ladder, MSB first (build_timesscalar.js)."""
     if e < 0:

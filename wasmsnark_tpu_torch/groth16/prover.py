@@ -7,6 +7,12 @@ src/bn128.js:580-720, curve-generic as the JAX package's.
   5 MSMs   four over G1, one over G2, each folded to one point on the device
   host     r/s randomization and the affine proof (oracle group ops)
 
+Over a mesh (parallel/mesh.py; one process a rank): each MSM runs
+point-sharded through msm_sharded_point, the key's point sections
+uploaded only as this rank's blocks; CALC_H runs whole on every rank and
+the H scalars are cut to the rank's block; every rank assembles the same
+proof from the same window sums and rng.
+
 Randomization parity: r and s are 32 unreduced random bytes and the r*s
 term uses their full product, as in the reference, so for the same key,
 witness and rng the proof JSON equals the JAX package's byte for byte, on
@@ -15,6 +21,7 @@ either curve.
 
 from __future__ import annotations
 
+import functools
 import os
 import random
 import time
@@ -36,10 +43,21 @@ _G1_SECTIONS = ("points_a", "points_b1", "points_c", "h_exps")
 
 class Groth16Prover:
     """Device kernel objects and per-key device state for one curve,
-    "bn128" or "bls12381" (every kernel takes the field's spec)."""
+    "bn128" or "bls12381" (every kernel takes the field's spec).
 
-    def __init__(self, device=None, curve: str = "bn128"):
+    mesh: a DeviceMesh of parallel/mesh.py, on this prover's device type,
+    whose "points" axis shards the MSMs; msm_window_bits: the MSM window
+    (default by size, `_window_for`)."""
+
+    def __init__(self, device=None, curve: str = "bn128", mesh=None,
+                 msm_window_bits: int | None = None):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a prover on "
+                             f"{self.device.type}")
+        self.mesh = mesh
+        self.window_bits = msm_window_bits
+        self._sharded: dict = {}
         self.m = curve_module(curve)
         self.Fp = FpDevice(self.m.fp_spec, self.device)
         self.Fr = FpDevice(self.m.fr_spec, self.device)
@@ -54,12 +72,31 @@ class Groth16Prover:
     def _window_for(self, n: int) -> int:
         """The JAX package's window policy (the result does not depend on
         it)."""
+        if self.window_bits:
+            return self.window_bits
         return 16 if n >= (1 << 16) else 12 if n >= (1 << 12) else 8 \
             if n >= (1 << 7) else 4
 
+    def _sharded_msm(self, curve, n: int):
+        """msm_sharded_point over the mesh's "points" axis, for an MSM of
+        n points (its window by n, as without a mesh)."""
+        c = self._window_for(n)
+        key = (id(curve), c)
+        if key not in self._sharded:
+            from ..parallel.mesh import msm_sharded_point
+            self._sharded[key] = msm_sharded_point(
+                MSMDevice(curve, window_bits=c), self.mesh)
+        return self._sharded[key]
+
     def _msm(self, curve, scalars, points):
-        msm = MSMDevice(curve, window_bits=self._window_for(scalars.shape[-1]))
-        return msm.msm_point(scalars, points)
+        """One MSM folded to a point on the device.  Under a mesh, scalars
+        are whole ([L, *K, n], cut here) and points this rank's block."""
+        n = scalars.shape[-1]
+        if self.mesh is None:
+            return MSMDevice(curve, window_bits=self._window_for(n)
+                             ).msm_point(scalars, points)
+        sh = self._sharded_msm(curve, n)
+        return sh.local(sh.shard(scalars), points)
 
     def _key(self, pkey):
         """(ProvingKey, device state) for bytes or a parsed ProvingKey."""
@@ -72,17 +109,23 @@ class Groth16Prover:
         # their MSMs run as one batch (zero points (0, 0) and zero digits
         # add nothing)
         n_pad = max(getattr(pk, nm)[0].shape[-1] for nm in _G1_SECTIONS)
+        if self.mesh is None:
+            def place(a, n=None):
+                t = planes(a, self.device)
+                return t if n is None else torch.nn.functional.pad(
+                    t, (0, n - t.shape[-1]))
+        else:
+            # this rank's blocks only (a block depends on the mesh and the
+            # length alone)
+            place = self._sharded_msm(self.G1d, n_pad).shard
 
         def stack(*secs):
-            return torch.stack([torch.nn.functional.pad(
-                planes(a, self.device), (0, n_pad - a.shape[-1]))
-                for a in secs], dim=1)
+            return torch.stack([place(a, n_pad) for a in secs], dim=1)
 
         g1 = [getattr(pk, nm) for nm in _G1_SECTIONS]
         dev = {"g1": (stack(*[s[0] for s in g1]), stack(*[s[1] for s in g1])),
                "n_pad": n_pad,
-               "points_b2": map_leaf(pk.points_b2,
-                                     lambda a: planes(a, self.device))}
+               "points_b2": map_leaf(pk.points_b2, place)}
         dev["lca"] = lc_arrays(pk.pols_a, self.device)
         dev["lcb"] = lc_arrays(pk.pols_b, self.device)
         if len(self._keys) >= 4:
@@ -216,3 +259,14 @@ class Groth16Prover:
         return tuple(
             tuple(F.unpack_mont(to_numpy(cc)[:, None])[0] for cc in c)
             for c in p)
+
+
+@functools.lru_cache(maxsize=8)
+def _prover(window_bits, curve) -> Groth16Prover:
+    return Groth16Prover(curve=curve, msm_window_bits=window_bits)
+
+
+def groth16_gen_proof(witness, pkey, *, rng=None, msm_window_bits=None,
+                      curve: str = "bn128"):
+    """Module-level prove on the card (the JAX package's entry point)."""
+    return _prover(msm_window_bits, curve).prove(witness, pkey, rng=rng)

@@ -1,6 +1,6 @@
 """BLS12-381 curve family: fields, towers, curves, pairing oracle — the
-port's copy of wasmsnark_tpu/models/bls12381.py (the device-only
-`cyclotomic_square` is left out: the port's is K9, ops/tower_kernels.py).
+port's copy of wasmsnark_tpu/models/bls12381.py (`cyclotomic_square` on
+the oracle's F2; the device's is K9, ops/tower_kernels.py).
 
 Capability mirror of src/bls12381/build_bls12381.js: Fp (381-bit), Fr
 (255-bit, 2-adicity 32) with NTT support, Fp2 = Fp[u]/(u^2+1), Fp6 over Fp2
@@ -163,6 +163,12 @@ class Bls12381:
         """F12 Frobenius via gamma tables (build_bls12381.js:857-961);
         equals F12.exp(f, Q**power)."""
         return fo.frobenius12(self.F2, self.xi, Q, f, power)
+
+    def cyclotomic_square(self, f):
+        """Granger-Scott squaring on the cyclotomic subgroup
+        (build_bls12381.js:961-1250)."""
+        return fo.gs_cyclotomic_square(
+            self.F2, lambda a: self.F2.mul(self.xi, a), f)
 
     def mul_by_014(self, f, c0, c1, c4):
         """Sparse F12 multiply by ((c0, c1, 0), (0, c4, 0)) — the M-twist

@@ -194,6 +194,12 @@ class Bn128:
         build_bn128.js:838-939); equals F12.exp(f, Q**power)."""
         return fo.frobenius12(self.F2, self.xi, Q, f, power)
 
+    def cyclotomic_square(self, f):
+        """Granger-Scott squaring, valid on the cyclotomic subgroup
+        (__cyclotomicSquare, build_bn128.js:980-1089)."""
+        return fo.gs_cyclotomic_square(
+            self.F2, lambda a: self.F2.mul(self.xi, a), f)
+
     def mul_line(self, f, a0, b0, b1):
         """Sparse F12 multiply by a Miller line ((a0,0,0),(b0,b1,0)) —
         the __mulBy024 analogue in this tower basis (build_bn128.js:613-753):

@@ -55,11 +55,15 @@ def seg_scan(curve, keys, p):
 
 
 def reduce_last(curve, p):
-    """Sum along the last axis (length a power of two) by halving.
-    Returns leaves with the last axis of size 1."""
+    """Sum along the last axis (any length) by halving; a length that is
+    not a power of two is first padded with zero points (all-zero leaves,
+    Z = 0) to the next one.  Returns leaves with the last axis of size
+    1."""
     n = p[0][0].shape[-1] if isinstance(p[0], tuple) else p[0].shape[-1]
     if n & (n - 1):
-        raise ValueError("reduce_last needs a power-of-two axis")
+        pad = (1 << n.bit_length()) - n
+        p = map_leaf(p, lambda a: torch.nn.functional.pad(a, (0, pad)))
+        n += pad
     while n > 1:
         half = n // 2
         p = curve.add(map_leaf(p, lambda a: a[..., :half]),
