@@ -120,7 +120,18 @@ point:
      against Python ints on N_F1 lanes, bench_mul's products a second;
  17. finexp_scan: final_exponentiation_scan against final_exponentiation
      on four lanes of Miller-loop values of steps 8 and 11, on all three
-     pairing engines.
+     pairing engines;
+ 18. mesh: the BN128 prove of step 4's circuit over a mesh
+     (parallel/mesh.py), CALC_H split over the ranks (ShardedNTT), in a
+     world of one on NCCL in this process and in MESH_WORLD ranks sharing
+     the card over gloo (child processes): every proof step 5's; per rank,
+     and for an unsharded prover first, CALC_H alone REPS times after two
+     proves (its seconds, K1/K3 launches, exchanges and bytes by
+     transform, peak device memory against the 8-14 N x 64 B reckoning,
+     the QAP bytes uploaded; the world of one's launches must be the
+     unsharded CALC_H's), then, in the same processes, a seeded
+     2^MESH_RT_LOG sharded round trip that must return its input and a
+     2^MESH_FFT_LOG sharded fft held against NTTDevice.fft of the whole.
 
 Any failure prints its traceback and exits non-zero.  Without a CUDA
 device, or outside the repository, it exits non-zero and prints no
@@ -184,6 +195,8 @@ PROVE: dict = {}                 # curve -> step 4's key and witness bytes,
                                  # step 5's proof, vk and public inputs
 MESH_WORLD = 4                   # step 18's ranks sharing the card (gloo)
 MESH_RANK_S = 240                # each rank's time limit in step 18
+MESH_RT_LOG = 22                 # step 18's sharded round trip, 2^22
+MESH_FFT_LOG = 16                # its sharded fft against the unsharded
 MESH_BACKEND = "nccl"            # step 18's world of one (a host
                                  # rehearsal sets "gloo")
 # step 18's rank command (this script, behind a flag; a host rehearsal
@@ -2266,9 +2279,10 @@ def tensor_bytes(obj):
 
 def mesh_prove(prover, pkey, wbytes):
     """Two proves of one rank (rng 7), the launch counters from 0 before
-    the first: {proof, first and steady wall, the steady prove's phases,
-    the first's launches and most lanes a launch per entry point, and the
-    bytes the rank holds on the card for the key and one witness}."""
+    the first, then one CALC_H alone (calc_h_record): {proof, first and
+    steady wall, the steady prove's phases, the first's launches and most
+    lanes a launch per entry point, the bytes the rank holds on the card
+    for the key and one witness, and the CALC_H record}."""
     import torch
     from wasmsnark_tpu_torch.ops import cuda_lib
 
@@ -2295,14 +2309,118 @@ def mesh_prove(prover, pkey, wbytes):
             "upload_bytes": {
                 "points": tensor_bytes((dev["g1"], dev["points_b2"])),
                 "qap": tensor_bytes((dev["lca"], dev["lcb"])),
-                "witness": 4 * L * pk.n_signals}}
+                "witness": 4 * L * pk.n_signals},
+            "calc_h": calc_h_record(prover, pk, dev, wbytes)}
+
+
+def calc_h_record(prover, pk, dev, wbytes):
+    """CALC_H of the prover (its key's device state) alone, REPS times
+    after one that builds its tables, the launch counters and the
+    device's peak memory from there: its path, the median and every
+    run's seconds, the first run's launches per entry point and exchanges
+    and bytes by transform, and the peak bytes above what was allocated
+    before, against the 8-14 N x 64 B that the port's layout was reckoned
+    to keep alive (N: this rank's part of the domain)."""
+    import torch
+    from wasmsnark_tpu_torch.groth16.pkey import read_witness
+    from wasmsnark_tpu_torch.ops import cuda_lib
+    from wasmsnark_tpu_torch.ops.fp import planes
+
+    sig = planes(read_witness(wbytes, prover.m.fr_spec), prover.device)
+    prover._calc_h(pk, sig, dev)
+    split = prover._calc_h_split(pk.domain_size)
+    if split is not None:
+        split.exchanges.clear()
+        split.exchange_bytes.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    runs = []
+    for i in range(REPS):
+        t = time.perf_counter()
+        prover._calc_h(pk, sig, dev)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t)
+        if i == 0:
+            launches = {fn: v for fn, v in cuda_lib.fn_launches.items()
+                        if v}
+            exchanges = dict(split.exchanges) if split else {}
+            exchange_bytes = dict(split.exchange_bytes) if split else {}
+    peak = torch.cuda.max_memory_allocated() - base
+    n = pk.domain_size // (split.D if split is not None else 1)
+    return {"path": prover.calc_h_path or "unsharded",
+            "why_whole": prover.calc_h_whole_reason,
+            "s": statistics.median(runs), "s_runs": runs,
+            "launches": launches, "exchanges": exchanges,
+            "exchange_bytes": exchange_bytes,
+            "domain_part": n, "peak_bytes": peak,
+            "peak_over_64n": peak / (64 * n),
+            "reckoning_bytes": [8 * 64 * n, 14 * 64 * n]}
+
+
+def sharded_transforms(prover, rt_log, fft_log):
+    """On the prover's mesh (ShardedNTT over its first axis): a 2^rt_log
+    ifft(fft(x)) round trip of this rank's block of a seeded x, which
+    must return it (the first builds the tables and index maps; a second
+    is timed), and a 2^fft_log fft of a block held against NTTDevice.fft
+    of the whole, bit for bit; seconds, exchanges and bytes each."""
+    import torch
+    from wasmsnark_tpu_torch.parallel.mesh import ShardedNTT
+
+    sh = ShardedNTT(prover.ntt, prover.mesh)
+    gen = torch.Generator(device=prover.device)
+    gen.manual_seed(SEED)
+
+    def block(log):
+        x = torch.randint(0, 1 << 16, (prover.Fr.L, 1 << log), generator=gen,
+                          device=prover.device, dtype=torch.int32)
+        x[-1] &= 0x0FFF                       # canonical: below 2^252 < r
+        M = x.shape[1] // sh.D
+        return x, x[:, sh.index * M:(sh.index + 1) * M].contiguous()
+
+    def timed(fn, x):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = fn(x)
+        torch.cuda.synchronize()
+        return y, time.perf_counter() - t
+
+    out = {"ranks": sh.D, "index": sh.index}
+    x, blk = block(rt_log)
+    del x
+    y, cold = timed(lambda b: sh.ifft(sh.fft(b)), blk)
+    ok = bool(torch.equal(y, blk))
+    sh.exchanges.clear()
+    sh.exchange_bytes.clear()
+    y, t_fft = timed(sh.fft, blk)
+    y, t_ifft = timed(sh.ifft, y)
+    out["round_trip"] = {
+        "log": rt_log, "first_s": cold, "fft_s": t_fft, "ifft_s": t_ifft,
+        "returns_input": ok and bool(torch.equal(y, blk)),
+        "exchanges": dict(sh.exchanges),
+        "exchange_bytes": dict(sh.exchange_bytes)}
+    del y, blk
+    x, blk = block(fft_log)
+    want = prover.ntt.fft(x)[:, sh.index * blk.shape[1]:
+                             (sh.index + 1) * blk.shape[1]]
+    out["fft_check"] = {"log": fft_log,
+                        "equals_unsharded": bool(torch.equal(sh.fft(blk),
+                                                             want))}
+    for name, key in (("round_trip", "returns_input"),
+                      ("fft_check", "equals_unsharded")):
+        if not out[name][key]:
+            raise AssertionError(f"the sharded {name} on rank {sh.index} "
+                                 f"of {sh.D} failed: {out[name]}")
+    return out
 
 
 def mesh_rank(rank, world, tmp) -> int:
     """A rank of step 18's world on the card (this script with
     --mesh-rank): gloo through a file store in tmp, step 4's key and
-    witness from tmp, mesh_prove's record to tmp/rank<rank>.json.  It
-    loads the kernels that step 2 built and builds none."""
+    witness and the transforms' sizes from tmp, mesh_prove's and
+    sharded_transforms' record to tmp/rank<rank>.json.  It loads the
+    kernels that step 2 built and builds none."""
     faulthandler.dump_traceback_later(MESH_RANK_S, exit=True)
     import torch
     import torch.distributed as dist
@@ -2316,10 +2434,14 @@ def mesh_rank(rank, world, tmp) -> int:
         pkey = fh.read()
     with open(os.path.join(tmp, "wit.bin"), "rb") as fh:
         wbytes = fh.read()
+    with open(os.path.join(tmp, "sizes.json")) as fh:
+        sizes = json.load(fh)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                             rank=rank, world_size=world)
     try:
-        rec = mesh_prove(Groth16Prover(mesh=make_mesh()), pkey, wbytes)
+        prover = Groth16Prover(mesh=make_mesh())
+        rec = mesh_prove(prover, pkey, wbytes)
+        rec["transforms"] = sharded_transforms(prover, **sizes)
     finally:
         dist.destroy_process_group()
     if cuda_lib.build_seconds:
@@ -2364,12 +2486,34 @@ def run_ranks(tmp, world):
     return recs, wall
 
 
+def say_rank(who, rec):
+    """Step 18's line for one rank: its CALC_H and transforms."""
+    c, tr = rec["calc_h"], rec["transforms"]
+    say(f"mesh {who}: CALC_H {c['path']} {c['s']:.4f} s (runs "
+        f"{', '.join(f'{t:.4f}' for t in c['s_runs'])}), launches "
+        f"{json.dumps(c['launches'])}, exchanges "
+        f"{json.dumps(c['exchanges'])}, bytes "
+        f"{json.dumps(c['exchange_bytes'])}, peak "
+        f"{c['peak_bytes']} B = {c['peak_over_64n']:.2f} x 64 B x "
+        f"{c['domain_part']} (reckoning 8-14), QAP "
+        f"{rec['upload_bytes']['qap']} B; round trip 2^"
+        f"{tr['round_trip']['log']} first {tr['round_trip']['first_s']:.3f}"
+        f" s, fft {tr['round_trip']['fft_s']:.4f} s, ifft "
+        f"{tr['round_trip']['ifft_s']:.4f} s, exchanges "
+        f"{json.dumps(tr['round_trip']['exchanges'])}, bytes "
+        f"{json.dumps(tr['round_trip']['exchange_bytes'])}; 2^"
+        f"{tr['fft_check']['log']} fft equals the unsharded")
+
+
 def run_mesh():
     """Step 18: the BN128 prove of step 4's circuit over a mesh
-    (parallel/mesh.py) with step 5's rng, in a world of one rank on NCCL
-    in this process, then MESH_WORLD ranks sharing the card over gloo
-    (child processes); every proof must be step 5's, and a tampered copy
-    must not verify."""
+    (parallel/mesh.py) with step 5's rng, CALC_H split over the ranks, in
+    a world of one rank on NCCL in this process, then MESH_WORLD ranks
+    sharing the card over gloo (child processes); every proof must be
+    step 5's, and a tampered copy must not verify.  An unsharded prover
+    first proves twice and runs CALC_H alone as each rank does; the world
+    of one's CALC_H must launch what that one does and exchange nothing;
+    each world then runs the sharded transforms (sharded_transforms)."""
     import tempfile
     import torch.distributed as dist
     from wasmsnark_tpu_torch.groth16.prover import Groth16Prover
@@ -2378,39 +2522,68 @@ def run_mesh():
 
     pkey, wbytes, want, vk, pub = PROVE["bn128"]
     out = {"circuit": f"bn128 square_chain_circuit(2^{LOG_2N} - 2)"}
+    sizes = {"rt_log": MESH_RT_LOG, "fft_log": MESH_FFT_LOG}
+    whole = mesh_prove(Groth16Prover(), pkey, wbytes)
+    if whole.pop("proof") != want:
+        raise AssertionError("the unsharded prover's proof differs from "
+                             "step 5's")
+    unsharded = whole["calc_h"]
+    say(f"mesh: unsharded CALC_H {unsharded['s']:.4f} s (runs "
+        f"{', '.join(f'{t:.4f}' for t in unsharded['s_runs'])}), launches "
+        f"{json.dumps(unsharded['launches'])}, peak "
+        f"{unsharded['peak_over_64n']:.2f} x 64 B x "
+        f"{unsharded['domain_part']}")
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(MESH_BACKEND, store=dist.FileStore(
             os.path.join(tmp, "store1"), 1), rank=0, world_size=1)
         try:
-            rec = mesh_prove(Groth16Prover(mesh=make_mesh(1)), pkey, wbytes)
+            prover = Groth16Prover(mesh=make_mesh(1))
+            rec = mesh_prove(prover, pkey, wbytes)
+            rec["transforms"] = sharded_transforms(prover, **sizes)
+            del prover
         finally:
             dist.destroy_process_group()
         if rec.pop("proof") != want:
             raise AssertionError("the world of one's proof differs from "
                                  "step 5's")
+        c = rec["calc_h"]
+        if c["path"] != "sharded" or c["exchanges"] or \
+                c["launches"] != unsharded["launches"]:
+            raise AssertionError(f"the world of one's CALC_H {c} is not "
+                                 f"the unsharded one's {unsharded}")
         bad = json.loads(json.dumps(want))
         bad["pi_c"][0] = str(int(bad["pi_c"][0]) + 1)
         if groth16_verify(vk, pub, bad, curve="bn128") is not False:
             raise AssertionError("a tampered sharded proof verifies")
+        out["unsharded_calc_h"] = unsharded
         out["world_of_one"] = {"backend": MESH_BACKEND, **rec}
         say(f"mesh: world of one ({MESH_BACKEND}) "
             f"{rec['prove_first_s']:.2f} s, steady "
             f"{rec['prove_steady_s']:.2f} s, step 5's proof")
+        say_rank("world of one", rec)
 
         with open(os.path.join(tmp, "pkey.bin"), "wb") as fh:
             fh.write(pkey)
         with open(os.path.join(tmp, "wit.bin"), "wb") as fh:
             fh.write(wbytes)
+        with open(os.path.join(tmp, "sizes.json"), "w") as fh:
+            json.dump(sizes, fh)
         recs, wall = run_ranks(tmp, MESH_WORLD)
     for r, rec in enumerate(recs):
         if rec.pop("proof") != want:
             raise AssertionError(f"mesh rank {r}'s proof differs from "
                                  f"step 5's")
+        if rec["calc_h"]["path"] != "sharded":
+            raise AssertionError(f"mesh rank {r} ran CALC_H whole: "
+                                 f"{rec['calc_h']['why_whole']}")
+        say_rank(f"rank {r} of {MESH_WORLD}", rec)
     out["ranks"] = {
         "world": MESH_WORLD, "backend": "gloo", "spawn_s": wall,
         "prove_first_s": [r["prove_first_s"] for r in recs],
         "prove_steady_s": [r["prove_steady_s"] for r in recs],
         "upload_bytes": [r["upload_bytes"] for r in recs],
+        "calc_h": [r["calc_h"] for r in recs],
+        "transforms": [r["transforms"] for r in recs],
         "rank0": recs[0]}
     return out
 

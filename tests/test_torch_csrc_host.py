@@ -1383,6 +1383,9 @@ def rehearse(mp, libs, **sizes):
     mp.setattr(torch.cuda, "set_device", lambda *a, **k: None)
     mp.setattr(torch.cuda, "_sleep", lambda *a, **k: None)
     mp.setattr(torch.cuda, "Event", _Event)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        mp.setattr(torch.cuda, name, lambda *a, **k: 0)
+    mp.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None)
     mp.setattr(torch.cuda, "is_available", lambda: True)
     mp.setattr(torch.cuda, "get_device_name", lambda *a: "host rehearsal")
     mp.setattr(torch.cuda, "device_count", lambda: 1)
@@ -1640,14 +1643,20 @@ def rehearse_mesh(mp, libs, **sizes):
 def test_chip_smoke_mesh_step_rehearsal(libs, monkeypatch):
     """chip_smoke.py's step 18 on the host libraries, 2^5 - 2 constraints:
     the world of one (gloo here) and two ranks of this file run as
-    subprocesses (--mesh-rank) return the unsharded proof, a tampered copy
-    does not verify, and the record carries every prove's wall, rank 0's
-    launches on its half of the points and the bytes each rank holds."""
+    subprocesses (--mesh-rank) return the unsharded proof with CALC_H
+    split (the world of one with the unsharded CALC_H's launches and no
+    exchange, the two ranks with one exchange a transform and the last to
+    H's blocks, half the bytes), a tampered copy does not verify, the
+    sharded round trip (2^8) returns its input and the sharded fft (2^6)
+    equals the unsharded one, and the record carries every prove's wall,
+    rank 0's launches on its half of the points and the bytes each rank
+    holds: its half of the points and of the QAP entries."""
     import wasmsnark_tpu_torch
     from wasmsnark_tpu_torch.groth16.setup import (
         setup, square_chain_circuit, square_chain_witness)
     from wasmsnark_tpu_torch.groth16.pkey import write_witness
-    smoke = rehearse_mesh(monkeypatch, libs, LOG_2N=5, MESH_WORLD=2)
+    smoke = rehearse_mesh(monkeypatch, libs, LOG_2N=5, MESH_WORLD=2,
+                          MESH_RT_LOG=8, MESH_FFT_LOG=6)
     m = bn128()
     k = (1 << 5) - 2
     pkey, vk, _ = setup(square_chain_circuit(k), seed=3, module=m)
@@ -1671,7 +1680,25 @@ def test_chip_smoke_mesh_step_rehearsal(libs, monkeypatch):
         "k5_jac_madd"]
     for up in ranks["upload_bytes"]:
         assert up["points"] < one["upload_bytes"]["points"]
-        assert up["qap"] == one["upload_bytes"]["qap"]
+        assert up["qap"] < 0.75 * one["upload_bytes"]["qap"]
+    c1 = one["calc_h"]
+    assert c1["path"] == "sharded" and c1["exchanges"] == {}
+    assert c1["launches"] == rec["unsharded_calc_h"]["launches"]
+    assert c1["launches"]["k3_ntt_pass"] and c1["launches"]["k1_mont_mul"]
+    for c in ranks["calc_h"]:
+        assert c["path"] == "sharded" and c["domain_part"] == 16
+        assert c["exchanges"] == {"ifft": 1, "fft_odd": 1, "ifft_2n": 1,
+                                  "h_blocks": 1}
+        b = c["exchange_bytes"]
+        assert b["ifft"] == b["fft_odd"] == b["ifft_2n"] == 2 * b[
+            "h_blocks"] == 2 * 16 * 4 * 16
+        assert c["launches"]["k3_ntt_pass"] > c1["launches"]["k3_ntt_pass"]
+    for tr in [one["transforms"]] + ranks["transforms"]:
+        assert tr["round_trip"]["returns_input"] and tr["round_trip"][
+            "log"] == 8
+        assert tr["fft_check"]["equals_unsharded"]
+        ex = tr["round_trip"]["exchanges"]
+        assert ex == ({} if tr["ranks"] == 1 else {"fft": 3, "ifft": 3})
 
 
 if __name__ == "__main__":

@@ -9,9 +9,13 @@ src/bn128.js:580-720, curve-generic as the JAX package's.
 
 Over a mesh (parallel/mesh.py; one process a rank): each MSM runs
 point-sharded through msm_sharded_point, the key's point sections
-uploaded only as this rank's blocks; CALC_H runs whole on every rank and
-the H scalars are cut to the rank's block; every rank assembles the same
-proof from the same window sums and rng.
+uploaded only as this rank's blocks; CALC_H runs split over the mesh's
+first axis (the JAX prover's domain axis, `_calc_h_split`), each rank on
+its part of the domain with only its QAP rows uploaded, and its block of
+H goes to its block of the h_exps MSM; every rank assembles the same
+proof from the same window sums and rng.  A mesh the split cannot serve
+(ranks not a power of two, a domain under D^2 points) runs CALC_H whole
+on every rank; `calc_h_path` says which ran.
 
 Randomization parity: r and s are 32 unreduced random bytes and the r*s
 term uses their full product, as in the reference, so for the same key,
@@ -58,6 +62,11 @@ class Groth16Prover:
         self.mesh = mesh
         self.window_bits = msm_window_bits
         self._sharded: dict = {}
+        # under a mesh, how the last CALC_H ran: "sharded" or "whole" (and
+        # why), and whether H was re-cut to the MSM's blocks (a collective)
+        self.calc_h_path = self.calc_h_whole_reason = None
+        self.h_recut = False
+        self._split: dict = {}
         self.m = curve_module(curve)
         self.Fp = FpDevice(self.m.fp_spec, self.device)
         self.Fr = FpDevice(self.m.fr_spec, self.device)
@@ -125,9 +134,8 @@ class Groth16Prover:
         g1 = [getattr(pk, nm) for nm in _G1_SECTIONS]
         dev = {"g1": (stack(*[s[0] for s in g1]), stack(*[s[1] for s in g1])),
                "n_pad": n_pad,
-               "points_b2": map_leaf(pk.points_b2, place)}
-        dev["lca"] = lc_arrays(pk.pols_a, self.device)
-        dev["lcb"] = lc_arrays(pk.pols_b, self.device)
+               "points_b2": map_leaf(pk.points_b2, place),
+               **self._qap(pk)}
         if len(self._keys) >= 4:
             self._keys.clear()
         self._keys[id(pkey)] = (pkey, pk, dev)
@@ -135,17 +143,58 @@ class Groth16Prover:
 
     # -- CALC_H -----------------------------------------------------------------
 
+    def _calc_h_split(self, n: int):
+        """The ShardedNTT over the mesh's first axis for a domain of n
+        points, or None (no mesh, or one the split cannot serve)."""
+        if self.mesh is None:
+            return None
+        if n not in self._split:
+            from ..parallel.mesh import ShardedNTT
+            sh = ShardedNTT(self.ntt, self.mesh)
+            self._split[n] = (sh, sh.unsupported(n))
+        sh, why = self._split[n]
+        return None if why else sh
+
+    def _qap(self, pk: ProvingKey) -> dict:
+        """The QAP tables on the device: under a split CALC_H only the
+        entries of this rank's domain columns ("chunks_rev")."""
+        sh = self._calc_h_split(pk.domain_size)
+        cols = None
+        if sh is not None:
+            from ..parallel.mesh import layout
+            cols = layout("chunks_rev", pk.domain_size, sh.D, sh.index)
+        return {"lca": lc_arrays(pk.pols_a, self.device, cols),
+                "lcb": lc_arrays(pk.pols_b, self.device, cols)}
+
     def calc_h(self, pk: ProvingKey, signals, dev=None):
         """signals: [L, nSignals] canonical planes on the device.  Returns
-        [L, domain] canonical H coefficients (upper half of A*B)."""
+        [L, domain] canonical H coefficients (upper half of A*B); under a
+        mesh this rank's block of them over the mesh's first axis, [L,
+        ceil(domain / D)] (the JAX prover's P(None, axis) block)."""
         if dev is None:
-            dev = {"lca": lc_arrays(pk.pols_a, self.device),
-                   "lcb": lc_arrays(pk.pols_b, self.device)}
+            dev = self._qap(pk)
+        h = self._calc_h(pk, signals, dev)
+        if self.mesh is None or self.calc_h_path == "sharded":
+            return h
+        sh, _ = self._split[pk.domain_size]
+        per = -(-h.shape[1] // sh.D)
+        h = h[:, sh.index * per:(sh.index + 1) * per]
+        return torch.nn.functional.pad(h, (0, per - h.shape[1]))
+
+    def _calc_h(self, pk: ProvingKey, signals, dev):
+        """H whole, or this rank's block of it where CALC_H runs split."""
+        n = pk.domain_size
+        sh = self._calc_h_split(n)
+        if self.mesh is not None:
+            self.calc_h_path = "whole" if sh is None else "sharded"
+            self.calc_h_whole_reason = self._split[n][1]
         Fr, ntt = self.Fr, self.ntt
-        bits = pk.domain_size.bit_length() - 1
+        bits = n.bit_length() - 1
         sig_m = Fr.to_mont(signals)
         ea = construct_lc(Fr, dev["lca"], sig_m)
         eb = construct_lc(Fr, dev["lcb"], sig_m)
+        if sh is not None:
+            return self._calc_h_sharded(sh, n, ea, eb)
         pinv = ntt.plan(bits, inverse=True)
         podd = ntt.plan(bits, odd=True)
         ca = ntt.ifft(ea, plan=pinv)
@@ -158,6 +207,34 @@ class Groth16Prover:
         c2 = Fr.mont_mul(a2, b2)
         cc = ntt.ifft(c2, plan=ntt.plan(bits + 1, inverse=True))
         return Fr.from_mont(cc[:, n:])
+
+    def _calc_h_sharded(self, sh, n: int, ea, eb):
+        """CALC_H's transforms split over the ranks (parallel/mesh.py
+        ShardedNTT), from ea and eb in layout "chunks_rev" (construct_lc
+        on this rank's columns) to this rank's block of H: the inverses
+        chunks in, strided out; the odd transforms strided in, chunks out;
+        the interleave and the product local (a rank's chunks of the two
+        N-point results are its chunks of the 2N-point arrays); the
+        2N-point inverse chunks in, strided out; and one last exchange
+        that sends each coefficient of the upper half straight to the rank
+        of its block of H.  Four exchanges in all (one rank: none)."""
+        Fr = self.Fr
+        ca, cb = sh.chunks_in([ea, eb], n, label="ifft")
+        oa, ob = sh.strided_in([ca, cb], n, odd=True, label="fft_odd")
+        del ca, cb
+        oa, ob = sh.exchange([oa, ob], "chunks", "chunks_rev", n, "local")
+        L, m = ea.shape
+
+        def interleave(e, o):
+            return torch.stack([e.view(L, -1, sh.D), o.view(L, -1, sh.D)],
+                               dim=2).reshape(L, 2 * m)
+
+        c2 = Fr.mont_mul(interleave(ea, oa), interleave(eb, ob))
+        del oa, ob
+        cc, = sh.chunks_in([c2], 2 * n, label="ifft_2n")
+        del c2
+        h, = sh.exchange([cc], "strided", "upper", 2 * n, "h_blocks")
+        return Fr.from_mont(h)
 
     # -- proof ------------------------------------------------------------------
 
@@ -190,13 +267,20 @@ class Groth16Prover:
         sig = planes(sig_np, self.device)
         t0 = self._lap(timings, "key_and_witness", t0)
 
-        h = self.calc_h(pk, sig, dev)
+        h = self._calc_h(pk, sig, dev)
         t0 = self._lap(timings, "calc_h", t0)
         n_pad = dev["n_pad"]
-        sc = torch.stack([torch.nn.functional.pad(s, (0, n_pad - s.shape[-1]))
-                          for s in (sig, sig, sig[:, pk.n_public + 1:], h)],
-                         dim=1)                        # [L, 4, n_pad]
-        g1 = self._msm(self.G1d, sc, dev["g1"])       # leaves [L, 4]
+        secs = (sig, sig, sig[:, pk.n_public + 1:])
+        if self.mesh is None:
+            sc = torch.stack([torch.nn.functional.pad(
+                s, (0, n_pad - s.shape[-1])) for s in secs + (h,)], dim=1)
+            g1 = self._msm(self.G1d, sc, dev["g1"])   # leaves [L, 4]
+        else:
+            sh = self._sharded_msm(self.G1d, n_pad)
+            sc = torch.stack([sh.shard(s, n_pad) for s in secs]
+                             + [self._h_block(sh, h, pk.domain_size, n_pad)],
+                             dim=1)                    # [L, 4, block]
+            g1 = sh.local(sc, dev["g1"])
         pi_a, pib1, pi_c, p_h = (
             self._g1_host(tuple(c[:, k] for c in g1)) for k in range(4))
         t0 = self._lap(timings, "msm_g1", t0)
@@ -246,6 +330,20 @@ class Groth16Prover:
             "pi_c": [str(pc[0]), str(pc[1]), str(pc[2])],
             "protocol": "groth",
         }
+
+    def _h_block(self, sh, h, n: int, n_pad: int):
+        """The MSM's block of H (sh: the ShardedMSM of the G1 MSMs) from
+        CALC_H's output: its own block where the split's blocks over the
+        mesh's first axis are the MSM's (one axis, n_pad = the domain),
+        else H gathered whole over that axis (one collective) and cut."""
+        self.h_recut = False
+        if self.calc_h_path != "sharded":
+            return sh.shard(h, n_pad)
+        split = self._calc_h_split(n)
+        if sh.axes == (split.axis,) and n_pad == n:
+            return h
+        self.h_recut = True
+        return sh.shard(split.gather(h), n_pad)
 
     # -- device -> host points ------------------------------------------------
 

@@ -182,6 +182,65 @@ class NTTDevice:
             self._plans[key] = p
         return p
 
+    def rank_plan(self, bits: int, d: int, index: int, odd: bool = False,
+                  inverse: bool = False, strided: bool = True):
+        """The twiddle plane of rank `index` of 2^d in a transform of 2^bits
+        points split over the ranks (parallel/mesh.py ShardedNTT), [L,
+        2^(bits-d)] Montgomery planes on the device, or None where every
+        entry is one.  With N = 2^bits, D = 2^d, M = N / D, c = w_2N if odd
+        else 1, w = w_N^-1 if inverse else w_N and s = 1/D if inverse else
+        1 (the local transforms' 1/M makes the 1/N), entry
+
+          strided=True:  k -> c^index w^(index k) s;
+          strided=False: ml*D + t -> w^(m k1) s, m = index*M/D + ml,
+                         k1 = -t mod D: an inverse without coset only (its
+                         D-point DFTs run forward, their outputs mirrored).
+
+        The first sits between the local M-point transforms and the
+        D-point DFTs (the input strided), the second between the D-point
+        DFTs and the local transforms (the input in chunks).  Cached per
+        (bits, d, index, odd, inverse, strided)."""
+        if not strided and (odd or not inverse):
+            raise ValueError("a plane for the input in chunks is an "
+                             "inverse's without coset")
+        key = ("rank", bits, d, index, odd, inverse, strided)
+        if key in self._plans:
+            return self._plans[key]
+        if d == 0:                                  # one rank: all ones
+            return None
+        q, R = self.field.q, self.field.R
+        D, M = 1 << d, 1 << (bits - d)
+        w = self.spec.roots[bits]
+        if inverse:
+            w = pow(w, q - 2, q)
+        c = self.spec.roots[bits + 1] if odd else 1
+        s = pow(D, q - 2, q) if inverse else 1
+        if strided:
+            step = pow(w, index, q)
+            cur = pow(c, index, q) * s % q
+            vals = []
+            for _ in range(M):
+                vals.append(cur)
+                cur = cur * step % q
+        else:
+            per = M // D
+            cols = []
+            for t in range(D):
+                step = pow(w, (-t) % D, q)
+                cur = pow(step, index * per, q) * s % q
+                col = []
+                for _ in range(per):
+                    col.append(cur)
+                    cur = cur * step % q
+                cols.append(col)
+            vals = [v for row in zip(*cols) for v in row]
+        p = None
+        if any(v != 1 for v in vals):
+            p = planes(ints_to_limbs_fast([v * R % q for v in vals],
+                                          self.field.n_limbs), self.F.device)
+        self._plans[key] = p
+        return p
+
     def _transform(self, x, tw, invn):
         """The passes of ntt_passes over x [L, 2^bits]: the first gathers,
         the last mirrors and scales where invn is given; passes between

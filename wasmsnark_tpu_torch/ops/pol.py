@@ -41,15 +41,27 @@ class SparseLC:
                              "domain index")
 
 
-def lc_arrays(lc: SparseLC, device) -> dict:
-    """The SparseLC tables as tensors on `device` (uploaded once per key)."""
+def lc_arrays(lc: SparseLC, device, columns=None) -> dict:
+    """The SparseLC tables as tensors on `device` (uploaded once per key).
+    columns: the global domain index of each local column (a rank's part of
+    a domain split over a mesh, parallel/mesh.py `layout`); then only the
+    entries that land there are uploaded, their coef_idx rebased to the
+    local columns, and construct_lc returns those columns (a column is one
+    domain index, so SparseLC's < 2^16 bound holds on every rank's part)."""
+    sig = np.asarray(lc.sig_idx, dtype=np.int64)
+    col = np.asarray(lc.coef_idx, dtype=np.int64)
+    coefs, size = lc.coefs, lc.domain_size
+    if columns is not None:
+        local = np.full(lc.domain_size, -1, np.int64)
+        local[columns] = np.arange(len(columns))
+        rows = np.nonzero(local[col] >= 0)[0]
+        sig, col = sig[rows], local[col[rows]]
+        coefs, size = np.asarray(coefs)[:, rows], len(columns)
     return {
-        "sig_idx": torch.from_numpy(
-            np.asarray(lc.sig_idx, dtype=np.int64)).to(device),
-        "coef_idx": torch.from_numpy(
-            np.asarray(lc.coef_idx, dtype=np.int64)).to(device),
-        "coefs": planes(lc.coefs, device),
-        "domain_size": lc.domain_size,
+        "sig_idx": torch.from_numpy(sig).to(device),
+        "coef_idx": torch.from_numpy(col).to(device),
+        "coefs": planes(coefs, device),
+        "domain_size": size,
     }
 
 
