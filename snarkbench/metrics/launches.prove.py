@@ -1,0 +1,6 @@
+"""The port's kernel launches (cuda_lib.launches) a proof."""
+from snarkbench.readings import launches_per_lane
+
+
+def read(rec):
+    return launches_per_lane(rec)
