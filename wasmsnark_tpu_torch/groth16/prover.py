@@ -21,6 +21,10 @@ Randomization parity: r and s are 32 unreduced random bytes and the r*s
 term uses their full product, as in the reference, so for the same key,
 witness and rng the proof JSON equals the JAX package's byte for byte, on
 either curve.
+
+Spans (utils/spans.py): "prove" around a proof, and inside it one a phase,
+"prove.key_and_witness", "prove.calc_h", "prove.msm_g1", "prove.msm_g2"
+and "prove.host_assembly"; `prove(timings=)` reads their seconds.
 """
 
 from __future__ import annotations
@@ -28,7 +32,6 @@ from __future__ import annotations
 import functools
 import os
 import random
-import time
 
 import torch
 
@@ -40,6 +43,7 @@ from ..ops.ntt import NTTDevice
 from ..ops.pol import construct_lc, lc_arrays
 from ..ops.towers import FpAdapter, F2Device
 from ..utils.serialize import bytes_le_to_int, ints_to_limbs_fast
+from ..utils.spans import span
 from .pkey import ProvingKey, parse_pkey, read_witness
 
 _G1_SECTIONS = ("points_a", "points_b1", "points_c", "h_exps")
@@ -238,57 +242,64 @@ class Groth16Prover:
 
     # -- proof ------------------------------------------------------------------
 
-    def _lap(self, timings, name, t0):
-        """With a timings dict: synchronize the device and record the
-        seconds since t0 under name.  Returns the new start."""
+    def _phase(self, timings, name: str):
+        """The span of one phase of prove, "prove.<name>".  With a timings
+        dict it is timed whether or not spans are recorded, synchronizes
+        the device at its end and gives its seconds to timings[name]."""
         if timings is None:
-            return t0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t = time.perf_counter()
-        timings[name] = t - t0
-        return t
+            return span("prove." + name)
+        return span("prove." + name, sync=self.device, into=(timings, name))
 
     def prove(self, witness, pkey, rng=None, timings=None) -> dict:
         """timings: if a dict, receives the seconds of each phase (key and
-        witness upload, calc_h, msm_g1, msm_g2, host assembly), with a
-        device synchronize at each boundary."""
+        witness upload, calc_h, msm_g1, msm_g2, host assembly), each its
+        span's, with a device synchronize at the end of each."""
+        with span("prove"):
+            return self._prove(witness, pkey, rng, timings)
+
+    def _prove(self, witness, pkey, rng, timings) -> dict:
         m = self.m
-        t0 = time.perf_counter()
-        pk, dev = self._key(pkey)
-        if isinstance(witness, (bytes, bytearray)):
-            sig_np = read_witness(bytes(witness), m.fr_spec)
-        else:
-            sig_np = ints_to_limbs_fast(
-                [int(v) % m.Fr.q for v in witness], m.fr_spec.n_limbs)
-        if sig_np.shape[1] != pk.n_signals:
-            raise ValueError(f"witness has {sig_np.shape[1]} signals, the "
-                             f"key {pk.n_signals}")
-        sig = planes(sig_np, self.device)
-        t0 = self._lap(timings, "key_and_witness", t0)
+        with self._phase(timings, "key_and_witness"):
+            pk, dev = self._key(pkey)
+            if isinstance(witness, (bytes, bytearray)):
+                sig_np = read_witness(bytes(witness), m.fr_spec)
+            else:
+                sig_np = ints_to_limbs_fast(
+                    [int(v) % m.Fr.q for v in witness], m.fr_spec.n_limbs)
+            if sig_np.shape[1] != pk.n_signals:
+                raise ValueError(f"witness has {sig_np.shape[1]} signals, "
+                                 f"the key {pk.n_signals}")
+            sig = planes(sig_np, self.device)
 
-        h = self._calc_h(pk, sig, dev)
-        t0 = self._lap(timings, "calc_h", t0)
-        n_pad = dev["n_pad"]
-        secs = (sig, sig, sig[:, pk.n_public + 1:])
-        if self.mesh is None:
-            sc = torch.stack([torch.nn.functional.pad(
-                s, (0, n_pad - s.shape[-1])) for s in secs + (h,)], dim=1)
-            g1 = self._msm(self.G1d, sc, dev["g1"])   # leaves [L, 4]
-        else:
-            sh = self._sharded_msm(self.G1d, n_pad)
-            sc = torch.stack([sh.shard(s, n_pad) for s in secs]
-                             + [self._h_block(sh, h, pk.domain_size, n_pad)],
-                             dim=1)                    # [L, 4, block]
-            g1 = sh.local(sc, dev["g1"])
-        pi_a, pib1, pi_c, p_h = (
-            self._g1_host(tuple(c[:, k] for c in g1)) for k in range(4))
-        t0 = self._lap(timings, "msm_g1", t0)
-        pi_b = self._g2_host(self._msm(self.G2d, sig, dev["points_b2"]))
-        t0 = self._lap(timings, "msm_g2", t0)
+        with self._phase(timings, "calc_h"):
+            h = self._calc_h(pk, sig, dev)
+        with self._phase(timings, "msm_g1"):
+            n_pad = dev["n_pad"]
+            secs = (sig, sig, sig[:, pk.n_public + 1:])
+            if self.mesh is None:
+                sc = torch.stack([torch.nn.functional.pad(
+                    s, (0, n_pad - s.shape[-1])) for s in secs + (h,)],
+                    dim=1)
+                g1 = self._msm(self.G1d, sc, dev["g1"])   # leaves [L, 4]
+            else:
+                sh = self._sharded_msm(self.G1d, n_pad)
+                sc = torch.stack(
+                    [sh.shard(s, n_pad) for s in secs]
+                    + [self._h_block(sh, h, pk.domain_size, n_pad)],
+                    dim=1)                                 # [L, 4, block]
+                g1 = sh.local(sc, dev["g1"])
+            pi_a, pib1, pi_c, p_h = (
+                self._g1_host(tuple(c[:, k] for c in g1)) for k in range(4))
+        with self._phase(timings, "msm_g2"):
+            pi_b = self._g2_host(self._msm(self.G2d, sig, dev["points_b2"]))
 
-        # ---- randomized assembly (bn128.js:642-704) ----
-        G1, G2 = m.G1, m.G2
+        with self._phase(timings, "host_assembly"):
+            return self._assemble(pk, rng, pi_a, pi_b, pib1, pi_c, p_h)
+
+    def _assemble(self, pk, rng, pi_a, pi_b, pib1, pi_c, p_h) -> dict:
+        """The randomized assembly on the host (bn128.js:642-704) and the
+        proof JSON."""
+        G1, G2 = self.m.G1, self.m.G2
         if rng is None:
             rnd = os.urandom
         elif callable(rng):
@@ -321,7 +332,6 @@ class Groth16Prover:
         pa = G1.affine(pi_a)
         pb = G2.affine(pi_b)
         pc = G1.affine(pi_c)
-        self._lap(timings, "host_assembly", t0)
         return {
             "pi_a": [str(pa[0]), str(pa[1]), str(pa[2])],
             "pi_b": [[str(pb[0][0]), str(pb[0][1])],

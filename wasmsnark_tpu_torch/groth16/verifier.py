@@ -11,7 +11,10 @@ to be < r (bn128.js:776: `if int_gte(input, r) return false`).
 `groth16_verify` runs the pairing on the host oracle (models/);
 `groth16_verify_batch` runs N proofs at once through the curve's device
 pairing engine (ops/pairing.py), port of the JAX package's
-`groth16_verify_batch`.
+`groth16_verify_batch`.  Its spans (utils/spans.py): "verify.batch" around
+it, "verify.marshal" around the host marshalling with one "verify.vk_x" a
+lane that reaches its vk_x ladder, and "verify.pairing" around the device
+pairing and the verdicts' copy to the host.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from ..models import curve_module
 from ..ops.curve import map_leaf, map_leaf2
 from ..utils.serialize import parse_bigint
+from ..utils.spans import span
 
 
 def _g1_from_json(m, pt):
@@ -114,10 +118,14 @@ def groth16_verify_batch(vk: dict, inputs_list, proofs, curve: str = "bn128",
         raise ValueError(f"{len(inputs_list)} input lists for {n} proofs")
     if n == 0:
         return []
-    pd = pairing_device(curve, device)
-    g1, g2_b, fixed, ok_host = _batch_inputs(pd, m, vk, inputs_list, proofs)
-    ok = pd.is_one(_pairing_batch(pd, g1, g2_b, fixed)).cpu().tolist()
-    return [bool(ok[i]) and ok_host[i] for i in range(n)]
+    with span("verify.batch"):
+        pd = pairing_device(curve, device)
+        with span("verify.marshal"):
+            g1, g2_b, fixed, ok_host = _batch_inputs(pd, m, vk, inputs_list,
+                                                     proofs)
+        with span("verify.pairing"):
+            ok = pd.is_one(_pairing_batch(pd, g1, g2_b, fixed)).cpu().tolist()
+        return [bool(ok[i]) and ok_host[i] for i in range(n)]
 
 
 def _batch_inputs(pd, m, vk, inputs_list, proofs):
@@ -150,12 +158,13 @@ def _batch_inputs(pd, m, vk, inputs_list, proofs):
             C = _g1_from_json(m, proof["pi_c"])
             if len(inputs) + 1 != len(ic):
                 raise ValueError("bad input count")
-            vk_x = ic[0]
-            for j, raw in enumerate(inputs):
-                v = parse_bigint(raw)
-                if v >= R:
-                    raise ValueError("input >= r")
-                vk_x = m.G1.add(vk_x, m.G1.times_scalar(ic[j + 1], v))
+            with span("verify.vk_x"):
+                vk_x = ic[0]
+                for j, raw in enumerate(inputs):
+                    v = parse_bigint(raw)
+                    if v >= R:
+                        raise ValueError("input >= r")
+                    vk_x = m.G1.add(vk_x, m.G1.times_scalar(ic[j + 1], v))
             pts1 = [A, m.G1.neg(vk_x), m.G1.neg(C), m.G1.neg(alfa1)]
             if any(m.G1.is_zero(p) for p in pts1) or any(
                     m.G2.is_zero(p) for p in (B, gamma2, delta2, beta2)):

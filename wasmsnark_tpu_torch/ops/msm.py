@@ -24,6 +24,11 @@ window grouping, lane tiles):
 
 Completeness comes from the group law: repeated points, zero points,
 inverse pairs, zero scalars and unreduced 256-bit scalars all fold in.
+
+Spans (utils/spans.py): "msm" around msm_point, and inside it one a stage,
+"msm.digits", "msm.sort" (nonzero, sort, gather), "msm.bucket_scan" (the
+first seg_scan and the bucket fill), "msm.triangle" (the suffix seg_scan),
+"msm.reduce" (reduce_last) and "msm.fold" (fold_windows_device).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from .curve import map_leaf, map_leaf2
 from .fp import planes
 from .scan import seg_scan, reduce_last
 from .towers import stack
+from ..utils.spans import span
 
 
 def window_digits(scalar_limbs, c: int):
@@ -145,57 +151,65 @@ class MSMDevice:
         N = scalar_limbs.shape[-1]
         KN = scalar_limbs[0].numel()
         K = KN // N if N else 0
-        mag, neg = self.signed_digits(scalar_limbs.reshape(-1, KN))
+        with span("msm.digits"):
+            mag, neg = self.signed_digits(scalar_limbs.reshape(-1, KN))
         W = mag.shape[0]
         B = 1 << (self.c - 1)                  # buckets 1..B per window
-        pts = map_leaf(points, lambda a: a.reshape(a.shape[0], KN))
-        jac_like = (pts[0], pts[1], pts[0])
-        flat = mag.reshape(-1)
-        ent = torch.nonzero(flat).squeeze(1)
-        if ent.numel() == 0:
-            zero = _zero_points(jac_like, K * W)
-            return map_leaf(zero, lambda a: a.reshape(
-                a.shape[:-1] + kshape + (W,)))
+        with span("msm.sort"):
+            pts = map_leaf(points, lambda a: a.reshape(a.shape[0], KN))
+            jac_like = (pts[0], pts[1], pts[0])
+            flat = mag.reshape(-1)
+            ent = torch.nonzero(flat).squeeze(1)
+            if ent.numel() == 0:
+                zero = _zero_points(jac_like, K * W)
+                return map_leaf(zero, lambda a: a.reshape(
+                    a.shape[:-1] + kshape + (W,)))
 
-        # sort the nonzero entries by (msm, window, bucket)
-        lane = ent % KN
-        seg = (lane // N) * W + ent // KN      # one segment per (msm, window)
-        skey, order = torch.sort(seg * (B + 1) + flat[ent])
-        ent = ent[order]
-        lane = lane[order]
-        sgn = neg.reshape(-1)[ent]
-        px = map_leaf(pts[0], lambda a: torch.index_select(a, -1, lane))
-        py = map_leaf(pts[1], lambda a: torch.index_select(a, -1, lane))
-        acc = seg_scan(C, skey, (px, C.F.cneg(sgn, py)))
+            # sort the nonzero entries by (msm, window, bucket)
+            lane = ent % KN
+            seg = (lane // N) * W + ent // KN  # one segment per (msm, window)
+            skey, order = torch.sort(seg * (B + 1) + flat[ent])
+            ent = ent[order]
+            lane = lane[order]
+            sgn = neg.reshape(-1)[ent]
+            px = map_leaf(pts[0], lambda a: torch.index_select(a, -1, lane))
+            py = map_leaf(pts[1], lambda a: torch.index_select(a, -1, lane))
+            py = C.F.cneg(sgn, py)
 
-        # bucket sums sit at the run ends
-        M = skey.shape[0]
-        is_end = torch.ones(M, dtype=torch.bool, device=skey.device)
-        is_end[:-1] = skey[1:] != skey[:-1]
-        pos = torch.nonzero(is_end).squeeze(1)
-        bid = skey[pos]
-        dense = (bid // (B + 1)) * B + (bid % (B + 1) - 1)
         S = K * W                              # segments
-        buckets = map_leaf2(
-            _zero_points(jac_like, S * B), acc,
-            lambda z, a: z.index_copy(z.dim() - 1, dense,
-                                      torch.index_select(a, -1, pos)))
+        with span("msm.bucket_scan"):
+            acc = seg_scan(C, skey, (px, py))
+            # bucket sums sit at the run ends
+            M = skey.shape[0]
+            is_end = torch.ones(M, dtype=torch.bool, device=skey.device)
+            is_end[:-1] = skey[1:] != skey[:-1]
+            pos = torch.nonzero(is_end).squeeze(1)
+            bid = skey[pos]
+            dense = (bid // (B + 1)) * B + (bid % (B + 1) - 1)
+            buckets = map_leaf2(
+                _zero_points(jac_like, S * B), acc,
+                lambda z, a: z.index_copy(z.dim() - 1, dense,
+                                          torch.index_select(a, -1, pos)))
 
         # triangle: sum_b b*S_b = sum of the suffix sums, per segment
-        rev = map_leaf(buckets, lambda a: a.reshape(
-            a.shape[:-1] + (S, B)).flip(-1).reshape(a.shape))
-        skeys = torch.arange(S, device=skey.device).repeat_interleave(B)
-        suf = seg_scan(C, skeys, rev)
-        win = reduce_last(C, map_leaf(
-            suf, lambda a: a.reshape(a.shape[:-1] + (S, B))))
-        return map_leaf(win, lambda a: a[..., 0].reshape(
-            a.shape[:-2] + kshape + (W,)))
+        with span("msm.triangle"):
+            rev = map_leaf(buckets, lambda a: a.reshape(
+                a.shape[:-1] + (S, B)).flip(-1).reshape(a.shape))
+            skeys = torch.arange(S, device=skey.device).repeat_interleave(B)
+            suf = seg_scan(C, skeys, rev)
+        with span("msm.reduce"):
+            win = reduce_last(C, map_leaf(
+                suf, lambda a: a.reshape(a.shape[:-1] + (S, B))))
+            return map_leaf(win, lambda a: a[..., 0].reshape(
+                a.shape[:-2] + kshape + (W,)))
 
     def msm_point(self, scalar_limbs, points):
         """Full MSM folded to one Jacobian point per batch entry (leaves
         [.., *K])."""
-        return fold_windows_device(self.curve, self.msm(scalar_limbs, points),
-                                   self.c)
+        with span("msm"):
+            win = self.msm(scalar_limbs, points)
+            with span("msm.fold"):
+                return fold_windows_device(self.curve, win, self.c)
 
 
 def fold_windows_device(curve, win, window_bits: int):
