@@ -1316,13 +1316,16 @@ def verify_batch(rt, vk, lanes, phases):
         raise AssertionError(f"verify batch launches {tower_counts(counts)} "
                              f"are not the static schedule's {sched}")
 
-    # where the steady time goes: host marshalling, then the device half
+    # where the steady time goes: the marshalling (its vk_x stage on the
+    # card included), then the pairing
     t = time.perf_counter()
-    g1, g2_b, fixed, ok_host = verifier._batch_inputs(pd, m, vk, ins, prs)
+    g1, g2_b, fixed, ok_host, vk_x_ok = verifier._batch_inputs(pd, m, vk,
+                                                               ins, prs)
     torch.cuda.synchronize()
     phases["verify_host_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    ok = pd.is_one(verifier._pairing_batch(pd, g1, g2_b, fixed)).tolist()
+    ok = (pd.is_one(verifier._pairing_batch(pd, g1, g2_b, fixed))
+          & vk_x_ok).tolist()
     phases["verify_device_s"] = time.perf_counter() - t
     if [bool(a) and b for a, b in zip(ok, ok_host)] != want:
         raise AssertionError("the split verify batch disagrees")
@@ -1377,8 +1380,8 @@ def pairing_batch(rt, vk, pub, proof, phases):
     if any(v != want for v in pd.unpack_f12(e)):
         raise AssertionError("e(7 G1, 9 G2) != e(G1, G2)^63 on some lane")
 
-    g1p, g2_b, fixed, ok_host = verifier._batch_inputs(pd, m, vk, [pub],
-                                                       [proof])
+    g1p, g2_b, fixed, *_ = verifier._batch_inputs(pd, m, vk, [pub],
+                                                  [proof])
     e_prep = verifier._pairing_batch(pd, g1p, g2_b, fixed)
     pts = [verifier._g2_from_json(m, proof["pi_b"])] + [
         verifier._g2_from_json(m, vk[k])
@@ -1417,7 +1420,7 @@ def card_against_cpu(rt, vk, lanes, phases):
     e = {}
     for where in ("card", "cpu"):
         pd = pairing_device(rt.CURVE, "cpu" if where == "cpu" else None)
-        g1, g2_b, fixed, _ = verifier._batch_inputs(pd, m, vk, ins, prs)
+        g1, g2_b, fixed, *_ = verifier._batch_inputs(pd, m, vk, ins, prs)
         e[where] = tuple(x.cpu() for x in leaves(
             verifier._pairing_batch(pd, g1, g2_b, fixed)))
     if mismatch(e["card"], e["cpu"])[0]:

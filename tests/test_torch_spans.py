@@ -17,6 +17,7 @@ from wasmsnark_tpu_torch.groth16 import setup as tsetup
 from wasmsnark_tpu_torch.groth16.pkey import write_witness
 from wasmsnark_tpu_torch.models.bn128 import bn128
 from wasmsnark_tpu_torch.ops import cuda_lib
+from wasmsnark_tpu_torch.ops.pairing import bn128_pairing_device
 from wasmsnark_tpu_torch.utils import spans
 
 # Test workers share the cores: one intra-op thread each keeps the many
@@ -67,7 +68,6 @@ def case():
     pub = [str(wit[1])]
     tampered = json.loads(json.dumps(proof))
     tampered["pi_a"][0] = str(int(tampered["pi_a"][0]) + 1)
-    # every lane but "wrong count" reaches its vk_x ladder
     lanes = [(pub, proof), (pub, tampered), ([str(wit[1] + 1)], proof),
              ([str(int(pub[0]) + m.Fr.q)], proof), (pub + ["1"], proof),
              (pub, dict(proof, pi_a=["0", "1", "0"]))]
@@ -77,6 +77,8 @@ def case():
                                        [ln[1] for ln in lanes])
 
     timings = {}
+    # the traced batch builds the vk's fixed-base tables
+    bn128_pairing_device(CPU).vk_x_table_cache.clear()
     on = {"prove": _run(lambda: prove(timings), True),
           "verify": _run(verify, True)}
     off["verify"] = _run(verify, False)
@@ -126,8 +128,10 @@ def test_verify_span_tree(case):
     kids = _children(recs, tops[0])
     assert [s.name for s in kids] == ["verify.marshal", "verify.pairing"]
     vk_x = _children(recs, kids[0])
-    # one a lane that reaches the ladder: five of the six lanes
-    assert [s.name for s in vk_x] == ["verify.vk_x"] * 5
+    # the key's tables, built by this first batch, then one vk_x stage
+    # for all six lanes
+    assert [s.name for s in vk_x] == ["verify.vk_x_table", "verify.vk_x"]
+    assert all(_children(recs, s) == [] for s in vk_x)
     assert _children(recs, kids[1]) == []
 
 

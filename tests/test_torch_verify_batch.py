@@ -5,10 +5,18 @@ port's own prover at square_chain_circuit(3).
 
 Lanes: a good proof, a tampered pi_a, a wrong public input, an input
 >= r, a wrong input count and a zero pi_a.  A second batch against the
-same vk must take the vk's prepared coefficients from the cache.
+same vk must take the vk's prepared coefficients and its fixed-base vk_x
+tables from the caches.
+
+The device vk_x stage against the host ladder (IC[0] + sum v_j IC[j+1] by
+double-and-add), bit for bit on BN128 and BLS12-381 with 7 hand-made IC
+points (6 inputs), and with zero IC points; a hand-made vk whose vk_x is
+the zero point on one lane, with a proof the pairing alone would accept
+there; the tables keyed by the IC points alone, at most 4 keys.
 """
 
 import json
+import random
 
 import pytest
 import torch
@@ -17,9 +25,12 @@ from wasmsnark_tpu.groth16.verifier import groth16_verify as jverify
 
 import wasmsnark_tpu_torch
 from wasmsnark_tpu_torch.groth16 import setup as tsetup
+from wasmsnark_tpu_torch.groth16 import verifier as tverifier
 from wasmsnark_tpu_torch.groth16.pkey import write_witness
+from wasmsnark_tpu_torch.models import curve_module
 from wasmsnark_tpu_torch.models.bn128 import bn128
-from wasmsnark_tpu_torch.ops.pairing import bn128_pairing_device
+from wasmsnark_tpu_torch.ops.pairing import (bn128_pairing_device,
+                                             pairing_device)
 
 # Test workers share the cores: one intra-op thread each keeps the many
 # small plain-version ops from contending for them.
@@ -63,10 +74,25 @@ def test_verify_batch_matches_host_verify_per_lane(case):
         dict(zip((ln[0] for ln in lanes), want))
 
 
+def _count_table_builds(monkeypatch) -> list:
+    """Each build of a key's vk_x tables, as its number of bases."""
+    builds = []
+    build = tverifier.FixedBaseSum
+
+    def counting(*args, **kwargs):
+        builds.append(len(args[3]))            # IC[1..k]
+        return build(*args, **kwargs)
+
+    monkeypatch.setattr(tverifier, "FixedBaseSum", counting)
+    return builds
+
+
 def test_second_batch_hits_the_vk_cache(case, monkeypatch):
     rt, vk, lanes = case
     pd = bn128_pairing_device(CPU)
     pd.vk_prep_cache.clear()
+    pd.vk_x_table_cache.clear()
+    builds = _count_table_builds(monkeypatch)
     calls = []
     prepare = pd.prepare_g2
 
@@ -84,6 +110,129 @@ def test_second_batch_hits_the_vk_cache(case, monkeypatch):
     assert second == [True]
     assert len(calls) == 3                      # pi_b only
     assert next(iter(pd.vk_prep_cache.values())) is cached
+    assert builds == [1] and len(pd.vk_x_table_cache) == 1
     assert rt.groth16_verify_batch(vk, [], []) == []
     with pytest.raises(ValueError):
         rt.groth16_verify_batch(vk, [lanes[0][1]], [])
+
+
+def _g1_json(m, p):
+    a = m.G1.affine(p)
+    return [str(a[0]), str(a[1]), "1"]
+
+
+def _g2_json(m, p):
+    a = m.G2.affine(p)
+    return [[str(c) for c in a[0]], [str(c) for c in a[1]], ["1", "0"]]
+
+
+@pytest.mark.parametrize("curve", ["bn128", "bls12381"])
+def test_vk_x_stage_matches_the_host_ladder(curve):
+    mc = curve_module(curve)
+    pd = pairing_device(curve, CPU)
+    R = mc.Fr.q
+    rng = random.Random(23)
+    ic = [mc.G1.affine(mc.G1.times_scalar(mc.g1_gen, rng.randrange(1, R)))
+          for _ in range(7)]
+    edge = [0, 1, R - 1, 2 ** 160 - 1, 2 ** 57 - 1, rng.randrange(R)]
+    lanes = [edge[j:] + edge[:j] for j in range(6)]
+    lanes += [[0] * 6, [rng.randrange(R) for _ in range(6)]]
+    table = tverifier._vk_x_table(pd, mc, ic)
+    (x, y), ok = tverifier._vk_x_device(
+        pd, mc, table, [[ln[j] for ln in lanes] for j in range(6)],
+        len(lanes))
+    got = list(zip(pd.fp.unpack_mont(x), pd.fp.unpack_mont(y)))
+    want = []
+    for ln in lanes:
+        vk_x = ic[0]
+        for j, v in enumerate(ln):
+            vk_x = mc.G1.add(vk_x, mc.G1.times_scalar(ic[j + 1], v))
+        want.append(tuple(mc.G1.affine(mc.G1.neg(vk_x))[:2]))
+    assert want[6] == tuple(mc.G1.affine(mc.G1.neg(ic[0]))[:2])
+    assert got == want
+    assert ok.tolist() == [True] * len(lanes)
+
+
+def test_vk_x_stage_with_zero_ic_points():
+    """IC[0] and IC[2] the zero point: the start column and a base's whole
+    table are the affine zero (0, 0); a lane whose vk_x is zero carries the
+    generator's negation and a False mask."""
+    pd = bn128_pairing_device(CPU)
+    P = m.G1.affine(m.G1.times_scalar(m.g1_gen, 12345))
+    ic = [m.G1.zero(), P, m.G1.zero()]
+    lanes = [[0, 0], [1, 5], [3, 0], [m.Fr.q - 1, 7]]
+    table = tverifier._vk_x_table(pd, m, ic)
+    (x, y), ok = tverifier._vk_x_device(
+        pd, m, table, [[ln[j] for ln in lanes] for j in range(2)],
+        len(lanes))
+    got = list(zip(pd.fp.unpack_mont(x), pd.fp.unpack_mont(y)))
+    gen = m.G1.affine(m.G1.neg(m.g1_gen))[:2]
+    want = [tuple(gen)] + [tuple(m.G1.affine(m.G1.neg(
+        m.G1.times_scalar(P, ln[0])))[:2]) for ln in lanes[1:]]
+    assert got == want
+    assert ok.tolist() == [False, True, True, True]
+
+
+def test_zero_vk_x_lane_answers_false(monkeypatch):
+    """IC = (G, -G): the input 0 gives vk_x = G, the input 1 the zero
+    point.  The proof satisfies the equation for vk_x = G, the point the
+    device puts in a zero lane's place: the pairing alone accepts both
+    lanes, the zero mask refuses the second, as the host verifier does."""
+    R = m.Fr.q
+    rng = random.Random(29)
+    al, be, ga, de, a, b = (rng.randrange(1, R) for _ in range(6))
+    c = (a * b - al * be - ga) * pow(de, -1, R) % R
+
+    def g1(k):
+        return _g1_json(m, m.G1.times_scalar(m.g1_gen, k))
+
+    def g2(k):
+        return _g2_json(m, m.G2.times_scalar(m.g2_gen, k))
+
+    vk = {"vk_alfa_1": g1(al), "vk_beta_2": g2(be), "vk_gamma_2": g2(ga),
+          "vk_delta_2": g2(de), "IC": [g1(1), g1(R - 1)]}
+    proof = {"pi_a": g1(a), "pi_b": g2(b), "pi_c": g1(c)}
+    inputs = [["0"], ["1"]]
+    seen = []
+    pairing = tverifier._pairing_batch
+
+    def keep(*args):
+        seen.append(pairing(*args))
+        return seen[-1]
+
+    monkeypatch.setattr(tverifier, "_pairing_batch", keep)
+    got = tverifier.groth16_verify_batch(vk, inputs, [proof, proof],
+                                         device=CPU)
+    want = [jverify(vk, ins, proof) for ins in inputs]
+    assert want == [True, False]
+    assert got == want
+    assert bn128_pairing_device(CPU).is_one(seen[0]).tolist() == [True, True]
+
+
+def test_vk_x_tables_are_keyed_by_the_ic_points_alone(case, monkeypatch):
+    _, vk, lanes = case
+    pd = bn128_pairing_device(CPU)
+    pd.vk_x_table_cache.clear()
+    builds = _count_table_builds(monkeypatch)
+
+    def marshal(key, ins, proofs):
+        return tverifier._batch_inputs(pd, m, key, ins, proofs)
+
+    good, wrong = lanes[0], lanes[2]
+    marshal(vk, [good[1]], [good[2]])
+    # other proofs and inputs, another alfa1: the same tables
+    other = dict(vk, vk_alfa_1=_g1_json(m, m.G1.times_scalar(m.g1_gen, 5)))
+    *_, ok_host, vk_x_ok = marshal(other, [wrong[1], good[1]],
+                                   [good[2], lanes[1][2]])
+    assert builds == [1] and ok_host == [True, True]
+    assert vk_x_ok.tolist() == [True, True]
+    ic = [tverifier._g1_from_json(m, p) for p in vk["IC"]]
+    assert list(pd.vk_x_table_cache) == [tuple(tuple(p) for p in ic)]
+    # five keys of one IC point each (no inputs): at most four kept
+    for k in range(2, 7):
+        one = dict(vk, IC=[_g1_json(m, m.G1.times_scalar(m.g1_gen, k))])
+        marshal(one, [[]], [good[2]])
+    assert builds == [1, 0, 0, 0, 0, 0]
+    assert 1 <= len(pd.vk_x_table_cache) <= 4
+    assert tverifier._g1_from_json(m, one["IC"][0]) in \
+        [key[0] for key in pd.vk_x_table_cache]

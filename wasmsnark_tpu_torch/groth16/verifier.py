@@ -11,9 +11,12 @@ to be < r (bn128.js:776: `if int_gte(input, r) return false`).
 `groth16_verify` runs the pairing on the host oracle (models/);
 `groth16_verify_batch` runs N proofs at once through the curve's device
 pairing engine (ops/pairing.py), port of the JAX package's
-`groth16_verify_batch`.  Its spans (utils/spans.py): "verify.batch" around
-it, "verify.marshal" around the host marshalling with one "verify.vk_x" a
-lane that reaches its vk_x ladder, and "verify.pairing" around the device
+`groth16_verify_batch`; every lane's vk_x is summed on the device from
+fixed-base tables of the key's IC points (ops/fixed_base.py
+`FixedBaseSum`), built once per key.  Its spans (utils/spans.py):
+"verify.batch" around it, "verify.marshal" around the marshalling, and
+under it "verify.vk_x_table" around a table's build and "verify.vk_x"
+around the batch's vk_x stage, and "verify.pairing" around the device
 pairing and the verdicts' copy to the host.
 """
 
@@ -21,9 +24,12 @@ from __future__ import annotations
 
 import torch
 
+from ..fields.spec import LIMB_BITS
 from ..models import curve_module
-from ..ops.curve import map_leaf, map_leaf2
-from ..utils.serialize import parse_bigint
+from ..ops.curve import JacobianDevice, map_leaf, map_leaf2
+from ..ops.fixed_base import FixedBaseSum, batch_to_affine
+from ..ops.fp import planes
+from ..utils.serialize import ints_to_limbs_fast, parse_bigint
 from ..utils.spans import span
 
 
@@ -106,9 +112,10 @@ def groth16_verify_batch(vk: dict, inputs_list, proofs, curve: str = "bn128",
     reduces with two F12 multiplies, and one final exponentiation closes
     every equation.  `device` is the torch device (default: the CUDA
     card); `curve` picks the pairing engine of that device, whose
-    vk_prep_cache keeps the vk's prepared ladders.  A lane with a zero
-    point, a wrong input count, an input >= r or an unparsable proof is
-    filled with generators and answers False.
+    vk_prep_cache keeps the vk's prepared ladders and vk_x_table_cache the
+    fixed-base tables of its IC points.  A lane with a zero point (vk_x
+    included), a wrong input count, an input >= r or an unparsable proof
+    is filled with generators and answers False.
     """
     from ..ops.pairing import pairing_device
 
@@ -121,21 +128,24 @@ def groth16_verify_batch(vk: dict, inputs_list, proofs, curve: str = "bn128",
     with span("verify.batch"):
         pd = pairing_device(curve, device)
         with span("verify.marshal"):
-            g1, g2_b, fixed, ok_host = _batch_inputs(pd, m, vk, inputs_list,
-                                                     proofs)
+            g1, g2_b, fixed, ok_host, vk_x_ok = _batch_inputs(
+                pd, m, vk, inputs_list, proofs)
         with span("verify.pairing"):
-            ok = pd.is_one(_pairing_batch(pd, g1, g2_b, fixed)).cpu().tolist()
+            ok = (pd.is_one(_pairing_batch(pd, g1, g2_b, fixed))
+                  & vk_x_ok).cpu().tolist()
         return [bool(ok[i]) and ok_host[i] for i in range(n)]
 
 
 def _batch_inputs(pd, m, vk, inputs_list, proofs):
-    """Host marshalling of a batch: the G1 planes of the four pairs
+    """Marshalling of a batch: the G1 planes of the four pairs
     (A, -vk_x, -C, -alfa1) as leaves [L, 4, N], pi_b as F2 leaves
-    [L, 1, N], the vk's prepared (gamma2, delta2, beta2) coefficients, and
-    per lane whether the host let it through."""
+    [L, 1, N], the vk's prepared (gamma2, delta2, beta2) coefficients, per
+    lane whether the host let it through, and per lane (a device mask)
+    whether vk_x is not the zero point.  The host parses the points and
+    checks the inputs; vk_x is the device stage `_vk_x_device`."""
     R = m.Fr.q
     n = len(proofs)
-    g1_rows = [[], [], [], []]   # A, -vk_x, -C, -alfa1
+    g1_rows = [[], [], []]       # A, -C, -alfa1
     g2_b = []                    # B
     ok_host = [True] * n
 
@@ -146,6 +156,7 @@ def _batch_inputs(pd, m, vk, inputs_list, proofs):
     ic = [_g1_from_json(m, p) for p in vk["IC"]]
     g1_gen = m.G1.affine(m.g1_gen)
     g2_gen = m.G2.affine(m.g2_gen)
+    scalars = [[0] * n for _ in range(len(ic) - 1)]   # [input, lane]
 
     for i, (inputs, proof) in enumerate(zip(inputs_list, proofs)):
         if inputs is None:
@@ -158,37 +169,77 @@ def _batch_inputs(pd, m, vk, inputs_list, proofs):
             C = _g1_from_json(m, proof["pi_c"])
             if len(inputs) + 1 != len(ic):
                 raise ValueError("bad input count")
-            with span("verify.vk_x"):
-                vk_x = ic[0]
-                for j, raw in enumerate(inputs):
-                    v = parse_bigint(raw)
-                    if v >= R:
-                        raise ValueError("input >= r")
-                    vk_x = m.G1.add(vk_x, m.G1.times_scalar(ic[j + 1], v))
-            pts1 = [A, m.G1.neg(vk_x), m.G1.neg(C), m.G1.neg(alfa1)]
+            values = [parse_bigint(raw) for raw in inputs]
+            if any(v >= R for v in values):
+                raise ValueError("input >= r")
+            pts1 = [A, m.G1.neg(C), m.G1.neg(alfa1)]
             if any(m.G1.is_zero(p) for p in pts1) or any(
                     m.G2.is_zero(p) for p in (B, gamma2, delta2, beta2)):
                 raise ValueError("zero point")
-            for k in range(4):
+            for k in range(3):
                 a1 = m.G1.affine(pts1[k])
                 g1_rows[k].append((a1[0], a1[1]))
             a2 = m.G2.affine(B)
             g2_b.append((a2[0], a2[1]))
+            # a negative input as its residue: the same multiple of the
+            # r-order IC points as the host ladder's -v P
+            for j, v in enumerate(values):
+                scalars[j][i] = v % R
         except (ValueError, KeyError, TypeError):
             # keep the lanes rectangular with generator pairs, which cannot
-            # satisfy the equation; the host has decided this lane
+            # satisfy the equation, and zero scalars; the host has decided
+            # this lane
             ok_host[i] = False
-            for k in range(4):
+            for k in range(3):
                 g1_rows[k].append((g1_gen[0], g1_gen[1]))
             g2_b.append((g2_gen[0], g2_gen[1]))
 
-    g1 = pd.pack_g1([p for row in g1_rows for p in row])      # [L, 4N]
-    g1 = map_leaf(g1, lambda a: a.reshape(a.shape[0], 4, n))
+    # every upload before the vk_x stage's launches
+    rows = map_leaf(pd.pack_g1([p for row in g1_rows for p in row]),
+                    lambda a: a.reshape(a.shape[0], 3, n))     # [L, 3, N]
     # only pair 0's G2 point (pi_b) varies per proof; gamma2, delta2 and
     # beta2 ride the prepared-coefficient cache
     g2 = map_leaf(pd.pack_g2(g2_b), lambda a: a.reshape(a.shape[0], 1, n))
     fixed = _prepared_vk_coeffs(pd, m, (gamma2, delta2, beta2))
-    return g1, g2, fixed, ok_host
+    table = _vk_x_table(pd, m, ic)
+    with span("verify.vk_x"):
+        neg_vk_x, vk_x_ok = _vk_x_device(pd, m, table, scalars, n)
+    g1 = map_leaf2(rows, neg_vk_x, lambda r, v: torch.stack(
+        (r[:, 0], v, r[:, 1], r[:, 2]), dim=1))                # [L, 4, N]
+    return g1, g2, fixed, ok_host, vk_x_ok
+
+
+def _vk_x_table(pd, m, ic):
+    """The fixed-base tables of the vk's IC points (IC[0] the start point):
+    built once per key, cached on the device's pairing engine, keyed by the
+    affine IC points alone, at most 4 keys."""
+    key = tuple(tuple(p) for p in ic)
+    cache = pd.vk_x_table_cache
+    if key not in cache:
+        if len(cache) >= 4:
+            cache.clear()
+        with span("verify.vk_x_table"):
+            cache[key] = FixedBaseSum(
+                JacobianDevice(pd.base), m.G1, ic[0], ic[1:], pd.fp.pack_mont,
+                m.fr_spec.n_limbs * LIMB_BITS)
+    return cache[key]
+
+
+def _vk_x_device(pd, m, table, scalars, n):
+    """-vk_x of every lane, vk_x = IC[0] + sum_j scalars[j][lane] IC[j+1]:
+    the scalars' upload, the table's sum and one batched inversion, with
+    no sync.  Returns the affine Montgomery planes (x, y) [L, N] of -vk_x,
+    the generator's negation where vk_x is the zero point, and the mask of
+    the lanes where it is not."""
+    F = table.curve.F
+    gen = m.G1.affine(m.g1_gen)
+    gx, gy = pd.pack_g1([(gen[0], gen[1])])                    # [L, 1]
+    s = planes(ints_to_limbs_fast([v for row in scalars for v in row],
+                                  m.fr_spec.n_limbs), pd.device)
+    p = table.points_jac(s.reshape(s.shape[0], len(scalars), n))
+    zero = table.curve.is_zero(p)
+    x, y = batch_to_affine(table.curve, p)
+    return (F.select(zero, gx, x), F.neg(F.select(zero, gy, y))), ~zero
 
 
 def _prepared_vk_coeffs(pd, m, g2_fixed):

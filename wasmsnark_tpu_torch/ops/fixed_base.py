@@ -99,6 +99,80 @@ class FixedBase:
         return batch_to_affine(self.curve, self.points_jac(scalar_limbs))
 
 
+class FixedBaseSum:
+    """start + sum_j [s_j] P_j on every lane, for fixed points start and
+    P_1..P_k (a Groth16 key's IC[0] and IC[1..k]): one FixedBase table per
+    base, side by side with the start point as a last column.  Every
+    window's entry of every base and the start point are gathered at once,
+    [L, N, M] with M = k W + 1 padded to a power of two by the zero entry,
+    then summed by one level of mixed adds (K5 on a kernel-backed G1) and a
+    tree of adds (K6): 1 + log2(M / 2) launches whatever the lanes.
+
+    The tables are built per key at run time, on the host: 4-bit windows
+    cost 15 host adds a window where 8-bit ones cost 255 (~0.3 s against
+    ~2.5 s for 6 BN128 bases), for twice the entries a lane, which the
+    card sums in microseconds."""
+
+    WINDOW_BITS = 4
+
+    def __init__(self, curve_dev, oracle_curve, start, bases, pack_comp,
+                 scalar_bits: int):
+        self.curve = curve_dev
+        self.engines = [FixedBase(curve_dev, oracle_curve, p, pack_comp,
+                                  scalar_bits, self.WINDOW_BITS)
+                        for p in bases]
+        self.W = -(-scalar_bits // self.WINDOW_BITS)
+        self.D = 1 << self.WINDOW_BITS
+        C = oracle_curve
+        a = C.affine(start)
+        if C.is_zero(start):
+            a = (map_leaf(a[0], lambda _: 0),) * 2
+        sx, sy = (map_leaf(FixedBase._transpose([c]), pack_comp)
+                  for c in a[:2])
+        # column (j W + w) D + d: base j's entry d of window w (d = 0 the
+        # zero point); column k W D: the start point
+        self.tx = _cat([e.tx for e in self.engines] + [sx])
+        self.ty = _cat([e.ty for e in self.engines] + [sy])
+
+    def points_jac(self, scalar_limbs):
+        """scalar_limbs: [Ls, k, N] canonical 16-bit planes, s_j of lane n
+        at [:, j, n].  Returns Jacobian points, leaves [L, N] (Montgomery)."""
+        C = self.curve
+        k, n = len(self.engines), scalar_limbs.shape[-1]
+        dev = scalar_limbs.device
+        m = k * self.W + 1
+        M = 1 << (m - 1).bit_length()
+        cols = []
+        if k:
+            d = self.engines[0]._digits(
+                scalar_limbs.reshape(scalar_limbs.shape[0], k * n))
+            d = d.reshape(self.W, k, n).permute(2, 1, 0).reshape(n, -1)
+            cols.append(d + torch.arange(k * self.W, device=dev) * self.D)
+        cols.append(torch.full((n, 1), k * self.W * self.D,
+                               dtype=torch.long, device=dev))
+        # the padding: column 0, base 0's zero entry
+        cols.append(torch.zeros((n, M - m), dtype=torch.long, device=dev))
+        idx = torch.cat(cols, dim=1).reshape(-1)
+        q = map_leaf((self.tx, self.ty), lambda a: torch.index_select(
+            a, 1, idx).reshape(a.shape[0], n, M))
+        if M == 1:
+            acc = C.promote(q)
+        else:
+            h = M // 2
+            acc = C.madd(C.promote(map_leaf(q, lambda a: a[..., :h])),
+                         map_leaf(q, lambda a: a[..., h:]))
+            acc = C.tree_reduce(acc, h)
+        return map_leaf(acc, lambda a: a.reshape(a.shape[0], n))
+
+
+def _cat(parts):
+    """Column-concatenate tables of the same tower nesting."""
+    if isinstance(parts[0], tuple):
+        return tuple(_cat([p[i] for p in parts])
+                     for i in range(len(parts[0])))
+    return torch.cat(parts, dim=1)
+
+
 def batch_to_affine(curve_dev, p):
     """Jacobian -> affine Montgomery planes: one batched Fermat inversion
     over all lanes, then X/Z^2, Y/Z^3.  Zero points map to (0, 0)."""

@@ -185,8 +185,10 @@ class _PairingEngine:
             self._frob_coefs.append(tuple(
                 self._const_f2(F2o.exp(xi, k * e)) for k in range(1, 6)))
         # prepared line coefficients of fixed G2 points (a verification
-        # key's gamma2, delta2, beta2), filled by groth16.verifier
+        # key's gamma2, delta2, beta2), and the fixed-base tables of a key's
+        # IC points, filled by groth16.verifier
         self.vk_prep_cache: dict = {}
+        self.vk_x_table_cache: dict = {}
         # the full exponent (q^12 - 1)/r, MSB first, for the self-check
         # ladder final_exponentiation_scan
         self.finexp_bits = np.array(
