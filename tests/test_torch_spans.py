@@ -3,10 +3,14 @@ small BN128 prove and a small verify batch under torch.profiler give the
 span tree of groth16/prover.py, ops/msm.py and groth16/verifier.py, with
 every child inside its parent; with the profiler off nothing is recorded
 and the proof and the verdicts are the same; prove(timings=) reads the
-phase spans; the buffer's bound counts what it drops."""
+phase spans; the buffer's bound counts what it drops.  An MNT6753
+Bowe-Gabizon batch (models/mnt6753_runtime.py) gives the bg.* tree, with
+recording switched on as the profiler would (the CPU profiler over its
+plain field operations would take minutes to stop)."""
 
 import gc
 import json
+import random
 
 import pytest
 import torch
@@ -19,6 +23,8 @@ from wasmsnark_tpu_torch.models.bn128 import bn128
 from wasmsnark_tpu_torch.ops import cuda_lib
 from wasmsnark_tpu_torch.ops.pairing import bn128_pairing_device
 from wasmsnark_tpu_torch.utils import spans
+
+from test_torch_mnt_verify import g1_json, synthetic_proof, synthetic_vk
 
 # Test workers share the cores: one intra-op thread each keeps the many
 # small plain-version ops from contending for them.
@@ -222,3 +228,78 @@ def test_span_counts_launches_between_its_ends(monkeypatch):
     got = {s.name: (s.launches, s.parent) for s in _new_since(last)}
     outer = next(s for s in _new_since(last) if s.name == "outer")
     assert got == {"inner": (4, outer.id), "outer": (7, None)}
+
+
+# -- the MNT6753 Bowe-Gabizon batch -------------------------------------------
+
+BG_STAGES = ["bg.marshal", "bg.hash", "bg.group_map", "bg.pairing"]
+
+
+def _bg_lanes():
+    """A key and three lanes (a valid proof, its Z moved, one input too
+    many) made with a trapdoor on the port's host oracle."""
+    rt = wasmsnark_tpu_torch.build_mnt6753(device=CPU)
+    m, rnd = rt.m, random.Random(24)
+    vk, trap = synthetic_vk(m, 1, rnd)
+    pub = [str(rnd.randrange(m.Fr.q))]
+    good = synthetic_proof(rt, trap, pub, rnd)
+    moved = dict(good, z=g1_json(m, m.G1.add(rt._g1_affine(good["z"]),
+                                              m.g1_gen)))
+    return rt, vk, [pub, pub, pub + ["1"]], [good, moved, good]
+
+
+@pytest.fixture(scope="module")
+def bg_case():
+    rt, vk, ins, prfs = _bg_lanes()
+
+    def verify():
+        return rt.bowe_gabizon_verify_batch(vk, ins, prfs,
+                                            rng=random.Random(5))
+
+    def on(fn):
+        mp = pytest.MonkeyPatch()
+        mp.setattr(spans, "_enabled", lambda: True)
+        try:
+            return _run(fn, False)
+        finally:
+            mp.undo()
+
+    none = on(lambda: rt.bowe_gabizon_verify_batch(vk, ins[2:], prfs[2:]))
+    return {"on": on(verify), "off": _run(verify, False), "none": none}
+
+
+def test_bg_span_tree(bg_case):
+    out, recs = bg_case["on"]
+    tops = [s for s in recs if s.parent is None]
+    assert [s.name for s in tops] == ["bg.batch"]
+    kids = sorted(_children(recs, tops[0]), key=lambda s: s.t0)
+    assert [s.name for s in kids] == BG_STAGES
+    assert all(_children(recs, s) == [] for s in kids)
+    # a batch no lane of which the key takes: marshalling alone
+    out_none, recs_none = bg_case["none"]
+    assert out_none == [False]
+    top, = [s for s in recs_none if s.parent is None]
+    assert [s.name for s in _children(recs_none, top)] == ["bg.marshal"]
+
+
+def test_bg_children_lie_inside_their_parents(bg_case):
+    _, recs = bg_case["on"]
+    by = _by_id(recs)
+    assert len(recs) == len(by) == 5
+    for s in recs:
+        assert s.t0 <= s.t1
+        if s.parent is not None:
+            assert by[s.parent].t0 <= s.t0 and s.t1 <= by[s.parent].t1
+    kids = sorted((s for s in recs if s.parent is not None),
+                  key=lambda k: k.t0)
+    assert all(a.t1 <= b.t0 for a, b in zip(kids, kids[1:]))
+    top = next(s for s in recs if s.parent is None)
+    assert sum(s.t1 - s.t0 for s in kids) >= 0.99 * (top.t1 - top.t0)
+    assert all(s.launches == 0 for s in recs)
+
+
+def test_bg_off_records_nothing_and_gives_the_same_verdicts(bg_case):
+    out_on, _ = bg_case["on"]
+    out_off, recs = bg_case["off"]
+    assert recs == []
+    assert out_on == out_off == [True, False, False]

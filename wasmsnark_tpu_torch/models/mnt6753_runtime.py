@@ -52,6 +52,7 @@ from ..ops.curve import map_leaf2
 from ..ops.fp import planes, resolve_device
 from ..utils.serialize import (int_to_bytes_le, ints_to_limbs, is_ocam_num,
                                parse_bigint)
+from ..utils.spans import span
 
 
 def _bits753(v: int):
@@ -256,18 +257,22 @@ class Mnt6753Runtime:
         return planes(ints_to_limbs([_digest(x) for x in ped_x], fp.L),
                       self.device)
 
-    def _check(self, t, g1_4, g2_var, fixed, expected, fused: bool):
-        """Stages 4-5: group-map Ys onto the pairs axis, assemble the 5-pair
-        prepared coefficient stack [B, G2gen, dp, delta, dp] from the
-        per-call (B, dp) ladder and the per-vk (G2gen, delta) one (dp's
-        ladder runs once for both of its slots), then the pairing product
-        against alphaBeta^rho -> bool [N]."""
-        pd = self._pd
+    def _ys_g1(self, t, g1_4):
+        """Stage 4: group-map Ys and append it to the pairs axis of the
+        four G1 points -> G1 planes [L, 5, N]."""
         ys_x, ys_y, _ = self._dev.group_map(t)
-        g1 = (torch.cat([g1_4[0], ys_x[:, None]], dim=1),
-              torch.cat([g1_4[1], ys_y[:, None]], dim=1))
+        return (torch.cat([g1_4[0], ys_x[:, None]], dim=1),
+                torch.cat([g1_4[1], ys_y[:, None]], dim=1))
+
+    def _pairing_check(self, g1, g2_var, fixed, expected, fused: bool):
+        """Stage 5: assemble the 5-pair prepared coefficient stack [B,
+        G2gen, dp, delta, dp] from the per-call (B, dp) ladder and the
+        per-vk (G2gen, delta) one (dp's ladder runs once for both of its
+        slots), then the pairing product against alphaBeta^rho -> bool
+        [N]."""
+        pd = self._pd
         prep = pd.prepare_g2(g2_var)                # leaves [S, L, 2, N]
-        N = t.shape[1]
+        N = g1[0].shape[-1]
 
         def five(v, f):
             fb = f[:, :, :, None].expand(f.shape + (N,))
@@ -278,23 +283,39 @@ class Mnt6753Runtime:
         e = pd.pairing_products_prepared(g1, coeffs, fused=fused)
         return pd.is_eq_planes(e, expected)
 
+    def _check(self, t, g1_4, g2_var, fixed, expected, fused: bool):
+        """Stages 4-5 -> bool [N]."""
+        return self._pairing_check(self._ys_g1(t, g1_4), g2_var, fixed,
+                                   expected, fused)
+
     def _verify_device(self, verification_key, inputs_list, proofs,
                        fused: bool, rng=None) -> list:
-        """N proofs in batch lanes through the device stages."""
-        ms = [self._marshal(verification_key, inp, prf, rng)
-              for inp, prf in zip(inputs_list, proofs)]
-        ok_idx = [i for i, mm in enumerate(ms) if mm is not None]
-        results = [False] * len(ms)
-        if not ok_idx:
+        """N proofs in batch lanes through the device stages, under the
+        span bg.batch: bg.marshal (the lanes' host marshalling and their
+        packing), bg.hash, bg.group_map, then bg.pairing (the key's
+        prepared coefficients, the product and the verdicts' copy to the
+        host)."""
+        with span("bg.batch"):
+            with span("bg.marshal"):
+                ms = [self._marshal(verification_key, inp, prf, rng)
+                      for inp, prf in zip(inputs_list, proofs)]
+                ok_idx = [i for i, mm in enumerate(ms) if mm is not None]
+                results = [False] * len(ms)
+                if not ok_idx:
+                    return results
+                batch = [ms[i] for i in ok_idx]
+                g1_4, g2_var, expected = self._pairing_inputs(batch)
+            with span("bg.hash"):
+                t = self._hash_to_t(batch)
+            with span("bg.group_map"):
+                g1 = self._ys_g1(t, g1_4)
+            with span("bg.pairing"):
+                fixed = self._fixed_coeffs(batch[0]["delta"])
+                ok = self._pairing_check(g1, g2_var, fixed, expected,
+                                         fused).tolist()
+            for pos, i in enumerate(ok_idx):
+                results[i] = bool(ok[pos])
             return results
-        batch = [ms[i] for i in ok_idx]
-        g1_4, g2_var, expected = self._pairing_inputs(batch)
-        fixed = self._fixed_coeffs(batch[0]["delta"])
-        ok = self._check(self._hash_to_t(batch), g1_4, g2_var, fixed,
-                         expected, fused).tolist()
-        for pos, i in enumerate(ok_idx):
-            results[i] = bool(ok[pos])
-        return results
 
     def bowe_gabizon_verify_batch(self, verification_key, inputs_list,
                                   proofs, fused: bool = True,
