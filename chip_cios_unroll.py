@@ -847,13 +847,11 @@ def verify_batches(smoke, names, use, rounds):
 
     rt = wasmsnark_tpu_torch.build_mnt6753()
     vk, ins, prs, want = smoke.mnt_lanes(rt, smoke.N_MNT)
-    rng = random.Random(smoke.SEED)
-    ms = [rt._marshal(vk, i, p, rng) for i, p in zip(ins, prs)]
-    batch = [mm for mm in ms if mm is not None]
-    g1_4, g2_var, expected = rt._pairing_inputs(batch)
-    tt = rt._hash_to_t(batch)
-    coeffs = rt._fixed_coeffs(batch[0]["delta"])
-    want_ok = [w for w, mm in zip(want, ms) if mm is not None]
+    ok_idx, mb = rt._marshal_batch(vk, ins, prs, random.Random(smoke.SEED))
+    g1_4, g2_var, expected = mb.g1_4, mb.g2_var, mb.expected
+    tt = rt._hash_to_t(mb.bits)
+    coeffs = mb.fixed
+    want_ok = [want[i] for i in ok_idx]
     bls, bvk, (bins, bprs, bwant) = bls_verify_lanes(smoke)
     prove = proves(smoke)
     first = {}

@@ -174,9 +174,7 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12 * 64 / 128
 N_VERIFY = 1024                  # proofs per verify batch: the JAX kernels'
                                  # lane tile TOWER_TILE_B (tower_pallas.py)
-N_MNT = 256                      # MNT6753 lanes: host marshalling costs
-                                 # ~32 ms per lane (3 scalar multiplications
-                                 # by rho, the vk_x ladder, alphaBeta^rho)
+N_MNT = 256                      # MNT6753 lanes: a coda.verify batch
 N_MNT_PROOFS = 16                # distinct synthetic proofs among them
 PATH_LANES = 3                   # lane counts each kernel row is also
                                  # timed at: its paths' most frequent
@@ -543,7 +541,7 @@ def check_kernels(dev):
     """Every kernel against its plain version on the card: K1-K10 over
     BN128's fields (8 words), then K1, K2, K4-K9 and K11 over BLS12-381's
     Fq (12 words), with K1-K3 over its Fr (8 words) checked untimed, then
-    K1, K2 and K12-K14 over MNT6753's Fq (24 words)."""
+    K1, K2, K4 and K12-K14 over MNT6753's Fq (24 words)."""
     import functools
     import numpy as np
     import torch
@@ -891,12 +889,13 @@ MNT_OPS = {
 
 
 def check_mnt_kernels(rand, rec, n):
-    """K1 and K2 over MNT6753's Fq (24 words), then K12 (F6 product and
-    square), K13 (on cyclotomic elements: the easy part of the final
+    """K1, K2 and K4 over MNT6753's Fq (24 words; K4 the sign of the
+    marshalling's rho ladder and of its -rho vk_x, -rho C), then K12 (F6
+    product and square), K13 (on cyclotomic elements: the easy part of the final
     exponentiation, computed on the card, of random F6 values) and K14
     (with Z = 0 lanes and x2 = X/Z lanes), against their plain versions."""
     from wasmsnark_tpu_torch.models.mnt6753 import mnt6753
-    from wasmsnark_tpu_torch.ops import fp, tower_kernels as tk
+    from wasmsnark_tpu_torch.ops import fp, towers, tower_kernels as tk
     from wasmsnark_tpu_torch.ops.pairing import mnt6753_pairing_device
     from wasmsnark_tpu_torch.utils.serialize import (ints_to_limbs_fast,
                                                      limbs_to_ints)
@@ -919,6 +918,11 @@ def check_mnt_kernels(rand, rec, n):
                       fp.mod_sub_plain(Fq, x, y)),
         (x, y), 2 * 3 * E * n, 2 * AS * n,
         launches_per_call=k2_launches_per_call)
+    flag = (rand(Fq)[0] & 1).bool()
+    rec("K4", "cneg", "fp_kernels.cu", f"{pf}:374",
+        lambda f, y: towers.mod_cneg(Fq, f, y),
+        lambda f, y: towers.mod_cneg_plain(Fq, f, y), (flag, y),
+        (2 * E + 1) * n, 2 * words(Fq) * n)
 
     src, pl = "mnt_kernels.cu", "wasmsnark_tpu/ops/tower_pallas.py"
     a = tk.unflatten6([rand(Fq) for _ in range(6)])
@@ -1695,6 +1699,7 @@ def mnt_verify_batch(rt, lanes, phases):
     (entry point, word count, lanes) of the steady call."""
     import random
     import torch
+    from wasmsnark_tpu_torch.models.mnt6753_runtime import AB_WINDOW
     from wasmsnark_tpu_torch.ops import cuda_lib
 
     vk, ins, prs, want = lanes
@@ -1722,31 +1727,31 @@ def mnt_verify_batch(rt, lanes, phases):
         f"({phases['verify_proofs_per_s']:.1f} proofs/s); launches "
         f"{phases['verify_launches']}")
     sched = mnt_schedule(pd, 5, prepared=True, fused=True)
+    # the marshalling's alphaBeta^rho: a product tree over rho's windows
+    sched["k12_f6_mul"] += (RHO_BITS // AB_WINDOW - 1).bit_length()
     if {fn: counts[fn] for fn in MNT_FNS} != sched:
         raise AssertionError(f"mnt6753 verify batch launches "
                              f"{ {fn: counts[fn] for fn in MNT_FNS} } are "
                              f"not the static schedule's {sched}")
 
-    # where the steady time goes: host marshalling, then the device stages
+    # where the steady time goes: the marshalling (host parsing, the
+    # device's scalar stage), then the device stages
     t = time.perf_counter()
-    rng = random.Random(SEED)
-    ms = [rt._marshal(vk, i, p, rng) for i, p in zip(ins, prs)]
-    batch = [mm for mm in ms if mm is not None]
-    g1_4, g2_var, expected = rt._pairing_inputs(batch)
+    ok_idx, mb = rt._marshal_batch(vk, ins, prs, random.Random(SEED))
     torch.cuda.synchronize()
-    phases["verify_host_s"] = time.perf_counter() - t
+    phases["verify_marshal_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    tt = rt._hash_to_t(batch)
+    tt = rt._hash_to_t(mb.bits)
     torch.cuda.synchronize()
     phases["verify_hash_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    ok = rt._check(tt, g1_4, g2_var, rt._fixed_coeffs(batch[0]["delta"]),
-                   expected, True).tolist()
+    ok = rt._check(tt, mb.g1_4, mb.g2_var, mb.fixed, mb.expected,
+                   True).tolist()
     phases["verify_device_s"] = time.perf_counter() - t
-    if ok != [w for w, mm in zip(want, ms) if mm is not None]:
+    if ok != [want[i] for i in ok_idx]:
         raise AssertionError("the split mnt6753 verify batch disagrees")
-    say(f"mnt6753 verify batch split: host marshalling "
-        f"{phases['verify_host_s']:.2f} s, Pedersen hash and blake2s "
+    say(f"mnt6753 verify batch split: marshalling "
+        f"{phases['verify_marshal_s']:.2f} s, Pedersen hash and blake2s "
         f"{phases['verify_hash_s']:.2f} s, group map and pairing "
         f"{phases['verify_device_s']:.2f} s")
 
@@ -1828,13 +1833,13 @@ def mnt_pairing_batch(rt, lanes, phases):
 
     # one proof's five pairs: unprepared against prepared, bit for bit
     vk, ins, prs, _ = lanes
-    mm = rt._marshal(vk, ins[0], prs[0], random.Random(SEED))
-    g1, g2, _ = mnt_five_pairs(rt, [mm])
+    _, mb = rt._marshal_batch(vk, ins[:1], prs[:1], random.Random(SEED))
+    g1, g2, _ = mnt_five_pairs(rt, mb)
     e_full = pd.pairing_products(g1, g2)
     e_prep = pd.pairing_products_prepared(g1, pd.prepare_g2(g2))
     torch.cuda.synchronize()
     if mismatch(e_full, e_prep)[0] or not bool(pd.is_eq_planes(
-            e_full, pd.pack_f6([mm["expected"]])).all()):
+            e_full, mb.expected).all()):
         raise AssertionError("pairing_products and pairing_products_prepared "
                              "disagree on a good proof's five pairs")
     # four of the five pairs' Miller-loop values, four lanes, for step 17
@@ -1845,23 +1850,30 @@ def mnt_pairing_batch(rt, lanes, phases):
     return by_lanes, fused_lanes
 
 
-def mnt_five_pairs(rt, batch):
-    """The five pairs of marshalled lanes, (rho A, B), (-rho vk_x, G2gen),
-    (-rho C, dp), (-Z, delta), (Ys, dp), with Ys from the card's hash and
-    group map: (g1, g2) planes [L, 5, N] and the host points per lane."""
+def mnt_five_pairs(rt, mb):
+    """The five pairs of marshalled lanes (rt._marshal_batch's Marshalled),
+    (rho A, B), (-rho vk_x, G2gen), (-rho C, dp), (-Z, delta), (Ys, dp),
+    with Ys from the card's hash and group map: (g1, g2) planes [L, 5, N]
+    and the host points per lane."""
     import torch
     pd, m = rt._pd, rt.m
-    g1_4, _, _ = rt._pairing_inputs(batch)
-    ys_x, ys_y, _ = rt._dev.group_map(rt._hash_to_t(batch))
-    g1 = (torch.cat([g1_4[0], ys_x[:, None]], dim=1),
-          torch.cat([g1_4[1], ys_y[:, None]], dim=1))
-    ys = list(zip(pd.fp.unpack_mont(ys_x), pd.fp.unpack_mont(ys_y)))
+    fp = pd.fp
+    ys_x, ys_y, _ = rt._dev.group_map(rt._hash_to_t(mb.bits))
+    g1 = (torch.cat([mb.g1_4[0], ys_x[:, None]], dim=1),
+          torch.cat([mb.g1_4[1], ys_y[:, None]], dim=1))
+    g1_host = list(zip(*(zip(fp.unpack_mont(x), fp.unpack_mont(y))
+                         for x, y in zip(g1[0].unbind(1), g1[1].unbind(1)))))
+
+    def g2_host(k):             # (B, dp)[k] per lane, from the card's planes
+        xy = [list(zip(*(fp.unpack_mont(c[:, k]) for c in half)))
+              for half in mb.g2_var]
+        return list(zip(*xy))
+
     g2gen = m.G2.affine(m.g2_gen)[:2]
-    host = [(mm["g1_4"] + [y], [mm["g2_var"][0], g2gen, mm["g2_var"][1],
-                                mm["delta"], mm["g2_var"][1]])
-            for mm, y in zip(batch, ys)]
+    host = [(list(p1), [b, g2gen, d, mb.delta, d])
+            for p1, b, d in zip(g1_host, g2_host(0), g2_host(1))]
     g2 = pd.pack_g2([h[1][k] for k in range(5) for h in host])
-    g2 = tuple(tuple(c.reshape(c.shape[0], 5, len(batch)) for c in xy)
+    g2 = tuple(tuple(c.reshape(c.shape[0], 5, len(host)) for c in xy)
                for xy in g2)
     return g1, g2, host
 
@@ -1882,9 +1894,8 @@ def mnt_against_oracle(rt, lanes, phases):
     host = [rt.verify_sync(vk, i, p) for i, p in zip(ins, prs)]
     if not card == host == want:
         raise AssertionError(f"card and host verify differ: {card} {host}")
-    ms = [rt._marshal(vk, i, p, random.Random(SEED))
-          for i, p in zip(ins, prs)]
-    g1, g2, pairs = mnt_five_pairs(rt, [mm for mm in ms if mm is not None])
+    _, mb = rt._marshal_batch(vk, ins, prs, random.Random(SEED))
+    g1, g2, pairs = mnt_five_pairs(rt, mb)
     got = pd.unpack_f6(pd.pairing_products_prepared(g1, pd.prepare_g2(g2)))
     for lane, (p1s, q2s) in enumerate(pairs):
         f = m.F6.one()

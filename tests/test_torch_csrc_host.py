@@ -1395,9 +1395,9 @@ def rehearse(mp, libs, **sizes):
 
 
 def test_chip_smoke_mnt_kernel_phase_rehearsal(libs, monkeypatch):
-    """chip_smoke.py's MNT6753 kernel phase (K1, K2 at 24 words, K12-K14)
-    on 128 lanes of the host libraries: every row bit-equal to its plain
-    version, with the rows' bounds and launch bookkeeping."""
+    """chip_smoke.py's MNT6753 kernel phase (K1, K2, K4 at 24 words,
+    K12-K14) on 128 lanes of the host libraries: every row bit-equal to its
+    plain version, with the rows' bounds and launch bookkeeping."""
     smoke = rehearse(monkeypatch, libs, N_LANES=128)
     rng = np.random.default_rng(smoke.SEED)
     rows = []
@@ -1420,13 +1420,13 @@ def test_chip_smoke_mnt_kernel_phase_rehearsal(libs, monkeypatch):
     cuda_lib.reset_launches()
     smoke.check_mnt_kernels(rnd, record, 128)
     assert [(r[0], r[1]) for r in rows] == [
-        ("K1", "mont_mul"), ("K2", "mod_add/mod_sub"), ("K12", "f6_mul"),
-        ("K12", "f6_sqr"), ("K13", "f6_cyc_sqr"), ("K14", "mnt_miller_dbl"),
-        ("K14", "mnt_miller_add")]
+        ("K1", "mont_mul"), ("K2", "mod_add/mod_sub"), ("K4", "cneg"),
+        ("K12", "f6_mul"), ("K12", "f6_sqr"), ("K13", "f6_cyc_sqr"),
+        ("K14", "mnt_miller_dbl"), ("K14", "mnt_miller_add")]
     assert all(r[2] == 0 and r[3] == 0 for r in rows), rows
     assert all(r[4][0] > 0 for r in rows)
-    assert rows[5][4][1] == "operations"          # K14 dbl: bound by ops
-    for kid in ("K1", "K2", "K12", "K13", "K14"):
+    assert rows[6][4][1] == "operations"          # K14 dbl: bound by ops
+    for kid in ("K1", "K2", "K4", "K12", "K13", "K14"):
         assert cuda_lib.launches[kid] > 0, kid
     assert all(any(key[:2] == (fn, 24) for key in cuda_lib.lane_launches)
                for fn in cuda_lib.KERNELS["K14"][1])

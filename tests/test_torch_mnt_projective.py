@@ -159,3 +159,61 @@ def test_mnt6753_g1_against_the_oracle():
     got = dev.double(pack(Pl))
     assert _affine(G, *(F.unpack_mont(c) for c in got)) == _want(
         G, [G.double(p) for p in Pl])
+
+
+def _mnt_lanes():
+    """MNT6753 G1 lanes for the mixed add: P (projective, random Z) and Q
+    (affine, zero written (0, 0)): generic, P = Q, P = -Q, P zero, Q zero,
+    both zero."""
+    jm = jmnt()
+    G = jm.G1
+    q = jm.fp_spec.q
+    rng = random.Random(6)
+    pts = [G.affine(G.times_scalar(jm.g1_gen, rng.randrange(1, 1 << 64)))
+           for _ in range(3)]
+
+    def scaled(p):
+        z = rng.randrange(1, q)
+        return (p[0] * z % q, p[1] * z % q, z)
+
+    Pl = [scaled(pts[0]), scaled(pts[1]), scaled(pts[1]), G.zero(),
+          scaled(pts[2]), G.zero()]
+    Ql = [pts[1], pts[1], G.neg(pts[1]), pts[2], None, None]
+    return G, Pl, Ql
+
+
+@pytest.mark.parametrize("op", ["promote", "madd", "tree_reduce"])
+def test_mnt6753_g1_mixed_add_and_tree(op):
+    """ProjectiveDevice.promote, madd and tree_reduce (what ops/
+    fixed_base.py sums with) at MNT6753's G1 against the JAX host
+    oracle's add; zero operands and P = Q included."""
+    G, Pl, Ql = _mnt_lanes()
+    F, dev = _port_curve(mnt6753().fp_spec, 11)
+
+    def pack(pl, n=3):
+        return tuple(F.pack_mont([p[i] for p in pl]) for i in range(n))
+
+    def unpack(p):
+        return _affine(G, *(F.unpack_mont(c.reshape(c.shape[0], -1))
+                            for c in p))
+
+    qa = [(0, 0) if q is None else q[:2] for q in Ql]
+    qp = [G.zero() if q is None else G.from_affine(*q[:2]) for q in Ql]
+    if op == "promote":
+        assert unpack(dev.promote(pack(qa, 2))) == _want(G, qp)
+    elif op == "madd":
+        got = dev.madd(pack(Pl), pack(qa, 2))
+        assert unpack(got) == _want(G, [G.add(p, q) for p, q in zip(Pl, qp)])
+    else:
+        # lanes [2, 4]: the four summands of a lane along the last axis;
+        # the first level adds P = Q in one lane, P = -Q in the other
+        rows = [[Pl[1], Pl[0], Pl[2], Pl[3]], [qp[1], Pl[0], qp[2], Pl[5]]]
+        got = dev.tree_reduce(tuple(c.reshape(c.shape[0], 2, 4) for c in
+                                    pack(sum(rows, []))), 4)
+        want = []
+        for row in rows:
+            acc = G.zero()
+            for p in row:
+                acc = G.add(acc, p)
+            want.append(acc)
+        assert unpack(got) == _want(G, want)

@@ -5,12 +5,14 @@ plain version) against the JAX package's Mnt6753Runtime.
 The Coda test vectors are not in the repository, so a trapdoor
 construction gives valid proofs (`synthetic_vk`, `synthetic_proof`, the
 JAX runtime's own calculate_ys for Ys).  Held against the JAX package:
-`_marshal` (the same rho: its os.urandom patched here, the port's rng
-seeded with the same bytes), `verify_sync`, and the device batch
+the marshalling (the port's device stage, unpacked, against the JAX
+`_marshal` with the same rho: its os.urandom patched here, the port's
+rng seeded with the same bytes), `verify_sync`, and the device batch
 `bowe_gabizon_verify_batch` on three lanes — a good proof, one with a
 tampered C, one with the wrong input count — whose answers must equal
-the JAX verify_sync's (True, False, False).  verify and verify_fused run
-in tests/test_torch_mnt_verify_single.py.
+the JAX verify_sync's (True, False, False).  The fixed-base F6 power of
+the marshalling is held against the JAX package's F6.exp.  verify and
+verify_fused run in tests/test_torch_mnt_verify_single.py.
 """
 
 import json
@@ -89,15 +91,59 @@ def case():
     return jrt, rt, vk, pub, good, bad
 
 
+def unpacked(rt, mb):
+    """rt._marshal_batch's Marshalled planes, per lane as the JAX
+    package's _marshal gives them."""
+    fp = rt._pd.fp
+
+    def lanes(half):            # coordinate planes -> per lane tuples
+        return list(zip(*(fp.unpack_mont(c) for c in half)))
+
+    g1 = [lanes([c[:, k] for c in mb.g1_4]) for k in range(4)]
+    g2 = [list(zip(*(lanes([c[:, k] for c in half]) for half in mb.g2_var)))
+          for k in range(2)]
+    expected = rt._pd.unpack_f6(mb.expected)
+    return [{"g1_4": [g1[k][n] for k in range(4)],
+             "g2_var": [g2[0][n], g2[1][n]], "delta": mb.delta,
+             "expected": expected[n], "bits": bits}
+            for n, bits in enumerate(mb.bits.T.tolist())]
+
+
 def test_marshal_equals_the_jax_package_with_the_same_rho(case,
                                                           monkeypatch):
-    jrt, rt, vk, pub, good, _ = case
-    raw = random.Random(11).randbytes(16)
-    monkeypatch.setattr(jrt_mod.os, "urandom", lambda n: raw[:n])
-    assert rt._marshal(vk, pub, good, random.Random(11)) == \
-        jrt._marshal(vk, pub, good)
+    """The device marshalling of a good lane, one with C + G1 and one with
+    an input >= r: the four affine G1 points, (B, dp), delta,
+    alphaBeta^rho and the hash's bits, as the JAX package's host _marshal
+    gives them with the same rho lane for lane."""
+    jrt, rt, vk, pub, good, bad = case
+    big = [str(int(pub[0]) + 3 * jrt.m.Fr.q)]
+    ins, prs = [pub, pub, big], [good, bad, good]
+    src = random.Random(11)
+    monkeypatch.setattr(jrt_mod.os, "urandom", src.randbytes)
+    want = [jrt._marshal(vk, i, p) for i, p in zip(ins, prs)]
+    ok_idx, mb = rt._marshal_batch(vk, ins, prs, random.Random(11))
+    assert ok_idx == [0, 1, 2]
+    assert unpacked(rt, mb) == want
     assert rt._marshal(vk, pub + ["1"], good) is None
     assert jrt._marshal(vk, pub + ["1"], good) is None
+
+
+@pytest.mark.parametrize("rho", [0, 1, 2 ** 128 - 1, 0x9E3779B97F4A7C15])
+def test_fixed_base_f6_power(case, rho):
+    """alphaBeta^rho from the F6 table (one gather, a K12 product tree)
+    against the JAX package's F6.exp, on an F6 value outside the
+    cyclotomic subgroup."""
+    from wasmsnark_tpu_torch.fields.spec import LIMB_BITS
+    from wasmsnark_tpu_torch.ops.fp import planes
+    from wasmsnark_tpu_torch.utils.serialize import ints_to_limbs
+
+    jrt, rt = case[:2]
+    rnd = random.Random(rho % 1009)
+    q = rt.m.fp_spec.q
+    ab = tuple(tuple(rnd.randrange(q) for _ in range(3)) for _ in range(2))
+    limbs = planes(ints_to_limbs([rho], 128 // LIMB_BITS), "cpu")
+    got = rt._pd.unpack_f6(rt._ab_rho(rt._ab_table(ab), limbs))
+    assert got == [jrt.m.F6.exp(ab, rho)]
 
 
 def test_verify_sync_equals_the_jax_package(case):
@@ -117,4 +163,4 @@ def test_bowe_gabizon_verify_batch_on_three_lanes(case):
     got = rt.bowe_gabizon_verify_batch(vk, ins, prs, rng=random.Random(3))
     assert got == [jrt.verify_sync(vk, i, p) for i, p in zip(ins, prs)] \
         == [True, False, False]
-    assert list(rt._pd.vk_prep_cache)          # (G2gen, delta) prepared
+    assert list(rt._pd.vk_prep_cache)          # the key's state kept

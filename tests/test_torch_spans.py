@@ -265,16 +265,22 @@ def bg_case():
             mp.undo()
 
     none = on(lambda: rt.bowe_gabizon_verify_batch(vk, ins[2:], prfs[2:]))
+    rt._pd.vk_prep_cache.clear()           # the key's first batch builds
     return {"on": on(verify), "off": _run(verify, False), "none": none}
 
 
 def test_bg_span_tree(bg_case):
+    """bg.batch's four stages; under bg.marshal the key's state build (its
+    first batch) and the device stage bg.scalars; every other span a
+    leaf."""
     out, recs = bg_case["on"]
     tops = [s for s in recs if s.parent is None]
     assert [s.name for s in tops] == ["bg.batch"]
     kids = sorted(_children(recs, tops[0]), key=lambda s: s.t0)
     assert [s.name for s in kids] == BG_STAGES
-    assert all(_children(recs, s) == [] for s in kids)
+    marshal = sorted(_children(recs, kids[0]), key=lambda s: s.t0)
+    assert [s.name for s in marshal] == ["bg.vk_tables", "bg.scalars"]
+    assert all(_children(recs, s) == [] for s in kids[1:] + marshal)
     # a batch no lane of which the key takes: marshalling alone
     out_none, recs_none = bg_case["none"]
     assert out_none == [False]
@@ -285,17 +291,34 @@ def test_bg_span_tree(bg_case):
 def test_bg_children_lie_inside_their_parents(bg_case):
     _, recs = bg_case["on"]
     by = _by_id(recs)
-    assert len(recs) == len(by) == 5
+    assert len(recs) == len(by) == 7
     for s in recs:
         assert s.t0 <= s.t1
         if s.parent is not None:
             assert by[s.parent].t0 <= s.t0 and s.t1 <= by[s.parent].t1
-    kids = sorted((s for s in recs if s.parent is not None),
-                  key=lambda k: k.t0)
-    assert all(a.t1 <= b.t0 for a, b in zip(kids, kids[1:]))
+    for parent in recs:
+        kids = sorted(_children(recs, parent), key=lambda k: k.t0)
+        assert all(a.t1 <= b.t0 for a, b in zip(kids, kids[1:]))
     top = next(s for s in recs if s.parent is None)
+    kids = _children(recs, top)
     assert sum(s.t1 - s.t0 for s in kids) >= 0.99 * (top.t1 - top.t0)
     assert all(s.launches == 0 for s in recs)
+
+
+def test_bg_vk_tables_once_a_key(monkeypatch):
+    """bg.vk_tables records once for two batches under one key and once
+    more for a second key; bg.scalars once a batch."""
+    rt, vk, ins, prfs = _bg_lanes()
+    vk2, _ = synthetic_vk(rt.m, 1, random.Random(25))
+    monkeypatch.setattr(spans, "_enabled", lambda: True)
+    rt._pd.vk_prep_cache.clear()
+    last = _last()
+    for key in (vk, vk, vk2):
+        rt._marshal_batch(key, ins[:1], prfs[:1], random.Random(5))
+    names = [s.name for s in _new_since(last)]
+    assert names.count("bg.vk_tables") == 2
+    assert names.count("bg.scalars") == 3
+    assert len(rt._pd.vk_prep_cache) == 2
 
 
 def test_bg_off_records_nothing_and_gives_the_same_verdicts(bg_case):

@@ -12,8 +12,13 @@ verify_sync is the host-bigint oracle path (mnt6753.js:614-726).  verify,
 verify_fused and bowe_gabizon_verify_batch run on the runtime's device (the
 CUDA card unless the caller asks for the CPU): N proofs ride the lanes of
 
-  1. host marshalling: affine proof points, the vk_x ladder, the rho
-     randomisation and alphaBeta^rho;
+  1. marshalling: the host parses each lane, checks its input count and
+     draws rho, then one upload of the lanes' canonical coordinates and
+     scalars feeds a device stage built on per-key tables: vk_x as a
+     fixed-base sum (ops/fixed_base.py), one 128-bit ladder for rho A,
+     rho vk_x and rho C over all lanes, one batched inversion to affine,
+     alphaBeta^rho as a product of 32 entries of a fixed-base F6 table,
+     and the hash's bit planes cut from the same limbs;
   2. the batched Pedersen hash of the proofs' bit strings
      (models/mnt6753_device.py);
   3. blake2s per proof on the host (the reference keeps it in JS);
@@ -29,6 +34,15 @@ product e(rho A, B) e(-rho vk_x, G2) e(-rho C, dp) e(-Z, delta) e(Ys, dp)
 `rng` (a random.Random or anything with randbytes(n)); without one it is
 os.urandom(16), as in the JAX package.
 
+Every input scalar is reduced mod r before the upload: the curve's group
+has prime order r (r G1 = 0 and |q + 1 - r| lies inside Hasse's bound), so
+x P = (x mod r) P for every point of the curve, and the raw-scalar ladder
+of the reference (mnt6753.js:673-676) gives the same vk_x for any input.
+A key's state (the prepared (G2gen, delta) coefficients, vk_x's
+fixed-base tables over its query points, the alphaBeta powers) is built
+once and kept on the pairing engine, at most 4 keys; nothing is kept per
+proof or input.
+
 Verification protocol (mnt6753.js:614-726):
   1. bits := [A.y&1, bits753(A.x), B.y.a&1, bits753(B.x.{a,b,c}),
               C.y&1, bits753(C.x), dp.y.a&1, bits753(dp.x.{a,b,c})]
@@ -43,16 +57,30 @@ from __future__ import annotations
 import functools
 import hashlib
 import os
+from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .mnt6753 import mnt6753, Q
-from ..ops.curve import map_leaf2
+from .mnt6753_constants import R
+from ..fields.spec import LIMB_BITS
+from ..ops.curve import map_leaf, map_leaf2
+from ..ops.fixed_base import FixedBaseSum
 from ..ops.fp import planes, resolve_device
-from ..utils.serialize import (int_to_bytes_le, ints_to_limbs, is_ocam_num,
-                               parse_bigint)
+from ..ops.msm import times_scalar_signed_device, window_digits
+from ..ops.towers import stack, unstack
+from ..utils.serialize import (int_to_bytes_le, ints_to_limbs,
+                               ints_to_limbs_fast, is_ocam_num, parse_bigint)
 from ..utils.spans import span
+
+RHO_BITS = 128              # rho: 16 random bytes (mnt6753.js:789-800)
+AB_WINDOW = 4               # alphaBeta^rho's table: 4-bit windows of rho
+
+# a lane's canonical coordinates, in upload order: A, B, C, dp, then -Z
+# (x before y, F3 components in order)
+A_X, A_Y, B_X, B_Y, C_X, C_Y, DP_X, DP_Y, NZ_X, NZ_Y = (
+    0, 1, 2, 5, 8, 9, 10, 13, 16, 17)
+N_COORDS = 18
 
 
 def _bits753(v: int):
@@ -65,6 +93,40 @@ def _digest(x: int) -> int:
     """blake2s of the 95-byte LE image of the hash's x (mnt6753.js:766)."""
     return int.from_bytes(
         hashlib.blake2s(int_to_bytes_le(x, 96)[:95]).digest(), "little")
+
+
+class Lane(NamedTuple):
+    """The host's part of a lane: its canonical coordinates (N_COORDS, the
+    upload order), its inputs mod r and rho."""
+    coords: list
+    scalars: list
+    rho: int
+
+
+class KeyState(NamedTuple):
+    """A verification key's device state, built once (span bg.vk_tables):
+    coeffs, the prepared line coefficients of its fixed G2 points (G2gen,
+    delta), leaves [S, L, 2]; vk_x, the FixedBaseSum over its query points
+    (query[0] the start point); ab, the F6 table T[w D + d] =
+    alphaBeta^(d 2^(c w)) of rho's c-bit windows, planes [L, W D]."""
+    coeffs: tuple
+    vk_x: FixedBaseSum
+    ab: tuple
+
+
+class Marshalled(NamedTuple):
+    """The device inputs of a batch's lanes: g1_4, the affine Montgomery
+    planes (x, y) [L, 4, N] of (rho A, -rho vk_x, -rho C, -Z); g2_var, the
+    F3 planes of (B, dp), leaves [L, 2, N]; delta, the key's affine delta
+    on the host; fixed, the key's prepared (G2gen, delta) coefficients;
+    expected, alphaBeta^rho as F6 planes [L, N]; bits, the hash's bit
+    planes [6028, N]."""
+    g1_4: tuple
+    g2_var: tuple
+    delta: tuple
+    fixed: tuple
+    expected: tuple
+    bits: torch.Tensor
 
 
 class Mnt6753Runtime:
@@ -86,11 +148,17 @@ class Mnt6753Runtime:
     def _f6(self, e):
         return (self._f3(e["a"]), self._f3(e["b"]))
 
+    def _g1_xy(self, e):
+        return self._f1(e["x"]), self._f1(e["y"])
+
+    def _g2_xy(self, e):
+        return self._f3(e["x"]), self._f3(e["y"])
+
     def _g1_affine(self, e):
-        return self.m.G1.from_affine(self._f1(e["x"]), self._f1(e["y"]))
+        return self.m.G1.from_affine(*self._g1_xy(e))
 
     def _g2_affine(self, e):
-        return self.m.G2.from_affine(self._f3(e["x"]), self._f3(e["y"]))
+        return self.m.G2.from_affine(*self._g2_xy(e))
 
     # -- hash input bit string (mnt6753.js:645-658) ---------------------------
 
@@ -159,48 +227,154 @@ class Mnt6753Runtime:
 
     def _marshal(self, verification_key: dict, inputs, proof: dict,
                  rng=None):
-        """Host marshalling of the device paths: affine proof points, the
-        vk_x ladder, rho, alphaBeta^rho and the hash's bit string.  None
-        when the input count does not match the query (the lane answers
-        False)."""
-        m = self.m
+        """The host's part of a lane's marshalling: the input-count check,
+        the proof's canonical coordinates (-Z negated here), the inputs mod
+        r and rho.  None when the input count does not match the query
+        (the lane answers False without reaching the card)."""
         inputs = self._inputs(inputs)
         if len(inputs) + 1 != len(verification_key["query"]):
             return None
-        A = m.G1.affine(self._g1_affine(proof["a"]))
-        Bp = m.G2.affine(self._g2_affine(proof["b"]))
-        C = m.G1.affine(self._g1_affine(proof["c"]))
-        dp = m.G2.affine(self._g2_affine(proof["deltaPrime"]))
-        Z = m.G1.affine(self._g1_affine(proof["z"]))
-        delta = m.G2.affine(self._g2_affine(verification_key["delta"]))
-        vk_x = self._vk_x(verification_key, inputs)
-
+        ax, ay = self._g1_xy(proof["a"])
+        bx, by = self._g2_xy(proof["b"])
+        cx, cy = self._g1_xy(proof["c"])
+        dx, dy = self._g2_xy(proof["deltaPrime"])
+        zx, zy = self._g1_xy(proof["z"])
+        coords = [ax, ay, *bx, *by, cx, cy, *dx, *dy, zx, (Q - zy) % Q]
+        scalars = [parse_bigint(raw) % R for raw in inputs]
         # rho: 16 random bytes (mnt6753.js:789-800), scaling A, vk_x, C and
         # the alphaBeta target, which merges both pairing checks
         raw = os.urandom(16) if rng is None else rng.randbytes(16)
-        rho = int.from_bytes(raw, "little")
-        G1 = m.G1
+        return Lane(coords, scalars, int.from_bytes(raw, "little"))
 
-        def aff(p):
-            return G1.affine(p)[:2]
+    def _key_state(self, verification_key):
+        """The key's KeyState, built once per key and device (span
+        bg.vk_tables) and kept in the pairing engine's vk_prep_cache, keyed
+        by the query points, alphaBeta and delta, at most 4 keys (as the
+        JAX package's cache)."""
+        query = tuple(self._g1_xy(p) for p in verification_key["query"])
+        alpha_beta = self._f6(verification_key["alphaBeta"])
+        delta = self._g2_xy(verification_key["delta"])
+        key = (query, alpha_beta, delta)
+        cache = self._pd.vk_prep_cache
+        if key not in cache:
+            if len(cache) >= 4:
+                cache.clear()
+            with span("bg.vk_tables"):
+                m, dev, pd = self.m, self._dev, self._pd
+                g2gen = m.G2.affine(m.g2_gen)
+                coeffs = pd.prepare_g2(pd.pack_g2([g2gen[:2], delta]))
+                pts = [m.G1.from_affine(*p) for p in query]
+                vk_x = FixedBaseSum(dev.G1d, m.G1, pts[0], pts[1:],
+                                    dev.fp.pack_mont, R.bit_length())
+                cache[key] = KeyState(coeffs, vk_x,
+                                      self._ab_table(alpha_beta))
+        return cache[key]
 
-        rA = aff(G1.times_scalar(G1.from_affine(*A[:2]), rho))
-        n_vkx = aff(G1.neg(G1.times_scalar(vk_x, rho)))
-        nC = aff(G1.neg(G1.times_scalar(G1.from_affine(*C[:2]), rho)))
-        nZ = aff(G1.neg(G1.from_affine(*Z[:2])))
-        ab_rho = m.F6.exp(self._f6(verification_key["alphaBeta"]), rho)
-        bits = (self._g1_bits(A) + self._g2_bits(Bp)
-                + self._g1_bits(C) + self._g2_bits(dp))
-        return {
-            # pair order: (rho A, B), (-rho vk_x, G2gen), (-rho C, dp),
-            # (-Z, delta), (Ys, dp); Ys is appended on the device, G2gen
-            # and delta ride the per-vk prepared coefficients
-            "g1_4": [rA, n_vkx, nC, nZ],
-            "g2_var": [(Bp[0], Bp[1]), (dp[0], dp[1])],
-            "delta": (delta[0], delta[1]),
-            "expected": ab_rho,
-            "bits": bits,
-        }
+    def _ab_table(self, alpha_beta):
+        """T[w D + d] = alphaBeta^(d 2^(c w)) for rho's c-bit windows w
+        (c = AB_WINDOW, D = 2^c), built on the host -> F6 planes
+        [L, W D]."""
+        F6, D = self.m.F6, 1 << AB_WINDOW
+        rows, base = [], alpha_beta
+        for _ in range(RHO_BITS // AB_WINDOW):
+            acc = F6.one()
+            rows.append(acc)
+            for _ in range(D - 1):
+                acc = F6.mul(acc, base)
+                rows.append(acc)
+            base = F6.mul(acc, base)
+        return self._pd.pack_f6(rows)
+
+    def _ab_rho(self, ab_table, rho):
+        """alphaBeta^rho of every lane (rho: canonical planes [8, N]): one
+        gather of its W table entries, then a product tree over them (K12).
+        Powers of one element commute, so this is F6.exp(alphaBeta, rho)
+        for any F6 value."""
+        d = window_digits(rho, AB_WINDOW)                   # [W, N]
+        W, N = d.shape
+        idx = d + (torch.arange(W, device=d.device) << AB_WINDOW)[:, None]
+        entries = map_leaf(ab_table, lambda a: torch.index_select(
+            a, 1, idx.reshape(-1)).reshape(a.shape[0], W, N))
+        return self._pd._f6_prod_pairs(entries)
+
+    def _scalars(self, state, coords, up_scalars, rho):
+        """The scalar stage, on the device with no sync: vk_x from the
+        key's fixed-base tables, one signed-window ladder of rho over the
+        3N lanes (A, vk_x, C), their batched inversion to affine with vk_x
+        and C negated, and alphaBeta^rho as one gather from the F6 table
+        and a product tree.  coords: Montgomery planes [L, N_COORDS, N];
+        up_scalars: the inputs' canonical planes [L, k, N]; rho: [8, N].
+        Returns (the affine planes (x, y) [L, 3, N] of rho A, -rho vk_x,
+        -rho C; alphaBeta^rho as F6 planes [L, N]).  A zero point is (0,
+        1), as the host oracle's affine zero."""
+        G = self._dev.G1d
+        F = G.F
+        N = coords.shape[-1]
+        one = F.one_like(coords[:, 0])
+        vk_x = state.vk_x.points_jac(up_scalars)
+        pts = tuple(torch.cat(c, dim=-1) for c in zip(
+            (coords[:, A_X], coords[:, A_Y], one), vk_x,
+            (coords[:, C_X], coords[:, C_Y], one)))
+        p = times_scalar_signed_device(G, pts, torch.cat([rho] * 3, dim=1))
+        zero = G.is_zero(p)
+        zi = F.inv(F.select(zero, F.one_like(p[2]), p[2]))
+        x, y = unstack(F.mul(stack(p[0], p[1]), zi), 2)
+        y = F.cneg(torch.arange(3 * N, device=y.device) >= N, y)
+        x = F.select(zero, F.zero_like(x), x)
+        y = F.select(zero, F.one_like(y), y)
+        g1_3 = tuple(a.reshape(a.shape[0], 3, N) for a in (x, y))
+        return g1_3, self._ab_rho(state.ab, rho)
+
+    @staticmethod
+    def _bit_planes(c):
+        """The hash's bit string of every lane from the canonical limb
+        planes [L, N_COORDS, N] (int64 [6028, N]): per point the y parity,
+        then 753 bits LSB first per x coordinate (_g1_bits and _g2_bits
+        order: A, B, C, dp)."""
+        c = c.long()
+        sh = torch.arange(LIMB_BITS, device=c.device)
+        bits = ((c[:, None] >> sh[None, :, None, None]) & 1).reshape(
+            -1, *c.shape[1:])[:753]                         # [753, K, N]
+        rows = []
+        for x, y, n in ((A_X, A_Y, 1), (B_X, B_Y, 3), (C_X, C_Y, 1),
+                        (DP_X, DP_Y, 3)):
+            rows += [c[0, y][None] & 1] + [bits[:, x + j] for j in range(n)]
+        return torch.cat(rows)
+
+    def _marshal_batch(self, verification_key, inputs_list, proofs, rng):
+        """bg.marshal: every lane's host marshalling, then one upload and
+        the device stage (span bg.scalars).  Returns (the indices of the
+        lanes the key takes, their Marshalled inputs; None where there are
+        none)."""
+        lanes = [self._marshal(verification_key, inp, prf, rng)
+                 for inp, prf in zip(inputs_list, proofs)]
+        ok_idx = [i for i, ln in enumerate(lanes) if ln is not None]
+        if not ok_idx:
+            return ok_idx, None
+        lanes = [lanes[i] for i in ok_idx]
+        state = self._key_state(verification_key)
+        fp = self._dev.fp
+        N, k = len(lanes), len(lanes[0].scalars)
+        K = N_COORDS + k + 1
+        with span("bg.scalars"):
+            vals = [ln.coords[j] for j in range(N_COORDS) for ln in lanes]
+            vals += [ln.scalars[j] for j in range(k) for ln in lanes]
+            vals += [ln.rho for ln in lanes]
+            up = planes(ints_to_limbs_fast(vals, fp.L), self.device).reshape(
+                fp.L, K, N)
+            canon = up[:, :N_COORDS]
+            coords = fp.to_mont(canon)
+            g1_3, expected = self._scalars(
+                state, coords, up[:, N_COORDS:N_COORDS + k],
+                up[:RHO_BITS // LIMB_BITS, K - 1])
+        g1_4 = tuple(torch.cat([g, coords[:, z:z + 1]], dim=1)
+                     for g, z in zip(g1_3, (NZ_X, NZ_Y)))
+        g2_var = tuple(tuple(coords[:, [b + j, d + j]] for j in range(3))
+                       for b, d in ((B_X, DP_X), (B_Y, DP_Y)))
+        return ok_idx, Marshalled(g1_4, g2_var,
+                                  self._g2_xy(verification_key["delta"]),
+                                  state.coeffs, expected,
+                                  self._bit_planes(canon))
 
     @functools.cached_property
     def _dev(self):
@@ -212,47 +386,11 @@ class Mnt6753Runtime:
         from ..ops.pairing import mnt6753_pairing_device
         return mnt6753_pairing_device(self.device)
 
-    def _fixed_coeffs(self, delta_aff):
-        """Prepared line coefficients of the verification equation's two
-        fixed G2 points, G2gen and vk.delta (leaves [S, L, 2]), computed
-        once per vk and device and kept in the engine's vk_prep_cache (at
-        most 4 keys, as the JAX package's cache)."""
-        cache = self._pd.vk_prep_cache
-        if delta_aff not in cache:
-            g2gen = self.m.G2.affine(self.m.g2_gen)
-            packed = self._pd.pack_g2([(g2gen[0], g2gen[1]), delta_aff])
-            if len(cache) >= 4:
-                cache.clear()
-            cache[delta_aff] = self._pd.prepare_g2(packed)
-        return cache[delta_aff]
-
-    def _pairing_inputs(self, batch):
-        """The device inputs of marshalled lanes: (g1_4 planes, the varying
-        G2 points (B, dp), expected F6 planes)."""
-        fp, pd = self._pd.fp, self._pd
-
-        def g1comp(i):
-            return torch.stack([fp.pack_mont([mm["g1_4"][k][i]
-                                              for mm in batch])
-                                for k in range(4)], dim=1)
-
-        def g2comp(i, j):
-            return torch.stack([fp.pack_mont([mm["g2_var"][k][i][j]
-                                              for mm in batch])
-                                for k in range(2)], dim=1)
-
-        g2_var = (tuple(g2comp(0, j) for j in range(3)),
-                  tuple(g2comp(1, j) for j in range(3)))
-        return ((g1comp(0), g1comp(1)), g2_var,
-                pd.pack_f6([mm["expected"] for mm in batch]))
-
-    def _hash_to_t(self, batch):
-        """Stages 2-3: the device Pedersen hash of every lane's bit string,
-        then blake2s on the host -> the group map's inputs, limb planes
-        [L, N]."""
+    def _hash_to_t(self, bits):
+        """Stages 2-3: the device Pedersen hash of every lane's bit planes
+        [6028, N], then blake2s on the host -> the group map's inputs,
+        limb planes [L, N]."""
         fp = self._dev.fp
-        bits = torch.from_numpy(np.asarray(
-            [mm["bits"] for mm in batch], dtype=np.int64).T.copy())
         ped_x = fp.unpack(self._dev.pedersen_hash(bits))
         return planes(ints_to_limbs([_digest(x) for x in ped_x], fp.L),
                       self.device)
@@ -291,28 +429,24 @@ class Mnt6753Runtime:
     def _verify_device(self, verification_key, inputs_list, proofs,
                        fused: bool, rng=None) -> list:
         """N proofs in batch lanes through the device stages, under the
-        span bg.batch: bg.marshal (the lanes' host marshalling and their
-        packing), bg.hash, bg.group_map, then bg.pairing (the key's
-        prepared coefficients, the product and the verdicts' copy to the
-        host)."""
+        span bg.batch: bg.marshal (the lanes' host marshalling, the key's
+        state, bg.vk_tables, where it is built, and the device stage
+        bg.scalars), bg.hash, bg.group_map, then bg.pairing (the product
+        and the verdicts' copy to the host)."""
+        results = [False] * len(proofs)
         with span("bg.batch"):
             with span("bg.marshal"):
-                ms = [self._marshal(verification_key, inp, prf, rng)
-                      for inp, prf in zip(inputs_list, proofs)]
-                ok_idx = [i for i, mm in enumerate(ms) if mm is not None]
-                results = [False] * len(ms)
-                if not ok_idx:
+                ok_idx, mb = self._marshal_batch(verification_key,
+                                                 inputs_list, proofs, rng)
+                if mb is None:
                     return results
-                batch = [ms[i] for i in ok_idx]
-                g1_4, g2_var, expected = self._pairing_inputs(batch)
             with span("bg.hash"):
-                t = self._hash_to_t(batch)
+                t = self._hash_to_t(mb.bits)
             with span("bg.group_map"):
-                g1 = self._ys_g1(t, g1_4)
+                g1 = self._ys_g1(t, mb.g1_4)
             with span("bg.pairing"):
-                fixed = self._fixed_coeffs(batch[0]["delta"])
-                ok = self._pairing_check(g1, g2_var, fixed, expected,
-                                         fused).tolist()
+                ok = self._pairing_check(g1, mb.g2_var, mb.fixed,
+                                         mb.expected, fused).tolist()
             for pos, i in enumerate(ok_idx):
                 results[i] = bool(ok[pos])
             return results

@@ -4,8 +4,10 @@
 Points are (X, Y, Z) tuples of field elements (tower tuples compose); zero
 is any Z = 0, canonical (0, one, 0).  Every degenerate case (zero
 operands, P == Q, P == -Q) is resolved per lane with masked selects.  Both
-devices also give neg, sub, eq, cneg (the sign of a signed-digit pick) and
-double_times, and `tree_reduce` sums a power-of-two lane axis.
+devices also give neg, sub, eq, cneg (the sign of a signed-digit pick),
+double_times, promote and madd (an affine point, zero written (0, 0):
+what ops/fixed_base.py sums), and `tree_reduce` sums a power-of-two lane
+axis.
 
 For the Jacobian G1 (base field Fp) the three operations are fused kernels:
 K5 `jac_madd`, K6 `jac_add`, K7 `jac_double` (csrc/curve_kernels.cu; K7
@@ -199,7 +201,8 @@ class JacobianDevice:
         return self.F.is_zero(q[0]) & self.F.is_zero(q[1])
 
     def promote(self, q):
-        """Affine (X, Y) -> Jacobian (X, Y, 1); (0, 0) -> (0, one, 0)."""
+        """Affine (X, Y) -> (X, Y, 1), Jacobian or projective; (0, 0) ->
+        (0, one, 0)."""
         F = self.F
         zero = self.is_zero_affine(q)
         return (q[0],
@@ -278,6 +281,16 @@ class ProjectiveDevice:
         out = self.select(v_zero & ~u_zero, self.zero_like(p), out)
         out = self.select(self.is_zero(q), p, out)
         return self.select(self.is_zero(p), q, out)
+
+    def madd(self, p, q):
+        """p projective + q affine (X, Y), the affine zero written (0,
+        0): the complete add of q promoted."""
+        return self.add(p, self.promote(q))
+
+    # the same in both coordinate systems: an affine point is (X, Y, 1)
+    is_zero_affine = JacobianDevice.is_zero_affine
+    promote = JacobianDevice.promote
+    tree_reduce = JacobianDevice.tree_reduce
 
     def sub(self, p, q):
         return self.add(p, self.neg(q))

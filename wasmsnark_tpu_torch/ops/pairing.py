@@ -613,8 +613,9 @@ class Mnt6753PairingDevice:
         e1 = (Q - 1) // 6
         self._frob_fp = tuple(self.fp.pack_mont([pow(NR, k * e1, Q)])
                               for k in range(1, 6))
-        # prepared line coefficients of a verification key's fixed G2
-        # points (G2gen, delta), filled by models/mnt6753_runtime.py
+        # a verification key's device state (the prepared line
+        # coefficients of its fixed G2 points G2gen and delta, its vk_x and
+        # alphaBeta tables), filled by models/mnt6753_runtime.py
         self.vk_prep_cache: dict = {}
 
     # -- marshalling ----------------------------------------------------------
