@@ -836,11 +836,11 @@ def probe_proves(smoke, prove):
 
 def verify_batches(smoke, names, use, rounds):
     """Seconds of the steady MNT6753 verify batch and of its group map and
-    pairing stage (rt._check), of the steady BLS12-381 verify batch and of
-    the steady BN128 and BLS12-381 proves, under each variant's libraries,
-    in alternating turns; then the card's kernel time in one profiled call
-    of the MNT6753 stage, of the BLS12-381 batch and of each prove under
-    each."""
+    pairing stage (rt._ys_g1, then rt._pairing_check), of the steady
+    BLS12-381 verify batch and of the steady BN128 and BLS12-381 proves,
+    under each variant's libraries, in alternating turns; then the card's
+    kernel time in one profiled call of the MNT6753 stage, of the
+    BLS12-381 batch and of each prove under each."""
     import random
     import torch
     import wasmsnark_tpu_torch
@@ -866,7 +866,8 @@ def verify_batches(smoke, names, use, rounds):
         torch.cuda.synchronize()
         secs = {"batch": time.perf_counter() - t}
         t = time.perf_counter()
-        ok = rt._check(tt, g1_4, g2_var, coeffs, expected, True).tolist()
+        ok = rt._pairing_check(rt._ys_g1(tt, g1_4), g2_var, coeffs,
+                               expected, True).tolist()
         torch.cuda.synchronize()
         secs["pairing"] = time.perf_counter() - t
         t = time.perf_counter()
@@ -889,8 +890,8 @@ def verify_batches(smoke, names, use, rounds):
                 out[name][key].append(v)
     for name in names:                # then one profiled call of each
         use(name)
-        out[name]["pairing_device"] = device_ms(lambda: rt._check(
-            tt, g1_4, g2_var, coeffs, expected, True))
+        out[name]["pairing_device"] = device_ms(lambda: rt._pairing_check(
+            rt._ys_g1(tt, g1_4), g2_var, coeffs, expected, True))
         out[name]["bls_batch_device"] = device_ms(
             lambda: bls.groth16_verify_batch(bvk, bins, bprs))
         for c, run in prove.items():

@@ -1288,14 +1288,13 @@ def verify_batch(rt, vk, lanes, phases):
     import torch
     from wasmsnark_tpu_torch.groth16 import verifier
     from wasmsnark_tpu_torch.ops import cuda_lib
-    from wasmsnark_tpu_torch.ops.pairing import pairing_device
 
-    m = rt.module
-    pd = pairing_device(rt.CURVE)
+    v = rt.verifier
+    pd = v.pd
     ins, prs, want = lanes
     say(f"{rt.CURVE} verify batch: {N_VERIFY} proofs, {want.count(False)} "
         "bad lanes")
-    pd.vk_prep_cache.clear()
+    v._keys.clear()
     for name in ("first", "steady"):
         if name == "steady":
             cuda_lib.reset_launches()
@@ -1323,8 +1322,7 @@ def verify_batch(rt, vk, lanes, phases):
     # where the steady time goes: the marshalling (its vk_x stage on the
     # card included), then the pairing
     t = time.perf_counter()
-    g1, g2_b, fixed, ok_host, vk_x_ok = verifier._batch_inputs(pd, m, vk,
-                                                               ins, prs)
+    g1, g2_b, fixed, ok_host, vk_x_ok = v._batch_inputs(vk, ins, prs)
     torch.cuda.synchronize()
     phases["verify_host_s"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -1384,8 +1382,7 @@ def pairing_batch(rt, vk, pub, proof, phases):
     if any(v != want for v in pd.unpack_f12(e)):
         raise AssertionError("e(7 G1, 9 G2) != e(G1, G2)^63 on some lane")
 
-    g1p, g2_b, fixed, *_ = verifier._batch_inputs(pd, m, vk, [pub],
-                                                  [proof])
+    g1p, g2_b, fixed, *_ = rt.verifier._batch_inputs(vk, [pub], [proof])
     e_prep = verifier._pairing_batch(pd, g1p, g2_b, fixed)
     pts = [verifier._g2_from_json(m, proof["pi_b"])] + [
         verifier._g2_from_json(m, vk[k])
@@ -1409,10 +1406,8 @@ def card_against_cpu(rt, vk, lanes, phases):
     """4 lanes (2 good, 2 bad) on the card and with the plain versions on
     the CPU: the same booleans and bit-equal F12 values."""
     from wasmsnark_tpu_torch.groth16 import verifier
-    from wasmsnark_tpu_torch.ops.pairing import pairing_device
 
     t = time.perf_counter()
-    m = rt.module
     ins, prs, _ = lanes
     pick = sample_lanes(N_VERIFY)
     ins, prs = [ins[i] for i in pick], [prs[i] for i in pick]
@@ -1422,11 +1417,10 @@ def card_against_cpu(rt, vk, lanes, phases):
     if not got["card"] == got["cpu"] == [True, True, False, False]:
         raise AssertionError(f"card and CPU verify differ: {got}")
     e = {}
-    for where in ("card", "cpu"):
-        pd = pairing_device(rt.CURVE, "cpu" if where == "cpu" else None)
-        g1, g2_b, fixed, *_ = verifier._batch_inputs(pd, m, vk, ins, prs)
+    for where, v in (("card", rt.verifier), ("cpu", cpu.verifier)):
+        g1, g2_b, fixed, *_ = v._batch_inputs(vk, ins, prs)
         e[where] = tuple(x.cpu() for x in leaves(
-            verifier._pairing_batch(pd, g1, g2_b, fixed)))
+            verifier._pairing_batch(v.pd, g1, g2_b, fixed)))
     if mismatch(e["card"], e["cpu"])[0]:
         raise AssertionError("card and CPU F12 values differ")
     phases["card_vs_cpu_s"] = time.perf_counter() - t
@@ -1705,7 +1699,7 @@ def mnt_verify_batch(rt, lanes, phases):
     vk, ins, prs, want = lanes
     pd = rt._pd
     say(f"mnt6753 verify batch: {N_MNT} lanes, {want.count(False)} bad")
-    pd.vk_prep_cache.clear()
+    rt._keys.clear()
     for name in ("first", "steady"):
         if name == "steady":
             cuda_lib.reset_launches()
@@ -1745,8 +1739,8 @@ def mnt_verify_batch(rt, lanes, phases):
     torch.cuda.synchronize()
     phases["verify_hash_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    ok = rt._check(tt, mb.g1_4, mb.g2_var, mb.fixed, mb.expected,
-                   True).tolist()
+    ok = rt._pairing_check(rt._ys_g1(tt, mb.g1_4), mb.g2_var, mb.fixed,
+                           mb.expected, True).tolist()
     phases["verify_device_s"] = time.perf_counter() - t
     if ok != [want[i] for i in ok_idx]:
         raise AssertionError("the split mnt6753 verify batch disagrees")

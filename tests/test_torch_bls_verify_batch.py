@@ -6,9 +6,9 @@ prover at square_chain_circuit(3).
 
 Lanes: a good proof, a host re-randomised copy (A' = r^-1 A, B' = r B), a
 tampered pi_a, a wrong public input, an input >= r, a wrong input count
-and a zero pi_a.  The vk's prepared coefficients are cached on the BLS
-engine that made them (not the BN128 one), and a second batch takes them
-from there.  Tolerance: the booleans are equal.
+and a zero pi_a.  The vk's prepared coefficients are kept by the
+BLS12-381 verifier that made them (not the BN128 one), and a second batch
+takes them from there.  Tolerance: the booleans are equal.
 """
 
 import json
@@ -68,12 +68,14 @@ def case():
 
 @pytest.fixture(scope="module")
 def first_batch(case):
-    """The whole batch once, from an empty vk cache, counting the BLS
-    engine's prepare_g2 calls."""
+    """The whole batch once through the module-level entry point, from an
+    empty key cache of its BLS12-381 verifier, counting the BLS engine's
+    prepare_g2 calls."""
     rt, vk, lanes = case
+    verifier = tverifier._verifier("bls12381", CPU)
+    verifier._keys.clear()
     pd = bls12381_pairing_device(CPU)
-    pd.vk_prep_cache.clear()
-    bn_cache = dict(bn128_pairing_device(CPU).vk_prep_cache)
+    bn_keys = list(tverifier._verifier("bn128", CPU)._keys.values())
     calls = []
     prepare = pd.prepare_g2
 
@@ -88,28 +90,33 @@ def first_batch(case):
             curve="bls12381", device=CPU)
     finally:
         del pd.prepare_g2
-    return got, calls, bn_cache
+    return got, calls, bn_keys
 
 
 def test_bls_verify_batch_matches_jax_host_verify_per_lane(case,
                                                            first_batch):
     _, vk, lanes = case
-    got, calls, bn_cache = first_batch
+    got, calls, bn_keys = first_batch
     want = [jverify(vk, ln[1], ln[2], curve="bls12381") for ln in lanes]
     assert want == [True, True] + [False] * 5
     assert dict(zip((ln[0] for ln in lanes), got)) == \
         dict(zip((ln[0] for ln in lanes), want))
-    # pi_b's ladder and the vk's, which sit on the BLS engine of the
-    # runtime's device
-    pd = bls12381_pairing_device(CPU)
-    assert len(calls) == 2 and len(pd.vk_prep_cache) == 1
-    assert bn128_pairing_device(CPU).vk_prep_cache == bn_cache
+    # pi_b's ladder and the vk's, whose state the BLS12-381 verifier of
+    # the device keeps; the BN128 one's is as it was
+    verifier = tverifier._verifier("bls12381", CPU)
+    assert verifier.pd is bls12381_pairing_device(CPU)
+    assert len(calls) == 2 and len(verifier._keys) == 1
+    bn = tverifier._verifier("bn128", CPU)
+    assert bn.pd is bn128_pairing_device(CPU)
+    assert len(bn._keys) == len(bn_keys) and all(
+        a is b for a, b in zip(bn._keys.values(), bn_keys))
 
 
 def test_second_bls_batch_hits_the_vk_cache(case, first_batch, monkeypatch):
-    rt, vk, lanes = case
+    _, vk, lanes = case
+    verifier = tverifier._verifier("bls12381", CPU)
+    cached, = verifier._keys.values()
     pd = bls12381_pairing_device(CPU)
-    cached = next(iter(pd.vk_prep_cache.values()))
     calls = []
     prepare = pd.prepare_g2
 
@@ -118,6 +125,9 @@ def test_second_bls_batch_hits_the_vk_cache(case, first_batch, monkeypatch):
         return prepare(g2)
 
     monkeypatch.setattr(pd, "prepare_g2", counting)
-    assert rt.groth16_verify_batch(vk, [lanes[1][1]], [lanes[1][2]]) == [True]
+    assert tverifier.groth16_verify_batch(
+        vk, [lanes[1][1]], [lanes[1][2]], curve="bls12381",
+        device=CPU) == [True]
     assert len(calls) == 1                      # pi_b only
-    assert next(iter(pd.vk_prep_cache.values())) is cached
+    again, = verifier._keys.values()
+    assert again is cached

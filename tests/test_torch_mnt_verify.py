@@ -163,4 +163,4 @@ def test_bowe_gabizon_verify_batch_on_three_lanes(case):
     got = rt.bowe_gabizon_verify_batch(vk, ins, prs, rng=random.Random(3))
     assert got == [jrt.verify_sync(vk, i, p) for i, p in zip(ins, prs)] \
         == [True, False, False]
-    assert list(rt._pd.vk_prep_cache)          # the key's state kept
+    assert len(rt._keys) == 1                  # the key's state kept

@@ -21,7 +21,6 @@ from wasmsnark_tpu_torch.groth16 import setup as tsetup
 from wasmsnark_tpu_torch.groth16.pkey import write_witness
 from wasmsnark_tpu_torch.models.bn128 import bn128
 from wasmsnark_tpu_torch.ops import cuda_lib
-from wasmsnark_tpu_torch.ops.pairing import bn128_pairing_device
 from wasmsnark_tpu_torch.utils import spans
 
 from test_torch_mnt_verify import g1_json, synthetic_proof, synthetic_vk
@@ -83,8 +82,7 @@ def case():
                                        [ln[1] for ln in lanes])
 
     timings = {}
-    # the traced batch builds the vk's fixed-base tables
-    bn128_pairing_device(CPU).vk_x_table_cache.clear()
+    # rt's first batch, traced, builds the vk's fixed-base tables
     on = {"prove": _run(lambda: prove(timings), True),
           "verify": _run(verify, True)}
     off["verify"] = _run(verify, False)
@@ -264,8 +262,9 @@ def bg_case():
         finally:
             mp.undo()
 
+    # no lane of this batch takes the key, so the key's first batch that
+    # does (traced) builds its state
     none = on(lambda: rt.bowe_gabizon_verify_batch(vk, ins[2:], prfs[2:]))
-    rt._pd.vk_prep_cache.clear()           # the key's first batch builds
     return {"on": on(verify), "off": _run(verify, False), "none": none}
 
 
@@ -311,14 +310,13 @@ def test_bg_vk_tables_once_a_key(monkeypatch):
     rt, vk, ins, prfs = _bg_lanes()
     vk2, _ = synthetic_vk(rt.m, 1, random.Random(25))
     monkeypatch.setattr(spans, "_enabled", lambda: True)
-    rt._pd.vk_prep_cache.clear()
     last = _last()
     for key in (vk, vk, vk2):
         rt._marshal_batch(key, ins[:1], prfs[:1], random.Random(5))
     names = [s.name for s in _new_since(last)]
     assert names.count("bg.vk_tables") == 2
     assert names.count("bg.scalars") == 3
-    assert len(rt._pd.vk_prep_cache) == 2
+    assert len(rt._keys) == 2
 
 
 def test_bg_off_records_nothing_and_gives_the_same_verdicts(bg_case):

@@ -6,13 +6,14 @@ port's own prover at square_chain_circuit(3).
 Lanes: a good proof, a tampered pi_a, a wrong public input, an input
 >= r, a wrong input count and a zero pi_a.  A second batch against the
 same vk must take the vk's prepared coefficients and its fixed-base vk_x
-tables from the caches.
+tables from the state the runtime's verifier keeps.
 
 The device vk_x stage against the host ladder (IC[0] + sum v_j IC[j+1] by
 double-and-add), bit for bit on BN128 and BLS12-381 with 7 hand-made IC
 points (6 inputs), and with zero IC points; a hand-made vk whose vk_x is
 the zero point on one lane, with a proof the pairing alone would accept
-there; the tables keyed by the IC points alone, at most 4 keys.
+there; a key's state keyed by its points (IC, gamma2, delta2, beta2), at
+most 4 keys.
 """
 
 import json
@@ -89,9 +90,10 @@ def _count_table_builds(monkeypatch) -> list:
 
 def test_second_batch_hits_the_vk_cache(case, monkeypatch):
     rt, vk, lanes = case
-    pd = bn128_pairing_device(CPU)
-    pd.vk_prep_cache.clear()
-    pd.vk_x_table_cache.clear()
+    keys = rt.verifier._keys
+    keys.clear()
+    pd = rt.verifier.pd
+    assert pd is bn128_pairing_device(CPU)
     builds = _count_table_builds(monkeypatch)
     calls = []
     prepare = pd.prepare_g2
@@ -104,13 +106,13 @@ def test_second_batch_hits_the_vk_cache(case, monkeypatch):
     first = rt.groth16_verify_batch(vk, [lanes[1][1], lanes[0][1]],
                                     [lanes[1][2], lanes[0][2]])
     assert first == [False, True]
-    assert len(calls) == 2 and len(pd.vk_prep_cache) == 1
-    cached = next(iter(pd.vk_prep_cache.values()))
+    assert len(calls) == 2 and len(keys) == 1
+    cached, = keys.values()
     second = rt.groth16_verify_batch(vk, [lanes[0][1]], [lanes[0][2]])
     assert second == [True]
     assert len(calls) == 3                      # pi_b only
-    assert next(iter(pd.vk_prep_cache.values())) is cached
-    assert builds == [1] and len(pd.vk_x_table_cache) == 1
+    again, = keys.values()
+    assert again is cached and builds == [1]
     assert rt.groth16_verify_batch(vk, [], []) == []
     with pytest.raises(ValueError):
         rt.groth16_verify_batch(vk, [lanes[0][1]], [])
@@ -210,29 +212,41 @@ def test_zero_vk_x_lane_answers_false(monkeypatch):
 
 
 def test_vk_x_tables_are_keyed_by_the_ic_points_alone(case, monkeypatch):
+    """A key's state (its tables and prepared G2 coefficients) is keyed by
+    the whole key's points, IC, gamma2, delta2 and beta2: alfa1, the
+    proofs and the inputs leave it alone, another delta2 builds anew; at
+    most four keys are kept."""
     _, vk, lanes = case
-    pd = bn128_pairing_device(CPU)
-    pd.vk_x_table_cache.clear()
+    verifier = tverifier.Groth16BatchVerifier("bn128", CPU)
     builds = _count_table_builds(monkeypatch)
 
     def marshal(key, ins, proofs):
-        return tverifier._batch_inputs(pd, m, key, ins, proofs)
+        return verifier._batch_inputs(key, ins, proofs)
 
     good, wrong = lanes[0], lanes[2]
     marshal(vk, [good[1]], [good[2]])
-    # other proofs and inputs, another alfa1: the same tables
+    # other proofs and inputs, another alfa1: the same state
     other = dict(vk, vk_alfa_1=_g1_json(m, m.G1.times_scalar(m.g1_gen, 5)))
     *_, ok_host, vk_x_ok = marshal(other, [wrong[1], good[1]],
                                    [good[2], lanes[1][2]])
     assert builds == [1] and ok_host == [True, True]
     assert vk_x_ok.tolist() == [True, True]
+    first, = verifier._keys.values()
     ic = [tverifier._g1_from_json(m, p) for p in vk["IC"]]
-    assert list(pd.vk_x_table_cache) == [tuple(tuple(p) for p in ic)]
-    # five keys of one IC point each (no inputs): at most four kept
-    for k in range(2, 7):
+    g2 = [tverifier._g2_from_json(m, vk[k])
+          for k in ("vk_gamma_2", "vk_delta_2", "vk_beta_2")]
+    assert verifier._key_state(ic, g2) is first
+    # another delta2: a key of its own
+    moved = dict(vk, vk_delta_2=_g2_json(m, m.G2.times_scalar(m.g2_gen, 3)))
+    marshal(moved, [good[1]], [good[2]])
+    assert builds == [1, 1] and len(verifier._keys) == 2
+    assert verifier._key_state(ic, g2) is first
+    # three more keys of one IC point each (no inputs): the fifth key
+    # clears the four kept before it
+    for k in range(2, 5):
         one = dict(vk, IC=[_g1_json(m, m.G1.times_scalar(m.g1_gen, k))])
         marshal(one, [[]], [good[2]])
-    assert builds == [1, 0, 0, 0, 0, 0]
-    assert 1 <= len(pd.vk_x_table_cache) <= 4
-    assert tverifier._g1_from_json(m, one["IC"][0]) in \
-        [key[0] for key in pd.vk_x_table_cache]
+    assert builds == [1, 1, 0, 0, 0]
+    last, = verifier._keys.values()
+    assert verifier._key_state(
+        [tverifier._g1_from_json(m, one["IC"][0])], g2) is last

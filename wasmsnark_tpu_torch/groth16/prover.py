@@ -42,6 +42,7 @@ from ..ops.msm import MSMDevice
 from ..ops.ntt import NTTDevice
 from ..ops.pol import construct_lc, lc_arrays
 from ..ops.towers import FpAdapter, F2Device
+from ..utils.keys import KeyCache
 from ..utils.serialize import bytes_le_to_int, ints_to_limbs_fast
 from ..utils.spans import span
 from .pkey import ProvingKey, parse_pkey, read_witness
@@ -80,7 +81,7 @@ class Groth16Prover:
         self.G2d = JacobianDevice(F2Device(a1, a1.neg))
         # id -> (bytes ref, ProvingKey, device state): repeated proves with
         # the same key bytes skip the parse and the upload
-        self._keys: dict = {}
+        self._keys = KeyCache()
 
     def _window_for(self, n: int) -> int:
         """The JAX package's window policy (the result does not depend on
@@ -112,10 +113,17 @@ class Groth16Prover:
         return sh.local(sh.shard(scalars), points)
 
     def _key(self, pkey):
-        """(ProvingKey, device state) for bytes or a parsed ProvingKey."""
-        hit = self._keys.get(id(pkey))
-        if hit is not None and hit[0] is pkey:
-            return hit[1], hit[2]
+        """(ProvingKey, device state) for bytes or a parsed ProvingKey,
+        kept by id(pkey) beside pkey itself: a hit must be pkey, not an
+        object that took a freed key's id()."""
+        hit = self._keys.get(id(pkey), lambda: (pkey, *self._load(pkey)))
+        if hit[0] is not pkey:
+            self._keys.pop(id(pkey))
+            return self._key(pkey)
+        return hit[1], hit[2]
+
+    def _load(self, pkey):
+        """Parse and upload a key -> (ProvingKey, device state)."""
         pk = pkey if isinstance(pkey, ProvingKey) else \
             parse_pkey(pkey, self.m.fp_spec, self.m.fr_spec)
         # the four G1 sections zero-padded to one length and stacked, so
@@ -140,9 +148,6 @@ class Groth16Prover:
                "n_pad": n_pad,
                "points_b2": map_leaf(pk.points_b2, place),
                **self._qap(pk)}
-        if len(self._keys) >= 4:
-            self._keys.clear()
-        self._keys[id(pkey)] = (pkey, pk, dev)
         return pk, dev
 
     # -- CALC_H -----------------------------------------------------------------

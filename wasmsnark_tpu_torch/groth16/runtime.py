@@ -12,8 +12,8 @@ class (src/bn128.js), and the same surface over BLS12-381.
 from __future__ import annotations
 
 from ..models import curve_module
+from .verifier import Groth16BatchVerifier
 from .verifier import groth16_verify as _verify
-from .verifier import groth16_verify_batch as _verify_batch
 
 
 class Groth16Runtime:
@@ -26,6 +26,7 @@ class Groth16Runtime:
         self.module = curve_module(self.CURVE)
         self.prover = Groth16Prover(device, curve=self.CURVE)
         self.device = self.prover.device
+        self.verifier = Groth16BatchVerifier(self.CURVE, self.device)
 
     # -- prover (src/bn128.js:580-720) ---------------------------------------
     def groth16_gen_proof(self, witness, pkey, *, rng=None):
@@ -43,9 +44,8 @@ class Groth16Runtime:
                              proofs) -> list:
         """Verify N proofs in one pass through the device pairing, on the
         runtime's device (lanes = proofs); see
-        groth16.verifier.groth16_verify_batch."""
-        return _verify_batch(verification_key, inputs_list, proofs,
-                             curve=self.CURVE, device=self.device)
+        groth16.verifier.Groth16BatchVerifier.verify."""
+        return self.verifier.verify(verification_key, inputs_list, proofs)
 
 
 class Bn128Runtime(Groth16Runtime):

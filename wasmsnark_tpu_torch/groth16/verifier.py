@@ -9,11 +9,13 @@ with vk_x = IC[0] + sum_i input[i] * IC[i+1], and every public input checked
 to be < r (bn128.js:776: `if int_gte(input, r) return false`).
 
 `groth16_verify` runs the pairing on the host oracle (models/);
-`groth16_verify_batch` runs N proofs at once through the curve's device
-pairing engine (ops/pairing.py), port of the JAX package's
+`Groth16BatchVerifier.verify` runs N proofs at once through the curve's
+device pairing engine (ops/pairing.py), port of the JAX package's
 `groth16_verify_batch`; every lane's vk_x is summed on the device from
 fixed-base tables of the key's IC points (ops/fixed_base.py
-`FixedBaseSum`), built once per key.  Its spans (utils/spans.py):
+`FixedBaseSum`), which the verifier builds once per key and keeps with the
+key's prepared G2 coefficients (`KeyState`, utils/keys.py's rule).  Its
+spans (utils/spans.py):
 "verify.batch" around it, "verify.marshal" around the marshalling, and
 under it "verify.vk_x_table" around a table's build and "verify.vk_x"
 around the batch's vk_x stage, and "verify.pairing" around the device
@@ -22,13 +24,17 @@ pairing and the verdicts' copy to the host.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from ..fields.spec import LIMB_BITS
 from ..models import curve_module
 from ..ops.curve import JacobianDevice, map_leaf, map_leaf2
 from ..ops.fixed_base import FixedBaseSum, batch_to_affine
-from ..ops.fp import planes
+from ..ops.fp import planes, resolve_device
+from ..utils.keys import KeyCache
 from ..utils.serialize import ints_to_limbs_fast, parse_bigint
 from ..utils.spans import span
 
@@ -103,126 +109,163 @@ def groth16_verify(vk: dict, inputs, proof: dict,
 # Batched device verification
 # ---------------------------------------------------------------------------
 
+class KeyState(NamedTuple):
+    """A verification key's device state, built once: coeffs, the prepared
+    line coefficients of its fixed G2 points (gamma2, delta2, beta2),
+    leaves [S, L, 3]; vk_x, the FixedBaseSum over its IC points (IC[0] the
+    start point)."""
+    coeffs: tuple
+    vk_x: FixedBaseSum
+
+
+class Groth16BatchVerifier:
+    """The batch verifier of one curve ("bn128" or "bls12381") on one torch
+    device (default: the CUDA card).  It keeps each key's KeyState, keyed
+    by the key's affine points (IC, gamma2, delta2, beta2)."""
+
+    def __init__(self, curve: str = "bn128", device=None):
+        self.curve = curve
+        self.m = curve_module(curve)
+        self.device = resolve_device(device)
+        self._keys = KeyCache()
+
+    @functools.cached_property
+    def pd(self):
+        """The curve's pairing engine on the verifier's device."""
+        from ..ops.pairing import pairing_device
+        return pairing_device(self.curve, self.device)
+
+    def verify(self, vk: dict, inputs_list, proofs) -> list:
+        """Verify N proofs against one verification key in one device pass.
+
+        The four Miller loops of the verification equation and all N
+        proofs share the lanes: leaves are [L, 4, N] limb planes, the pairs
+        axis reduces with two F12 multiplies, and one final exponentiation
+        closes every equation.  A lane with a zero point (vk_x included), a
+        wrong input count, an input >= r or an unparsable proof is filled
+        with generators and answers False.
+        """
+        n = len(proofs)
+        if len(inputs_list) != n:
+            raise ValueError(f"{len(inputs_list)} input lists for {n} proofs")
+        if n == 0:
+            return []
+        with span("verify.batch"):
+            pd = self.pd
+            with span("verify.marshal"):
+                g1, g2_b, fixed, ok_host, vk_x_ok = self._batch_inputs(
+                    vk, inputs_list, proofs)
+            with span("verify.pairing"):
+                ok = (pd.is_one(_pairing_batch(pd, g1, g2_b, fixed))
+                      & vk_x_ok).cpu().tolist()
+            return [bool(ok[i]) and ok_host[i] for i in range(n)]
+
+    def _batch_inputs(self, vk, inputs_list, proofs):
+        """Marshalling of a batch: the G1 planes of the four pairs
+        (A, -vk_x, -C, -alfa1) as leaves [L, 4, N], pi_b as F2 leaves
+        [L, 1, N], the vk's prepared (gamma2, delta2, beta2) coefficients,
+        per lane whether the host let it through, and per lane (a device
+        mask) whether vk_x is not the zero point.  The host parses the
+        points and checks the inputs; vk_x is the device stage
+        `_vk_x_device`."""
+        pd, m = self.pd, self.m
+        R = m.Fr.q
+        n = len(proofs)
+        g1_rows = [[], [], []]       # A, -C, -alfa1
+        g2_b = []                    # B
+        ok_host = [True] * n
+
+        alfa1 = _g1_from_json(m, vk["vk_alfa_1"])
+        beta2 = _g2_from_json(m, vk["vk_beta_2"])
+        gamma2 = _g2_from_json(m, vk["vk_gamma_2"])
+        delta2 = _g2_from_json(m, vk["vk_delta_2"])
+        ic = [_g1_from_json(m, p) for p in vk["IC"]]
+        g1_gen = m.G1.affine(m.g1_gen)
+        g2_gen = m.G2.affine(m.g2_gen)
+        scalars = [[0] * n for _ in range(len(ic) - 1)]   # [input, lane]
+
+        for i, (inputs, proof) in enumerate(zip(inputs_list, proofs)):
+            if inputs is None:
+                inputs = []
+            elif not isinstance(inputs, list):
+                inputs = [inputs]
+            try:
+                A = _g1_from_json(m, proof["pi_a"])
+                B = _g2_from_json(m, proof["pi_b"])
+                C = _g1_from_json(m, proof["pi_c"])
+                if len(inputs) + 1 != len(ic):
+                    raise ValueError("bad input count")
+                values = [parse_bigint(raw) for raw in inputs]
+                if any(v >= R for v in values):
+                    raise ValueError("input >= r")
+                pts1 = [A, m.G1.neg(C), m.G1.neg(alfa1)]
+                if any(m.G1.is_zero(p) for p in pts1) or any(
+                        m.G2.is_zero(p) for p in (B, gamma2, delta2, beta2)):
+                    raise ValueError("zero point")
+                for k in range(3):
+                    a1 = m.G1.affine(pts1[k])
+                    g1_rows[k].append((a1[0], a1[1]))
+                a2 = m.G2.affine(B)
+                g2_b.append((a2[0], a2[1]))
+                # a negative input as its residue: the same multiple of the
+                # r-order IC points as the host ladder's -v P
+                for j, v in enumerate(values):
+                    scalars[j][i] = v % R
+            except (ValueError, KeyError, TypeError):
+                # keep the lanes rectangular with generator pairs, which
+                # cannot satisfy the equation, and zero scalars; the host
+                # has decided this lane
+                ok_host[i] = False
+                for k in range(3):
+                    g1_rows[k].append((g1_gen[0], g1_gen[1]))
+                g2_b.append((g2_gen[0], g2_gen[1]))
+
+        # every upload before the vk_x stage's launches
+        rows = map_leaf(pd.pack_g1([p for row in g1_rows for p in row]),
+                        lambda a: a.reshape(a.shape[0], 3, n))  # [L, 3, N]
+        # only pair 0's G2 point (pi_b) varies per proof; gamma2, delta2
+        # and beta2 ride the key's prepared coefficients
+        g2 = map_leaf(pd.pack_g2(g2_b),
+                      lambda a: a.reshape(a.shape[0], 1, n))
+        state = self._key_state(ic, (gamma2, delta2, beta2))
+        with span("verify.vk_x"):
+            neg_vk_x, vk_x_ok = _vk_x_device(pd, m, state.vk_x, scalars, n)
+        g1 = map_leaf2(rows, neg_vk_x, lambda r, v: torch.stack(
+            (r[:, 0], v, r[:, 1], r[:, 2]), dim=1))            # [L, 4, N]
+        return g1, g2, state.coeffs, ok_host, vk_x_ok
+
+    def _key_state(self, ic, g2_fixed):
+        """The key's KeyState, built on its first batch: the prepared
+        coefficients of g2_fixed, then the IC points' tables."""
+        pd, m = self.pd, self.m
+        g2 = tuple((p[0], p[1]) for p in (m.G2.affine(q) for q in g2_fixed))
+        return self._keys.get(
+            (tuple(tuple(p) for p in ic), g2),
+            lambda: KeyState(pd.prepare_g2(pd.pack_g2(list(g2))),
+                             _vk_x_table(pd, m, ic)))
+
+
+@functools.lru_cache(maxsize=8)
+def _verifier(curve: str, device) -> Groth16BatchVerifier:
+    return Groth16BatchVerifier(curve, device)
+
+
 def groth16_verify_batch(vk: dict, inputs_list, proofs, curve: str = "bn128",
                          device=None) -> list:
-    """Verify N proofs against one verification key in one device pass.
-
-    The four Miller loops of the verification equation and all N proofs
-    share the lanes: leaves are [L, 4, N] limb planes, the pairs axis
-    reduces with two F12 multiplies, and one final exponentiation closes
-    every equation.  `device` is the torch device (default: the CUDA
-    card); `curve` picks the pairing engine of that device, whose
-    vk_prep_cache keeps the vk's prepared ladders and vk_x_table_cache the
-    fixed-base tables of its IC points.  A lane with a zero point (vk_x
-    included), a wrong input count, an input >= r or an unparsable proof
-    is filled with generators and answers False.
-    """
-    from ..ops.pairing import pairing_device
-
-    m = curve_module(curve)
-    n = len(proofs)
-    if len(inputs_list) != n:
-        raise ValueError(f"{len(inputs_list)} input lists for {n} proofs")
-    if n == 0:
-        return []
-    with span("verify.batch"):
-        pd = pairing_device(curve, device)
-        with span("verify.marshal"):
-            g1, g2_b, fixed, ok_host, vk_x_ok = _batch_inputs(
-                pd, m, vk, inputs_list, proofs)
-        with span("verify.pairing"):
-            ok = (pd.is_one(_pairing_batch(pd, g1, g2_b, fixed))
-                  & vk_x_ok).cpu().tolist()
-        return [bool(ok[i]) and ok_host[i] for i in range(n)]
-
-
-def _batch_inputs(pd, m, vk, inputs_list, proofs):
-    """Marshalling of a batch: the G1 planes of the four pairs
-    (A, -vk_x, -C, -alfa1) as leaves [L, 4, N], pi_b as F2 leaves
-    [L, 1, N], the vk's prepared (gamma2, delta2, beta2) coefficients, per
-    lane whether the host let it through, and per lane (a device mask)
-    whether vk_x is not the zero point.  The host parses the points and
-    checks the inputs; vk_x is the device stage `_vk_x_device`."""
-    R = m.Fr.q
-    n = len(proofs)
-    g1_rows = [[], [], []]       # A, -C, -alfa1
-    g2_b = []                    # B
-    ok_host = [True] * n
-
-    alfa1 = _g1_from_json(m, vk["vk_alfa_1"])
-    beta2 = _g2_from_json(m, vk["vk_beta_2"])
-    gamma2 = _g2_from_json(m, vk["vk_gamma_2"])
-    delta2 = _g2_from_json(m, vk["vk_delta_2"])
-    ic = [_g1_from_json(m, p) for p in vk["IC"]]
-    g1_gen = m.G1.affine(m.g1_gen)
-    g2_gen = m.G2.affine(m.g2_gen)
-    scalars = [[0] * n for _ in range(len(ic) - 1)]   # [input, lane]
-
-    for i, (inputs, proof) in enumerate(zip(inputs_list, proofs)):
-        if inputs is None:
-            inputs = []
-        elif not isinstance(inputs, list):
-            inputs = [inputs]
-        try:
-            A = _g1_from_json(m, proof["pi_a"])
-            B = _g2_from_json(m, proof["pi_b"])
-            C = _g1_from_json(m, proof["pi_c"])
-            if len(inputs) + 1 != len(ic):
-                raise ValueError("bad input count")
-            values = [parse_bigint(raw) for raw in inputs]
-            if any(v >= R for v in values):
-                raise ValueError("input >= r")
-            pts1 = [A, m.G1.neg(C), m.G1.neg(alfa1)]
-            if any(m.G1.is_zero(p) for p in pts1) or any(
-                    m.G2.is_zero(p) for p in (B, gamma2, delta2, beta2)):
-                raise ValueError("zero point")
-            for k in range(3):
-                a1 = m.G1.affine(pts1[k])
-                g1_rows[k].append((a1[0], a1[1]))
-            a2 = m.G2.affine(B)
-            g2_b.append((a2[0], a2[1]))
-            # a negative input as its residue: the same multiple of the
-            # r-order IC points as the host ladder's -v P
-            for j, v in enumerate(values):
-                scalars[j][i] = v % R
-        except (ValueError, KeyError, TypeError):
-            # keep the lanes rectangular with generator pairs, which cannot
-            # satisfy the equation, and zero scalars; the host has decided
-            # this lane
-            ok_host[i] = False
-            for k in range(3):
-                g1_rows[k].append((g1_gen[0], g1_gen[1]))
-            g2_b.append((g2_gen[0], g2_gen[1]))
-
-    # every upload before the vk_x stage's launches
-    rows = map_leaf(pd.pack_g1([p for row in g1_rows for p in row]),
-                    lambda a: a.reshape(a.shape[0], 3, n))     # [L, 3, N]
-    # only pair 0's G2 point (pi_b) varies per proof; gamma2, delta2 and
-    # beta2 ride the prepared-coefficient cache
-    g2 = map_leaf(pd.pack_g2(g2_b), lambda a: a.reshape(a.shape[0], 1, n))
-    fixed = _prepared_vk_coeffs(pd, m, (gamma2, delta2, beta2))
-    table = _vk_x_table(pd, m, ic)
-    with span("verify.vk_x"):
-        neg_vk_x, vk_x_ok = _vk_x_device(pd, m, table, scalars, n)
-    g1 = map_leaf2(rows, neg_vk_x, lambda r, v: torch.stack(
-        (r[:, 0], v, r[:, 1], r[:, 2]), dim=1))                # [L, 4, N]
-    return g1, g2, fixed, ok_host, vk_x_ok
+    """Module-level batch verify (the JAX package's entry point): the
+    Groth16BatchVerifier of `curve` on `device` (default: the CUDA card),
+    one per curve and device, verifies the batch."""
+    return _verifier(curve, resolve_device(device)).verify(
+        vk, inputs_list, proofs)
 
 
 def _vk_x_table(pd, m, ic):
-    """The fixed-base tables of the vk's IC points (IC[0] the start point):
-    built once per key, cached on the device's pairing engine, keyed by the
-    affine IC points alone, at most 4 keys."""
-    key = tuple(tuple(p) for p in ic)
-    cache = pd.vk_x_table_cache
-    if key not in cache:
-        if len(cache) >= 4:
-            cache.clear()
-        with span("verify.vk_x_table"):
-            cache[key] = FixedBaseSum(
-                JacobianDevice(pd.base), m.G1, ic[0], ic[1:], pd.fp.pack_mont,
-                m.fr_spec.n_limbs * LIMB_BITS)
-    return cache[key]
+    """The fixed-base tables of the vk's IC points (IC[0] the start
+    point), under the span verify.vk_x_table."""
+    with span("verify.vk_x_table"):
+        return FixedBaseSum(
+            JacobianDevice(pd.base), m.G1, ic[0], ic[1:], pd.fp.pack_mont,
+            m.fr_spec.n_limbs * LIMB_BITS)
 
 
 def _vk_x_device(pd, m, table, scalars, n):
@@ -240,19 +283,6 @@ def _vk_x_device(pd, m, table, scalars, n):
     zero = table.curve.is_zero(p)
     x, y = batch_to_affine(table.curve, p)
     return (F.select(zero, gx, x), F.neg(F.select(zero, gy, y))), ~zero
-
-
-def _prepared_vk_coeffs(pd, m, g2_fixed):
-    """Prepared line coefficients of the vk's fixed G2 points (gamma2,
-    delta2, beta2): leaves [S, L, 3], cached on the device's pairing
-    engine, keyed by the points, at most 4 keys."""
-    key = tuple((p[0], p[1]) for p in (m.G2.affine(q) for q in g2_fixed))
-    cache = pd.vk_prep_cache
-    if key not in cache:
-        if len(cache) >= 4:
-            cache.clear()
-        cache[key] = pd.prepare_g2(pd.pack_g2(list(key)))
-    return cache[key]
 
 
 def _pairing_batch(pd, g1, g2_b, fixed):

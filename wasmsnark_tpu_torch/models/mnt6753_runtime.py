@@ -40,7 +40,7 @@ x P = (x mod r) P for every point of the curve, and the raw-scalar ladder
 of the reference (mnt6753.js:673-676) gives the same vk_x for any input.
 A key's state (the prepared (G2gen, delta) coefficients, vk_x's
 fixed-base tables over its query points, the alphaBeta powers) is built
-once and kept on the pairing engine, at most 4 keys; nothing is kept per
+once and kept on the runtime (utils/keys.py's rule); nothing is kept per
 proof or input.
 
 Verification protocol (mnt6753.js:614-726):
@@ -69,6 +69,7 @@ from ..ops.fixed_base import FixedBaseSum
 from ..ops.fp import planes, resolve_device
 from ..ops.msm import times_scalar_signed_device, window_digits
 from ..ops.towers import stack, unstack
+from ..utils.keys import KeyCache
 from ..utils.serialize import (int_to_bytes_le, ints_to_limbs,
                                ints_to_limbs_fast, is_ocam_num, parse_bigint)
 from ..utils.spans import span
@@ -135,6 +136,7 @@ class Mnt6753Runtime:
     def __init__(self, device=None):
         self.m = mnt6753()
         self.device = resolve_device(device)
+        self._keys = KeyCache()
 
     # -- JSON marshalling (setF1/setF3/setF6/setG1Affine/setG2Affine,
     #    mnt6753.js:492-537; values decimal strings or OCaml num triples) ----
@@ -247,18 +249,14 @@ class Mnt6753Runtime:
         return Lane(coords, scalars, int.from_bytes(raw, "little"))
 
     def _key_state(self, verification_key):
-        """The key's KeyState, built once per key and device (span
-        bg.vk_tables) and kept in the pairing engine's vk_prep_cache, keyed
-        by the query points, alphaBeta and delta, at most 4 keys (as the
-        JAX package's cache)."""
+        """The key's KeyState, built on its first batch (span
+        bg.vk_tables) and kept on the runtime, keyed by the query points,
+        alphaBeta and delta."""
         query = tuple(self._g1_xy(p) for p in verification_key["query"])
         alpha_beta = self._f6(verification_key["alphaBeta"])
         delta = self._g2_xy(verification_key["delta"])
-        key = (query, alpha_beta, delta)
-        cache = self._pd.vk_prep_cache
-        if key not in cache:
-            if len(cache) >= 4:
-                cache.clear()
+
+        def build():
             with span("bg.vk_tables"):
                 m, dev, pd = self.m, self._dev, self._pd
                 g2gen = m.G2.affine(m.g2_gen)
@@ -266,9 +264,9 @@ class Mnt6753Runtime:
                 pts = [m.G1.from_affine(*p) for p in query]
                 vk_x = FixedBaseSum(dev.G1d, m.G1, pts[0], pts[1:],
                                     dev.fp.pack_mont, R.bit_length())
-                cache[key] = KeyState(coeffs, vk_x,
-                                      self._ab_table(alpha_beta))
-        return cache[key]
+                return KeyState(coeffs, vk_x, self._ab_table(alpha_beta))
+
+        return self._keys.get((query, alpha_beta, delta), build)
 
     def _ab_table(self, alpha_beta):
         """T[w D + d] = alphaBeta^(d 2^(c w)) for rho's c-bit windows w
@@ -420,11 +418,6 @@ class Mnt6753Runtime:
         coeffs = map_leaf2(prep, fixed, five)
         e = pd.pairing_products_prepared(g1, coeffs, fused=fused)
         return pd.is_eq_planes(e, expected)
-
-    def _check(self, t, g1_4, g2_var, fixed, expected, fused: bool):
-        """Stages 4-5 -> bool [N]."""
-        return self._pairing_check(self._ys_g1(t, g1_4), g2_var, fixed,
-                                   expected, fused)
 
     def _verify_device(self, verification_key, inputs_list, proofs,
                        fused: bool, rng=None) -> list:

@@ -184,11 +184,6 @@ class _PairingEngine:
             e = (Q ** j - 1) // 6
             self._frob_coefs.append(tuple(
                 self._const_f2(F2o.exp(xi, k * e)) for k in range(1, 6)))
-        # prepared line coefficients of fixed G2 points (a verification
-        # key's gamma2, delta2, beta2), and the fixed-base tables of a key's
-        # IC points, filled by groth16.verifier
-        self.vk_prep_cache: dict = {}
-        self.vk_x_table_cache: dict = {}
         # the full exponent (q^12 - 1)/r, MSB first, for the self-check
         # ladder final_exponentiation_scan
         self.finexp_bits = np.array(
@@ -613,10 +608,6 @@ class Mnt6753PairingDevice:
         e1 = (Q - 1) // 6
         self._frob_fp = tuple(self.fp.pack_mont([pow(NR, k * e1, Q)])
                               for k in range(1, 6))
-        # a verification key's device state (the prepared line
-        # coefficients of its fixed G2 points G2gen and delta, its vk_x and
-        # alphaBeta tables), filled by models/mnt6753_runtime.py
-        self.vk_prep_cache: dict = {}
 
     # -- marshalling ----------------------------------------------------------
 
@@ -846,13 +837,13 @@ def bn128_pairing_device(device=None) -> Bn128PairingDevice:
 
 def bls12381_pairing_device(device=None) -> Bls12381PairingDevice:
     """The BLS12-381 pairing engine of `device` (default: the CUDA card),
-    one per device, with its own vk_prep_cache."""
+    one per device."""
     return _engine(Bls12381PairingDevice, str(resolve_device(device)))
 
 
 def mnt6753_pairing_device(device=None) -> Mnt6753PairingDevice:
     """The MNT6753 pairing engine of `device` (default: the CUDA card), one
-    per device, with its own vk_prep_cache."""
+    per device."""
     return _engine(Mnt6753PairingDevice, str(resolve_device(device)))
 
 
