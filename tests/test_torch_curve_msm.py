@@ -21,7 +21,7 @@ from wasmsnark_tpu.ops.towers import FpAdapter as JAd
 from wasmsnark_tpu.utils.serialize import ints_to_limbs
 
 from wasmsnark_tpu_torch.ops import fp as tfp
-from wasmsnark_tpu_torch.ops.curve import JacobianDevice, map_leaf
+from wasmsnark_tpu_torch.ops.curve import JacobianDevice, host_points, map_leaf
 from wasmsnark_tpu_torch.ops.msm import (MSMDevice, fold_windows,
                                          fold_windows_device)
 from wasmsnark_tpu_torch.ops.towers import FpAdapter, F2Device
@@ -268,3 +268,73 @@ def test_reduce_last_any_length_vs_jax(n):
         acc = m.G1.add(acc, p)
     assert same(m.G1, got[0], jgot[0])
     assert same(m.G1, acc, got[0])
+
+
+def _jax_oracle(curve):
+    """The JAX package's host module of a curve."""
+    if curve == "bn128":
+        return m
+    from wasmsnark_tpu.models.bls12381 import bls12381
+    return bls12381()
+
+
+def _g2_scalars(case, c, r, rnd, n):
+    if case == "small":
+        return [rnd.randrange(1 << (2 * c)) for _ in range(n)]
+    if case == "zero":
+        return [0] * n
+    # the largest reduced scalar, 2^255 - 1 (every digit carries, up to
+    # the top window), and 2^256 - 1 (the carry window filled)
+    return [rnd.randrange(r) for _ in range(n - 3)] + [
+        r - 1, 2 ** 255 - 1, 2 ** 256 - 1]
+
+
+@pytest.mark.parametrize("case", ["small", "zero", "carry"])
+@pytest.mark.parametrize("window_bits", [4, 8])
+@pytest.mark.parametrize("curve", ["bn128", "bls12381"])
+def test_g2_msm_host_fold(curve, window_bits, case, monkeypatch):
+    """The prover's G2 MSM (Groth16Prover._msm_g2: the window sums folded
+    on the host) equals the JAX package's oracle MSM, and so do the same
+    window sums folded by fold_windows over the JAX oracle's G2 and by
+    fold_windows_device, compared affine: scalars under 2^(2c), whose top
+    windows are zero sums; all-zero scalars, whose MSM is the zero point;
+    and scalars that carry into the top window and the carry window.  The
+    points hold a repeat and the zero point."""
+    from wasmsnark_tpu_torch.groth16.prover import Groth16Prover
+    jm = _jax_oracle(curve)
+    prover = Groth16Prover(device="cpu", curve=curve,
+                           msm_window_bits=window_bits)
+    F, G2 = prover.Fp, prover.G2d
+    rnd = random.Random(f"{curve}-{window_bits}-{case}")
+    r = jm.Fr.q
+    base = [jm.G2.affine(jm.G2.times_scalar(jm.g2_gen, rnd.randrange(1, r)))
+            for _ in range(4)]
+    pts = base + [jm.G2.zero(), base[0]]
+    scalars = _g2_scalars(case, window_bits, r, rnd, len(pts))
+    S = tfp.planes(ints_to_limbs(scalars, 16), CPU)
+    P = tuple((F.pack_mont([p[i][0] for p in pts]),
+               F.pack_mont([p[i][1] for p in pts])) for i in range(2))
+    P = map_leaf(P, lambda a: a * torch.tensor(
+        [not jm.G2.is_zero(p) for p in pts], dtype=a.dtype))
+    sums = []
+    msm = MSMDevice.msm
+
+    def keep(self, *args):
+        sums.append(msm(self, *args))
+        return sums[-1]
+
+    monkeypatch.setattr(MSMDevice, "msm", keep)
+    got = prover._msm_g2(S, P)
+    assert len(sums) == 1
+    win = host_points(F, sums[0])
+    if case == "small":
+        assert all(jm.G2.is_zero(w) for w in win[3:])
+    if case == "carry":
+        assert not jm.G2.is_zero(win[-1])
+    host = fold_windows(jm.G2, win, window_bits)
+    dev = host_points(F, fold_windows_device(G2, sums[0], window_bits))
+    assert len(dev) == 1
+    want = jm.G2.msm(pts, scalars)
+    assert jm.G2.is_zero(want) == (case == "zero")
+    for p in (got, host, dev[0]):
+        assert same(jm.G2, want, p)

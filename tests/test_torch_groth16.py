@@ -62,6 +62,38 @@ def test_proof_json_equals_jax_and_verifies(keys, port):
     assert port.groth16_verify(vk, [str(wit[1])], got) is True
 
 
+def test_g2_windows_fold_on_the_host(keys, port, monkeypatch):
+    """In one prove the device fold runs once, over the four stacked G1
+    MSMs, and never over G2: the G2 MSM's window sums are folded on the
+    host, once, over the oracle's G2 (c = 4 at this size: 64 windows and
+    the carry window).  The proof JSON stays the JAX package's byte for
+    byte."""
+    from wasmsnark_tpu_torch.groth16 import prover as prover_mod
+    from wasmsnark_tpu_torch.ops import msm as msm_mod
+    pkey, _ = keys
+    wbytes = write_witness(jsetup.square_chain_witness(K, 5), m.fr_spec)
+    want = wasmsnark_tpu.build_bn128().groth16_gen_proof(wbytes, pkey, rng=7)
+    folds = []
+    device_fold = msm_mod.fold_windows_device
+    host_fold = prover_mod.fold_windows
+
+    def fold_windows_device(curve, win, window_bits):
+        folds.append(("device", curve, tuple(win[0].shape[1:])))
+        return device_fold(curve, win, window_bits)
+
+    def fold_windows(curve, points, window_bits):
+        folds.append(("host", curve, len(points)))
+        return host_fold(curve, points, window_bits)
+
+    monkeypatch.setattr(msm_mod, "fold_windows_device", fold_windows_device)
+    monkeypatch.setattr(prover_mod, "fold_windows", fold_windows)
+    got = port.groth16_gen_proof(wbytes, pkey, rng=7)
+    prover = port.prover
+    assert folds == [("device", prover.G1d, (4, 65)),
+                     ("host", prover.m.G2, 65)]
+    assert json.dumps(got) == json.dumps(want)
+
+
 def test_bad_witness_and_tampered_proof_rejected(keys, port):
     pkey, vk = keys
     wit = jsetup.square_chain_witness(K, 5)

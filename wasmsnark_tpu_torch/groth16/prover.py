@@ -4,18 +4,20 @@ src/bn128.js:580-720, curve-generic as the JAX package's.
 
   CALC_H   to_mont, two constructLC, two iNTT, two odd-coset NTT,
            pointwise mont_mul, one 2N-point iNTT, from_mont (on the device)
-  5 MSMs   four over G1, one over G2, each folded to one point on the device
+  5 MSMs   four over G1, folded to one point each on the device; one over
+           G2, its window sums folded on the host (fold_windows)
   host     r/s randomization and the affine proof (oracle group ops)
 
-Over a mesh (parallel/mesh.py; one process a rank): each MSM runs
-point-sharded through msm_sharded_point, the key's point sections
-uploaded only as this rank's blocks; CALC_H runs split over the mesh's
-first axis (the JAX prover's domain axis, `_calc_h_split`), each rank on
-its part of the domain with only its QAP rows uploaded, and its block of
-H goes to its block of the h_exps MSM; every rank assembles the same
-proof from the same window sums and rng.  A mesh the split cannot serve
-(ranks not a power of two, a domain under D^2 points) runs CALC_H whole
-on every rank; `calc_h_path` says which ran.
+Over a mesh (parallel/mesh.py; one process a rank): each MSM runs point-
+sharded (ShardedMSM; G1's folded on the device, G2's gathered window sums
+on the host as without a mesh), the key's point sections uploaded only
+as this rank's blocks; CALC_H runs split over the mesh's first axis (the
+JAX prover's domain axis, `_calc_h_split`), each rank on its part of the
+domain with only its QAP rows uploaded, and its block of H goes to its
+block of the h_exps MSM; every rank assembles the same proof from the
+same window sums and rng.  A mesh the split cannot serve (ranks not a
+power of two, a domain under D^2 points) runs CALC_H whole on every
+rank; `calc_h_path` says which ran.
 
 Randomization parity: r and s are 32 unreduced random bytes and the r*s
 term uses their full product, as in the reference, so for the same key,
@@ -36,9 +38,9 @@ import random
 import torch
 
 from ..models import curve_module
-from ..ops.curve import JacobianDevice, map_leaf
-from ..ops.fp import FpDevice, planes, resolve_device, to_numpy
-from ..ops.msm import MSMDevice
+from ..ops.curve import JacobianDevice, host_points, map_leaf
+from ..ops.fp import FpDevice, planes, resolve_device
+from ..ops.msm import MSMDevice, fold_windows
 from ..ops.ntt import NTTDevice
 from ..ops.pol import construct_lc, lc_arrays
 from ..ops.towers import FpAdapter, F2Device
@@ -91,26 +93,37 @@ class Groth16Prover:
         return 16 if n >= (1 << 16) else 12 if n >= (1 << 12) else 8 \
             if n >= (1 << 7) else 4
 
-    def _sharded_msm(self, curve, n: int):
-        """msm_sharded_point over the mesh's "points" axis, for an MSM of
-        n points (its window by n, as without a mesh)."""
+    def _sharded_msm(self, curve, n: int, fold: bool = True):
+        """A ShardedMSM over the mesh's "points" axis, for an MSM of n
+        points (its window by n, as without a mesh), its window sums folded
+        on the device (msm_sharded_point) or, with fold=False, not
+        (msm_sharded)."""
         c = self._window_for(n)
-        key = (id(curve), c)
+        key = (id(curve), c, fold)
         if key not in self._sharded:
-            from ..parallel.mesh import msm_sharded_point
-            self._sharded[key] = msm_sharded_point(
-                MSMDevice(curve, window_bits=c), self.mesh)
+            from ..parallel.mesh import ShardedMSM
+            self._sharded[key] = ShardedMSM(
+                MSMDevice(curve, window_bits=c), self.mesh, fold=fold)
         return self._sharded[key]
 
-    def _msm(self, curve, scalars, points):
-        """One MSM folded to a point on the device.  Under a mesh, scalars
-        are whole ([L, *K, n], cut here) and points this rank's block."""
+    def _msm_g2(self, scalars, points):
+        """The G2 MSM as a host point.  Its W window sums are copied to the
+        host, where the proof is assembled, and folded there (fold_windows):
+        G2 has no fused doubling, so a device fold is ~8,400 one-lane
+        launches at c = 16, the host fold ~10 ms.  Under a mesh, scalars
+        are whole ([L, n], cut here), points this rank's block, and the
+        window sums every rank's, gathered."""
         n = scalars.shape[-1]
-        if self.mesh is None:
-            return MSMDevice(curve, window_bits=self._window_for(n)
-                             ).msm_point(scalars, points)
-        sh = self._sharded_msm(curve, n)
-        return sh.local(sh.shard(scalars), points)
+        with span("msm"):
+            if self.mesh is None:
+                msm = MSMDevice(self.G2d, window_bits=self._window_for(n))
+                win = msm.msm(scalars, points)
+            else:
+                sh = self._sharded_msm(self.G2d, n, fold=False)
+                msm, win = sh.msm, sh.local(sh.shard(scalars), points)
+            with span("msm.fold"):
+                return fold_windows(self.m.G2, host_points(self.Fp, win),
+                                    msm.c)
 
     def _key(self, pkey):
         """(ProvingKey, device state) for bytes or a parsed ProvingKey,
@@ -285,7 +298,8 @@ class Groth16Prover:
                 sc = torch.stack([torch.nn.functional.pad(
                     s, (0, n_pad - s.shape[-1])) for s in secs + (h,)],
                     dim=1)
-                g1 = self._msm(self.G1d, sc, dev["g1"])   # leaves [L, 4]
+                g1 = MSMDevice(self.G1d, window_bits=self._window_for(
+                    n_pad)).msm_point(sc, dev["g1"])       # leaves [L, 4]
             else:
                 sh = self._sharded_msm(self.G1d, n_pad)
                 sc = torch.stack(
@@ -293,10 +307,9 @@ class Groth16Prover:
                     + [self._h_block(sh, h, pk.domain_size, n_pad)],
                     dim=1)                                 # [L, 4, block]
                 g1 = sh.local(sc, dev["g1"])
-            pi_a, pib1, pi_c, p_h = (
-                self._g1_host(tuple(c[:, k] for c in g1)) for k in range(4))
+            pi_a, pib1, pi_c, p_h = host_points(self.Fp, g1)
         with self._phase(timings, "msm_g2"):
-            pi_b = self._g2_host(self._msm(self.G2d, sig, dev["points_b2"]))
+            pi_b = self._msm_g2(sig, dev["points_b2"])
 
         with self._phase(timings, "host_assembly"):
             return self._assemble(pk, rng, pi_a, pi_b, pib1, pi_c, p_h)
@@ -359,19 +372,6 @@ class Groth16Prover:
             return h
         self.h_recut = True
         return sh.shard(split.gather(h), n_pad)
-
-    # -- device -> host points ------------------------------------------------
-
-    def _g1_host(self, p):
-        """Device Jacobian point (leaves [L]) -> host oracle point."""
-        F = self.Fp
-        return tuple(F.unpack_mont(to_numpy(c)[:, None])[0] for c in p)
-
-    def _g2_host(self, p):
-        F = self.Fp
-        return tuple(
-            tuple(F.unpack_mont(to_numpy(cc)[:, None])[0] for cc in c)
-            for c in p)
 
 
 @functools.lru_cache(maxsize=8)

@@ -42,6 +42,17 @@ def map_leaf2(x, y, fn):
     return fn(x, y)
 
 
+def host_points(F, p) -> list:
+    """Device points (leaves [L, *B], Montgomery over the base field's
+    FpDevice F) -> their host oracle points, B flattened: each coordinate
+    an int, or over a tower a tuple of them.  One copy a leaf."""
+    def coord(c):
+        if isinstance(c, tuple):
+            return list(zip(*(coord(cc) for cc in c)))
+        return F.unpack_mont(c.reshape(c.shape[0], -1))
+    return list(zip(*(coord(c) for c in p)))
+
+
 class JacobianDevice:
     """y^2 = x^3 + b, a = 0 (BN128 G1 and G2)."""
 
